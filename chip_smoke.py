@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``dpr_scale_tpu_torch/csrc`` and drives
-its dense serving path at full bert_base width (conf/nq.yaml): corpus
+its two paths at full bert_base width (conf/nq.yaml): serving (corpus
 encoding through ``cli.generate_embeddings`` and ``/search`` requests
-against ``cli.serve.build_retriever`` over a 1,048,576-row index. Phases:
+against ``cli.serve.build_retriever`` over a 1,048,576-row index) and
+training (``cli.train``, dropout 0.1). Phases:
 
   1. the card (nvidia-smi name and power limit) and the tokenizer / config
      packages it has;
@@ -13,14 +14,31 @@ against ``cli.serve.build_retriever`` over a 1,048,576-row index. Phases:
      (B=128, 12 heads, L=256, head_dim 64, bf16, ragged key masks);
   3. group-count kernel vs its plain version at B=64, N=1,048,576, D=768
      bf16, thresholds at each query's 99.99th score percentile;
-  4. the slice: a synthetic 30,522-entry WordPiece vocab and 1,048,576-row
-     passages TSV; bert_base (random weights from a seed) encodes the first
-     4,096 passages; 1,044,480 distractor rows join as a second shard; the
-     server answers requests of 1, 5 and 40 questions at k = 5 and 100, each
-     checked against a brute-force exact top-k over the same bf16 corpus;
-     both kernels' launch counters must rise during this phase. Then one
-     search of 64 queries is timed with the index's "fused" and
-     "exact_sort" methods.
+  4. the serving slice: a synthetic 30,522-entry WordPiece vocab and
+     1,048,576-row passages TSV; bert_base (random weights from a seed)
+     encodes the first 4,096 passages; 1,044,480 distractor rows join as a
+     second shard; the server answers requests of 1, 5 and 40 questions at
+     k = 5 and 100, each checked against a brute-force exact top-k over the
+     same bf16 corpus; both kernels' launch counters must rise during this
+     phase. Then one search of 64 queries is timed with the index's "fused"
+     and "exact_sort" methods;
+  5. the attention forward with dropout and the attention backward vs their
+     plain versions at the shapes phase 6 gives them (B=256 contexts and
+     B=128 queries, 12 heads, L=256, head_dim 64, bf16, ragged key masks,
+     rates 0 and 0.1, one seed for both), seed repeatability, and their
+     times;
+  6. the training slice: a synthetic DPR-JSON train/val set over the same
+     vocab, ``cli.train`` on conf/nq.yaml for 8 steps at batch 128 (128
+     queries, 256 contexts, L = 256, dropout 0.1), then validation and test;
+     loss and grad_norm finite, metrics back, the dropout forward's and the
+     backward's launch counters must rise; median step time, queries/s and
+     peak device memory are printed;
+  7. gradient agreement at full width: batches of 16 queries and 32
+     contexts at 4 weight seeds, dropout 0, the same weights (matrices at
+     std 0.05) through each path; bf16 through the kernels vs the same
+     model with the plain versions on the card, and vs fp32 through plain
+     attention (TF32 off): the losses and every parameter's gradient
+     (cosine) must agree.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -45,6 +63,25 @@ SEED = 0
 ATTN_ATOL = ATTN_RTOL = 1e-2  # bf16 outputs: two ulps at |x| ~ 1
 COUNT_MARGIN_REL = 2e-5  # the fp32-ordering margin MipsIndex relies on
 TOPK_REL = 1e-3  # served vs brute-force scores; near-tie swaps allowed
+# backward kernel vs plain: max |err| of each of dq, dk, dv over its max |ref|
+# (ds is rounded to bf16 at the same point in both, from fp32 values summed
+# in other orders, so single entries may round one bf16 ulp apart)
+GRAD_REL = 2e-2
+TRAIN_BATCH = 128  # queries per step; contexts = 2 x queries (num_negative 1)
+TRAIN_STEPS = 8
+# phase 7 (phase_train_grads): GRAD_SEEDS weight seeds, each with its own
+# batch, weights at GRAD_WEIGHT_STD. The loss (10-31 there) is a logsumexp
+# minus a gold score, each in the hundreds, and any change of bf16 rounding
+# order moves it by up to 2% on an H100 (the paths without the kernels
+# included); a kernel that drops a term or a mask moves the loss by
+# multiples or the gradient cosines far below 0.99. Per seed, the kernel
+# path against the same model with the plain versions on the card and
+# against fp32 plain attention: the loss within LOSS_REL, every cosine
+# at least GRAD_COS.
+LOSS_REL = 2e-2
+GRAD_COS = 0.99
+GRAD_SEEDS = 4
+GRAD_WEIGHT_STD = 0.05
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -365,6 +402,263 @@ def phase_slice(work, dev, n_rows=1 << 20, n_encoded=4096, extra=()):
     return launches
 
 
+def _attention_inputs(dev, B, nh, L, hd, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, go = (
+        torch.randn(B, nh, L, hd, generator=g, device=dev).to(torch.bfloat16) for _ in range(4)
+    )
+    lens = torch.randint(16, L + 1, (B,), generator=g, device=dev)
+    lens[0] = L
+    bias = (torch.arange(L, device=dev)[None, :] >= lens[:, None]).float() * -1e9
+    return q, k, v, bias[:, None, :].contiguous(), go
+
+
+def _check_train_kernels(B, nh=12, L=256, hd=64):
+    """The dropout forward and the backward against their plain versions at
+    one batch; returns their max errors and times at rate 0.1."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import attention
+
+    dev = torch.device("cuda", 0)
+    q, k, v, bias, go = _attention_inputs(dev, B, nh, L, hd, SEED + 3)
+    seed, fwd_err, bwd_err = 1234, 0.0, 0.0
+    for rate in (0.0, 0.1):
+        o = attention.attention_fwd_kernel(q, k, v, bias, seed, rate)
+        grads = attention.attention_bwd_kernel(q, k, v, bias, go, seed, rate)
+        torch.cuda.synchronize()
+        ref = attention.attention_plain(q, k, v, bias, seed, rate).float()
+        err = (o.float() - ref).abs()
+        bad = (err > ATTN_ATOL + ATTN_RTOL * ref.abs()).sum().item()
+        del ref
+        refs = attention.attention_bwd_plain(q, k, v, bias, go, seed, rate)
+        gerr = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, refs)]
+        gscale = [b.float().abs().max().item() for b in refs]
+        del refs
+        print(f"rate {rate} (B={B} nh={nh} L={L} hd={hd} bf16): forward max_abs_err "
+              f"{err.max().item():.3g}, {bad} outside {ATTN_ATOL}+{ATTN_RTOL}|ref|; backward "
+              + ", ".join(f"d{n} max_abs_err {e:.3g} of max |ref| {m:.3g}"
+                          for n, e, m in zip("qkv", gerr, gscale)))
+        if bad or not torch.isfinite(o).all():
+            raise AssertionError(f"dropout forward disagrees with its plain version at rate {rate}")
+        if any(e > GRAD_REL * m for e, m in zip(gerr, gscale)) or not all(
+            torch.isfinite(t).all() for t in grads
+        ):
+            raise AssertionError(f"attention backward disagrees with its plain version at rate {rate}")
+        fwd_err, bwd_err = max(fwd_err, err.max().item()), max(bwd_err, *gerr)
+        del o, grads, err
+    again = attention.attention_fwd_kernel(q, k, v, bias, seed, 0.1)
+    other = attention.attention_fwd_kernel(q, k, v, bias, seed + 1, 0.1)
+    dq_again = attention.attention_bwd_kernel(q, k, v, bias, go, seed, 0.1)[0]
+    dq_other = attention.attention_bwd_kernel(q, k, v, bias, go, seed + 1, 0.1)[0]
+    first = attention.attention_fwd_kernel(q, k, v, bias, seed, 0.1)
+    dq_first = attention.attention_bwd_kernel(q, k, v, bias, go, seed, 0.1)[0]
+    torch.cuda.synchronize()
+    if not (torch.equal(first, again) and torch.equal(dq_first, dq_again)):
+        raise AssertionError("the dropout kernels do not repeat for a repeated seed")
+    if torch.equal(first, other) or torch.equal(dq_first, dq_other):
+        raise AssertionError("the dropout kernels ignore their seed")
+    fwd_ms = cuda_ms(lambda: attention.attention_fwd_kernel(q, k, v, bias, seed, 0.1))
+    fwd_plain = cuda_ms(lambda: attention.attention_plain(q, k, v, bias, seed, 0.1))
+    bwd_ms = cuda_ms(lambda: attention.attention_bwd_kernel(q, k, v, bias, go, seed, 0.1))
+    bwd_plain = cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, bias, go, seed, 0.1))
+    bwd0_ms = cuda_ms(lambda: attention.attention_bwd_kernel(q, k, v, bias, go, seed, 0.0))
+    bwd0_plain = cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, bias, go, seed, 0.0))
+    print(f"B={B}: seed repeats and varies; rate 0.1: forward kernel {fwd_ms:.4f} ms, plain "
+          f"{fwd_plain:.4f} ms; backward kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms; "
+          f"rate 0: backward kernel {bwd0_ms:.4f} ms, plain {bwd0_plain:.4f} ms")
+    return {
+        "attention_fwd_dropout": {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain},
+        "attention_bwd": {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain},
+    }
+
+
+def phase_train_kernels():
+    """Phase 5: both training kernels against their plain versions at the
+    shapes phase 6 gives them, the contexts' batch (2 x TRAIN_BATCH) and
+    the queries' (TRAIN_BATCH), both padded to L = 256; returns the errors
+    (the larger of the two) and the contexts' times."""
+    import torch
+
+    ctx = _check_train_kernels(2 * TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    qry = _check_train_kernels(TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    for name, r in ctx.items():
+        r["max_abs_err"] = max(r["max_abs_err"], qry[name]["max_abs_err"])
+    return ctx
+
+
+def write_dpr_jsonl(path, rng, words, n_rows):
+    """Synthetic DPR training rows (tests/conftest.py::dpr10_jsonl's layout):
+    a 12-word question, one positive and 1-2 hard negatives of 40-200 words
+    with 3-word titles, up to ~L = 256 tokens with the title."""
+    def ctx():
+        return {"title": " ".join(rng.choice(words, size=3)),
+                "text": " ".join(rng.choice(words, size=int(rng.integers(40, 200)))),
+                "score": 1.0, "relevance": 1.0}
+
+    with open(path, "w") as f:
+        for _ in range(n_rows):
+            f.write(json.dumps({
+                "question": " ".join(rng.choice(words, size=12)),
+                "positive_ctxs": [ctx()],
+                "hard_negative_ctxs": [ctx() for _ in range(int(rng.integers(1, 3)))],
+            }) + "\n")
+
+
+def phase_train(work, dev, batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, extra=()):
+    """Phase 6, the training slice on ``dev``; ``batch_size``/``steps``/
+    ``extra`` config overrides only shrink it for a rehearsal on the CPU.
+    Returns the kernels' launch counts and the overrides of its data."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli import train
+    from dpr_scale_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(SEED + 4)
+    words = [f"w{i}" for i in range(30522 - 5)]
+    tok_dir = os.path.join(work, "tok")
+    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)
+    train_path, val_path = os.path.join(work, "train.jsonl"), os.path.join(work, "val.jsonl")
+    write_dpr_jsonl(train_path, rng, words, batch_size * steps)
+    write_dpr_jsonl(val_path, rng, words, batch_size)
+    data = [f"task.transform.model_path={tok_dir}", f"datamodule.train_path={train_path}",
+            f"datamodule.val_path={val_path}", *extra]
+    log = os.path.join(work, "metrics.jsonl")
+    argv = ["--config", os.path.join(ROOT, "conf", "nq.yaml"), "--device", str(dev), *data,
+            f"datamodule.test_path={val_path}", "datamodule.num_test_negative=10",
+            f"trainer.max_steps={steps}", f"datamodule.batch_size={batch_size}",
+            "trainer.log_every=1", f"trainer.metrics_jsonl={log}"]
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    attention.attention_fwd_kernel.dropout_launches = 0
+    attention.attention_bwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    test = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd_dropout": attention.attention_fwd_kernel.dropout_launches,
+                "attention_bwd": attention.attention_bwd_kernel.launches}
+
+    with open(log) as f:
+        lines = [json.loads(l) for l in f]
+    steps_logged = [l for l in lines if "train_loss" in l]
+    valid = [l for l in lines if "valid_mrr" in l]
+    numbers = [l[k] for l in steps_logged for k in ("train_loss", "grad_norm")]
+    if len(steps_logged) != steps or not np.isfinite(numbers).all():
+        raise AssertionError(f"training steps: {steps_logged}")
+    if not valid or not test or not np.isfinite(list(test.values())).all():
+        raise AssertionError(f"validation {valid} / test {test} metrics missing or not finite")
+    step_ms = [batch_size / l["queries_per_s"] * 1e3 for l in steps_logged[1:]]
+    med = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    print(f"train: {steps} steps of {batch_size} queries + {2 * batch_size} contexts at L=256 "
+          f"in {wall:.2f} s wall (CLI incl. model init, data, validation, test); median step "
+          f"{med:.2f} ms (steps 2..{steps}) = {batch_size * 1e3 / med:.1f} queries/s; "
+          f"losses {[round(l['train_loss'], 4) for l in steps_logged]}; grad_norms "
+          f"{[round(l['grad_norm'], 4) for l in steps_logged]}; valid mrr {valid[-1]['valid_mrr']:.4f}; "
+          f"peak device memory {peak:.2f} GiB")
+    print(f"training-path launches: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    return launches, {"step_ms": med, "queries_per_s": batch_size * 1e3 / med,
+                      "peak_gib": peak}, data
+
+
+def phase_train_grads(dev, data, seeds=GRAD_SEEDS):
+    """Phase 7: the loss and gradients of one batch of 16 queries and 32
+    contexts, dropout 0, at each of ``seeds`` weight seeds (each with its
+    own batch), through four paths from the same weights:
+
+    * "kernel bf16": the model as phase 6 trains it, through the kernels;
+    * "fused plain bf16": the same model with the wrappers' plain versions
+      on the card, which round where the kernels round;
+    * "unfused bf16": the einsum attention path;
+    * "plain fp32": unfused attention in fp32, TF32 off.
+
+    The kernel path is held to LOSS_REL / GRAD_COS against "fused plain
+    bf16" and "plain fp32"; the paths without kernels against "plain fp32"
+    are printed as the spread bf16 itself gives.
+
+    The weights are the seeded init with every matrix scaled from std 0.02
+    to 0.05 (GRAD_WEIGHT_STD). At the 0.02 init the scores of a query's
+    contexts lie close together (loss 4.3 against log 32 = 3.5 on an H100),
+    so the gradient is a small difference between near-equal embeddings
+    that bf16 resolves only to a cosine of ~0.98 there; trained weights
+    separate passages, as the wider init does."""
+    import itertools
+    from contextlib import nullcontext
+    from unittest import mock
+
+    import torch
+
+    from dpr_scale_tpu.config import load_config
+    from dpr_scale_tpu_torch.cli.common import build_datamodule, build_task, build_tokenizer
+    from dpr_scale_tpu_torch.models.convert import init_params
+    from dpr_scale_tpu_torch.ops import attention
+    from dpr_scale_tpu_torch.optim.factory import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    common = [*data, "datamodule.batch_size=16", "task.model.hidden_dropout=0",
+              "task.model.attention_dropout=0"]
+    cfg_path = os.path.join(ROOT, "conf", "nq.yaml")
+    cfgs = {"kernel bf16": load_config(cfg_path, common),
+            "unfused bf16": load_config(cfg_path, common + ["task.model.fused_attention=false"]),
+            "plain fp32": load_config(cfg_path, common + [
+                "task.model.dtype=float32", "task.model.fused_attention=false"])}
+    dm = build_datamodule(cfgs["kernel bf16"], build_tokenizer(cfgs["kernel bf16"]))
+    batches = list(itertools.islice(dm.train_batches(0), seeds))
+    dm.close()
+    if len(batches) < seeds:
+        raise AssertionError(f"{len(batches)} training batches of 16 for {seeds} seeds")
+    tasks = {n: build_task(c, make_optimizer(), dev) for n, c in cfgs.items()}
+    states = {n: t.init_state(SEED) for n, t in tasks.items()}
+    plain_on_card = mock.patch.object(attention, "_dispatch", lambda q, kernel, plain: plain)
+    paths = {"kernel bf16": ("kernel bf16", nullcontext()),
+             "fused plain bf16": ("kernel bf16", plain_on_card),
+             "unfused bf16": ("unfused bf16", nullcontext()),
+             "plain fp32": ("plain fp32", nullcontext())}
+    pairs = [("kernel bf16", "fused plain bf16"), ("kernel bf16", "plain fp32"),
+             ("fused plain bf16", "plain fp32"), ("unfused bf16", "plain fp32")]
+    readings = {p: [] for p in pairs}
+    names = [n for n, _ in states["kernel bf16"].model.named_parameters()]
+    for i, batch in enumerate(batches):
+        drawn = init_params(states["kernel bf16"].model, torch.Generator().manual_seed(SEED + i))
+        weights = {k: v * (GRAD_WEIGHT_STD / 0.02) if v.ndim == 2 else v
+                   for k, v in drawn.items()}
+        loss, grads = {}, {}
+        for path, (task_name, ctx) in paths.items():
+            task, state = tasks[task_name], states[task_name]
+            state.model.load_state_dict(weights)
+            with ctx:
+                l, g = task.loss_and_grads(state, task.to_device(batch))
+            loss[path], grads[path] = l.item(), [t.float() for t in g]
+        line = []
+        for a, b in pairs:
+            cos = [torch.nn.functional.cosine_similarity(x.flatten(), y.flatten(), dim=0).item()
+                   for x, y in zip(grads[a], grads[b])]
+            j = min(range(len(cos)), key=cos.__getitem__)
+            rel = abs(loss[a] - loss[b]) / abs(loss[b])
+            readings[(a, b)].append((rel, cos[j]))
+            line.append(f"{a} vs {b}: loss relative {rel:.3g}, min cosine {cos[j]:.6f} "
+                        f"({names[j]}), median {statistics.median(cos):.6f}")
+        print(f"gradients, seed {SEED + i}, 16 queries + 32 contexts at "
+              f"L={batch['contexts_ids'].shape[1]}, losses "
+              + ", ".join(f"{p} {v:.6f}" for p, v in loss.items()) + "; " + "; ".join(line))
+    for (a, b), r in readings.items():
+        print(f"over {len(r)} seeds, {a} vs {b}: loss relative max {max(x for x, _ in r):.3g}, "
+              f"min gradient cosine {min(c for _, c in r):.6f}")
+    for a, b in pairs[:2]:
+        if any(x > LOSS_REL or c < GRAD_COS for x, c in readings[(a, b)]):
+            raise AssertionError(f"{a} disagrees with {b} beyond relative {LOSS_REL} on "
+                                 f"the loss or cosine {GRAD_COS}")
+
+
 def main():
     import torch
 
@@ -388,14 +682,31 @@ def main():
         launches = phase_slice(work, torch.device("cuda", 0))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"device {smi}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"device {smi}; peak device memory of serving "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    train_kernels = phase_train_kernels()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        train_launches, _stats, data = phase_train(work, torch.device("cuda", 0))
+        phase_train_grads(torch.device("cuda", 0), data)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"device {smi}")
+    source = "dpr_scale_tpu_torch/csrc/"
     kernels = [
-        {"name": "attention_fwd", "route": "cuda",
-         "source": "dpr_scale_tpu_torch/csrc/attention_fwd.cu",
+        {"name": "attention_fwd", "route": "cuda", "source": source + "attention_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/attention.py:210",
          "launches": launches["attention_fwd"], **attn},
-        {"name": "count_above_groups", "route": "cuda",
-         "source": "dpr_scale_tpu_torch/csrc/count_groups.cu",
+        {"name": "attention_fwd_dropout", "route": "cuda", "source": source + "attention_fwd.cu",
+         "replaces": "dpr_scale_tpu/ops/attention.py:210",
+         "launches": train_launches["attention_fwd_dropout"],
+         **train_kernels["attention_fwd_dropout"]},
+        {"name": "attention_bwd", "route": "cuda", "source": source + "attention_bwd.cu",
+         "replaces": "dpr_scale_tpu/ops/attention.py:237",
+         "launches": train_launches["attention_bwd"], **train_kernels["attention_bwd"]},
+        {"name": "count_above_groups", "route": "cuda", "source": source + "count_groups.cu",
          "replaces": "dpr_scale_tpu/ops/mips_kernels.py:134",
          "launches": launches["count_above_groups"], **count},
     ]

@@ -2,9 +2,11 @@
 
 It mirrors the JAX package's layout and names, imports ``torch`` and never
 ``jax``, and holds hand-written CUDA kernels (``csrc/``) where the JAX
-package has Pallas kernels. Its first slice is dense serving: the bert_base
-encoder with fused attention, and the verified-exact MIPS index with the
-group-count pass, behind the corpus encoder and HTTP server CLIs.
+package has Pallas kernels. Two slices are ported: dense serving (the
+bert_base encoder with fused attention, and the verified-exact MIPS index
+with the group-count pass, behind the corpus encoder and HTTP server CLIs)
+and dense training on one GPU (the bi-encoder task, AdamW and the training
+CLI, with the attention's dropout and backward as kernels).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Shared config -> object factories for the port's CLI entry points.
 
-Counterpart of the serving half of :mod:`dpr_scale_tpu.cli.common`. The
-tokenizer is the JAX package's own (``dpr_scale_tpu.data.tokenize``, which
-imports no jax).
+Counterpart of :mod:`dpr_scale_tpu.cli.common` for the dense task. The
+tokenizer and the datamodule are the JAX package's own
+(``dpr_scale_tpu.data.tokenize`` / ``.datamodule``, which import no jax);
+batches come out as numpy and the task copies them to its device.
 """
 from __future__ import annotations
 
@@ -10,10 +11,14 @@ import dataclasses
 
 import torch
 
+from dpr_scale_tpu.data.datamodule import DenseRetrieverDataModule
 from dpr_scale_tpu.data.tokenize import HFTokenizer
 from dpr_scale_tpu_torch.models.convert import init_params
 from dpr_scale_tpu_torch.models.encoder import BiEncoder
 from dpr_scale_tpu_torch.models.transformer import TransformerConfig
+from dpr_scale_tpu_torch.optim.factory import make_optimizer
+from dpr_scale_tpu_torch.train.schedule import linear_warmup_decay
+from dpr_scale_tpu_torch.train.task import DenseRetrieverTask
 
 ARCH_PRESETS = {
     "tiny": TransformerConfig.tiny,
@@ -46,6 +51,9 @@ def build_model_config(cfg) -> TransformerConfig:
             "num_heads",
             "intermediate_size",
             "max_position_embeddings",
+            "hidden_dropout",
+            "attention_dropout",
+            "remat",
             "fused_attention",
             "fused_ffn",
         )
@@ -102,3 +110,75 @@ def build_biencoder(cfg, device, seed: int = 0) -> BiEncoder:
     )
     model.load_state_dict(init_params(model, torch.Generator().manual_seed(seed)))
     return model.to(device).eval()
+
+
+def build_lr_schedule(cfg, total_steps: int):
+    o = cfg.task.optim
+    return linear_warmup_decay(
+        o.get("lr", 1e-5), cfg.task.get("warmup_steps", 0), total_steps
+    )
+
+
+def build_optimizer(cfg, total_steps: int):
+    o = cfg.task.optim
+    return make_optimizer(
+        name=o.get("name", "adamw"),
+        learning_rate=build_lr_schedule(cfg, total_steps),
+        weight_decay=o.get("weight_decay", 0.0),
+        betas=tuple(o.get("betas", (0.9, 0.999))),
+        eps=o.get("eps"),
+        grad_clip_norm=cfg.trainer.get("gradient_clip_val"),
+        accumulate_steps=cfg.trainer.get("accumulate_grad_batches", 1),
+    )
+
+
+def build_task(cfg, optimizer, device) -> DenseRetrieverTask:
+    """The dense task (``task.type`` dense); other task types are not
+    ported yet."""
+    t = cfg.task
+    task_type = t.get("type", "dense")
+    if task_type != "dense":
+        raise NotImplementedError(f"task.type={task_type!r} is not ported yet")
+    return DenseRetrieverTask(
+        cfg=build_model_config(cfg),
+        projection_dim=t.model.get("projection_dim", 0),
+        shared_model=t.get("shared_model", True),
+        softmax_temperature=t.get("softmax_temperature", 1.0),
+        k=t.get("k", 1),
+        in_batch_negatives=t.get("in_batch_negatives", True),
+        in_batch_eval=t.get("in_batch_eval", True),
+        encoder_family=t.model.get("family", "dense"),
+        optimizer=optimizer,
+        device=device,
+        grad_cache_chunks=t.get("grad_cache_chunks", 1),
+    )
+
+
+def build_datamodule(cfg, tokenizer: HFTokenizer) -> DenseRetrieverDataModule:
+    d = cfg.datamodule
+    return DenseRetrieverDataModule(
+        tokenizer=tokenizer,
+        train_path=d.get("train_path"),
+        val_path=d.get("val_path"),
+        test_path=d.get("test_path"),
+        corpus_path=d.get("corpus_path"),
+        batch_size=d.get("batch_size", 2),
+        val_batch_size=d.get("val_batch_size", 0),
+        test_batch_size=d.get("test_batch_size", 0),
+        num_positive=d.get("num_positive", 1),
+        num_negative=d.get("num_negative", 7),
+        neg_ctx_sample=d.get("neg_ctx_sample", True),
+        pos_ctx_sample=d.get("pos_ctx_sample", False),
+        num_val_negative=d.get("num_val_negative", 7),
+        num_test_negative=d.get("num_test_negative"),
+        use_title=d.get("use_title", False),
+        sep_token=d.get("sep_token"),
+        rel_sample=d.get("rel_sample", False),
+        drop_last=d.get("drop_last", True),
+        seed=d.get("seed", 0),
+        prefetch_batches=d.get("prefetch_batches", 2),
+        num_workers=d.get("num_workers", 0),
+        contiguous_chunks=d.get("contiguous_chunks", 0),
+        query_max_seq_len=d.get("query_max_seq_len"),
+        ctx_max_seq_len=d.get("ctx_max_seq_len"),
+    )

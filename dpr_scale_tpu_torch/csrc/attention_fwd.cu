@@ -1,14 +1,18 @@
-// Fused multi-head attention forward (inference, no dropout) for Hopper.
+// Fused multi-head attention forward, with optional dropout, for Hopper.
 //
 // Replaces the TPU kernel dpr_scale_tpu/ops/attention.py::_fwd_kernel (the
-// pallas_call in _fused_attention_fwd_impl) at rate 0:
+// pallas_call in _fused_attention_fwd_impl):
 //
-//     out = bf16( bf16(softmax(q . k^T / sqrt(hd) + bias)) . v )
+//     p   = softmax(q . k^T / sqrt(hd) + bias)               (fp32)
+//     p   = keep ? p / (1 - rate) : 0                        (rate > 0 only)
+//     out = bf16( bf16(p) . v )
 //
-// with q . k^T accumulated in fp32, an fp32 softmax, and the normalised
-// probabilities rounded to bf16 before the P . V product, as the TPU kernel
-// does (p.astype(q.dtype)).  Shapes: q, k, v, out (B, nh, L, hd) bf16,
+// with q . k^T accumulated in fp32, an fp32 softmax, the dropout applied to
+// the fp32 probabilities and the result rounded to bf16 before the P . V
+// product, as the TPU kernel does.  Shapes: q, k, v, out (B, nh, L, hd) bf16,
 // contiguous; bias (B, 1, L) fp32 additive key mask (0 keep / -1e9 drop).
+// The keep bits are counter-based (dropout_bits.cuh), so the backward
+// (attention_bwd.cu) regenerates them in its own tiling.
 //
 // What bounds it on an H100: at BERT shapes (L <= 512, hd = 64) each
 // (sequence, head) is two small GEMMs (L x hd x L), so the kernel is bound by
@@ -16,29 +20,23 @@
 // (32-query tile, head, sequence) keeps the whole (32, L) fp32 score tile and
 // its bf16 probabilities in shared memory, so nothing bigger than (L, hd)
 // touches device memory; K and then V share one shared-memory buffer, which
-// keeps L = 512 inside the 227 KB a block may use.  Both products run on the
+// keeps L = 512 inside the 227 KB a block may use (with 16-query tiles when
+// 32 rows would not fit, as at L = 512, hd = 128).  Both products run on the
 // tensor cores through wmma (bf16 in, fp32 accumulate).  No TMA/wgmma yet.
+// At rate 0 the dropout branch is compiled out (DROP = false).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+#include "dropout_bits.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace dst_attn;
 
 namespace {
-
-constexpr int TQ = 32;           // query rows per block
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD_H = 8;         // bf16 row padding: rows stay 16-byte aligned
-constexpr int PAD_F = 4;         // fp32 row padding
-constexpr int MAX_L = 512;
-constexpr int MAX_HD = 128;
-constexpr size_t MAX_SMEM = 232448;
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
 // fp32 floats per row of the score region, which holds S (TQ, Lp + PAD_F)
 // and later O (TQ, hd + PAD_F): wide enough for both, whichever is larger
@@ -46,37 +44,18 @@ __host__ __device__ inline int ld_region(int Lp, int hd) {
   return (Lp > hd ? Lp : hd) + PAD_F;
 }
 
-__host__ __device__ inline size_t smem_bytes(int Lp, int hd) {
+__host__ __device__ inline size_t smem_bytes(int tq, int Lp, int hd) {
   const size_t ldh = hd + PAD_H, ldr = ld_region(Lp, hd), ldp = Lp + PAD_H;
-  return TQ * ldh * 2 + (size_t)Lp * ldh * 2 + TQ * ldr * 4 + TQ * ldp * 2;
+  return tq * ldh * 2 + (size_t)Lp * ldh * 2 + tq * ldr * 4 + tq * ldp * 2;
 }
 
-// rows [0, rows) of a (rows, hd) tile; source rows >= valid are zero
-__device__ inline void load_rows(bf16* dst, const bf16* src, int valid, int rows,
-                                 int hd, int ld) {
-  const int vec = hd / 8;  // 16-byte vectors per row (hd % 16 == 0)
-  for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
-    const int r = i / vec, c = (i % vec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * hd + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-__device__ inline float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ inline float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
+// TQ query rows per block
+template <int TQ, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
-                     bf16* __restrict__ out, int L, int hd, float scale) {
+                     bf16* __restrict__ out, int L, int hd, float scale,
+                     uint32_t seed, uint32_t thr, float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int Lp = round16(L);
   const int ldh = hd + PAD_H, lds = Lp + PAD_F, ldp = Lp + PAD_H, ldo = hd + PAD_F;
@@ -86,7 +65,8 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sP = reinterpret_cast<bf16*>(sS + TQ * ld_region(Lp, hd));  // (TQ, ldp)
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
-  const size_t head = ((size_t)b * gridDim.y + h) * (size_t)L * hd;
+  const int bh = b * gridDim.y + h;
+  const size_t head = (size_t)bh * (size_t)L * hd;
   const float* bb = bias + (size_t)b * L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q_rows = min(TQ, L - q0);
@@ -133,8 +113,17 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     sum = warp_sum(sum);
     bf16* prow = sP + r * ldp;
-    for (int c = lane; c < Lp; c += 32)
-      prow[c] = __float2bfloat16(c < L ? srow[c] / sum : 0.0f);
+    if (DROP) {
+      const uint32_t rk = dst_row_key(seed, bh, q0 + r);
+      for (int c = lane; c < Lp; c += 32) {
+        float p = 0.0f;
+        if (c < L && dst_bits(rk, c) >= thr) p = (srow[c] / sum) * inv_keep;
+        prow[c] = __float2bfloat16(p);
+      }
+    } else {
+      for (int c = lane; c < Lp; c += 32)
+        prow[c] = __float2bfloat16(c < L ? srow[c] / sum : 0.0f);
+    }
   }
   __syncthreads();
 
@@ -164,22 +153,47 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int TQ, bool DROP>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
+                       void* out, int B, int nh, int L, int hd, uint32_t seed,
+                       uint32_t thr, float inv_keep, cudaStream_t stream) {
+  const size_t smem = smem_bytes(TQ, round16(L), hd);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<TQ, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + TQ - 1) / TQ, nh, B);
+  attention_fwd_kernel<TQ, DROP><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias, (bf16*)out,
+      L, hd, (float)(1.0 / sqrt((double)hd)), seed, thr, inv_keep);
+  return cudaGetLastError();
+}
+
+// 32-query tiles where they fit in shared memory, else 16
+template <bool DROP>
+cudaError_t dispatch_tq(const void* q, const void* k, const void* v, const void* bias,
+                        void* out, int B, int nh, int L, int hd, uint32_t seed,
+                        uint32_t thr, float inv_keep, cudaStream_t s) {
+  if (smem_bytes(32, round16(L), hd) <= MAX_SMEM)
+    return launch_fwd<32, DROP>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s);
+  if (smem_bytes(16, round16(L), hd) <= MAX_SMEM)
+    return launch_fwd<16, DROP>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s);
+  return cudaErrorInvalidConfiguration;
+}
+
 }  // namespace
 
-// Returns a cudaError_t code: 0 on a launch that was accepted.
+// Returns a cudaError_t code: 0 on a launch that was accepted.  thr == 0
+// (rate 0) runs the kernel without dropout; otherwise an entry is kept when
+// its bits are >= thr and scaled by inv_keep = 1 / (1 - rate).
 extern "C" int dst_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, void* out, int B, int nh, int L,
-                                 int hd, void* stream) {
+                                 int hd, unsigned int seed, unsigned int thr,
+                                 float inv_keep, void* stream) {
   if (B < 1 || nh < 1 || L < 1 || L > MAX_L || hd < 16 || hd > MAX_HD || hd % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(round16(L), hd);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + TQ - 1) / TQ, nh, B);
-  attention_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias, (bf16*)out,
-      L, hd, (float)(1.0 / sqrt((double)hd)));
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(thr == 0u
+                   ? dispatch_tq<false>(q, k, v, bias, out, B, nh, L, hd, 0u, 0u, 1.0f, s)
+                   : dispatch_tq<true>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s));
 }

@@ -1,7 +1,7 @@
 """Device choice for the port (counterpart of ``dpr_scale_tpu/parallel/mesh.py``).
 
-The serving slice runs on one card, so there is no mesh: each factory either
-gets an explicit device or takes ``cuda:0``. There is no silent CPU
+The port runs on one card (serving and training), so there is no mesh:
+each factory either gets an explicit device or takes ``cuda:0``. There is no silent CPU
 fallback — the CPU runs the kernels' plain versions, and a caller asks for
 it by name.
 """

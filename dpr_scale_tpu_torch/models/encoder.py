@@ -1,7 +1,9 @@
 """Dense retrieval encoders: CLS pooling + optional projection head.
 
 Counterpart of :mod:`dpr_scale_tpu.models.encoder` (``DenseEncoder`` and
-``BiEncoder``); ``projection_dim == -1`` projects to the hidden size.
+``BiEncoder``); ``projection_dim == -1`` projects to the hidden size. A
+forward given a :class:`~dpr_scale_tpu_torch.models.transformer.DropoutRng`
+runs in training mode (dropout on), otherwise it is deterministic.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from torch import nn
 
 from dpr_scale_tpu_torch.models.transformer import (
     Dense,
+    DropoutRng,
     LayerNorm,
     TransformerConfig,
     TransformerEncoder,
@@ -31,8 +34,13 @@ class DenseEncoder(nn.Module):
             self.project = Dense(cfg.hidden_size, dim, cfg.dtype)
             self.project_ln = LayerNorm(dim, cfg.layer_norm_eps, cfg.dtype)
 
-    def forward(self, input_ids, attention_mask: Optional[torch.Tensor] = None):
-        pooled = self.transformer(input_ids, attention_mask)[:, 0]  # [CLS]
+    def forward(
+        self,
+        input_ids,
+        attention_mask: Optional[torch.Tensor] = None,
+        rng: Optional[DropoutRng] = None,
+    ):
+        pooled = self.transformer(input_ids, attention_mask, rng)[:, 0]  # [CLS]
         if self.projection_dim:
             pooled = self.project_ln(self.project(pooled))
         # embeddings leave the encoder in fp32, as the MIPS index expects
@@ -55,15 +63,15 @@ class BiEncoder(nn.Module):
         if not shared:
             self.query_encoder = DenseEncoder(query_cfg or cfg, projection_dim)
 
-    def encode_query(self, input_ids, attention_mask=None):
+    def encode_query(self, input_ids, attention_mask=None, rng=None):
         enc = self.context_encoder if self.shared else self.query_encoder
-        return enc(input_ids, attention_mask)
+        return enc(input_ids, attention_mask, rng)
 
-    def encode_context(self, input_ids, attention_mask=None):
-        return self.context_encoder(input_ids, attention_mask)
+    def encode_context(self, input_ids, attention_mask=None, rng=None):
+        return self.context_encoder(input_ids, attention_mask, rng)
 
-    def forward(self, query_ids, query_mask, contexts_ids, contexts_mask):
+    def forward(self, query_ids, query_mask, contexts_ids, contexts_mask, rng=None):
         return (
-            self.encode_query(query_ids, query_mask),
-            self.encode_context(contexts_ids, contexts_mask),
+            self.encode_query(query_ids, query_mask, rng),
+            self.encode_context(contexts_ids, contexts_mask, rng),
         )

@@ -1,15 +1,20 @@
-"""BERT-family transformer encoder in PyTorch (inference).
+"""BERT-family transformer encoder in PyTorch (inference and training).
 
 Counterpart of :mod:`dpr_scale_tpu.models.transformer`: post-LN BERT with
 merged q/k/v, the additive -1e9 key bias, the einsum-style FFN and the
-RoBERTa position offset. Parameters follow Flax's layout and dtypes: matmul
-kernels are ``(in, out)`` in the activation dtype (Flax casts its fp32
-params to ``cfg.dtype`` at every call; here the cast happens once, when a
-state dict is loaded), LayerNorm scale/bias stay fp32 and normalise in fp32
-with the fast variance E[x^2] - E[x]^2, as ``flax.linen.LayerNorm`` does.
+RoBERTa position offset. Parameters follow Flax's layout and dtypes: every
+parameter is stored in fp32 (the optimizer updates fp32 master weights) and
+matmul kernels and embedding rows are cast to the activation dtype at every
+call, as Flax's ``nn.Dense`` / ``nn.Embed`` with ``dtype=bf16`` do.
+LayerNorm normalises in fp32 with the fast variance E[x^2] - E[x]^2, as
+``flax.linen.LayerNorm`` does.
 
-Dropout is not modelled (nor are its rates configured): this is the serving
-slice, and every forward is deterministic.
+Dropout sits where the JAX module puts it: after the embedding LayerNorm,
+on the attention output and the FFN output (``hidden_dropout``) and on the
+attention probabilities (``attention_dropout``; inside the kernel on the
+fused path). A forward is deterministic unless it is given a
+:class:`DropoutRng`, the counterpart of Flax's ``deterministic=False`` with
+a ``dropout`` rng.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,9 +38,12 @@ class TransformerConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     pad_token_id: int = 0
     position_offset: int = 0  # RoBERTa uses 2 (positions start at pad+1)
     dtype: torch.dtype = torch.bfloat16  # activation dtype
+    remat: bool = False  # not ported: must stay False
     fused_attention: bool = False  # ops.attention kernel instead of matmuls
     fused_ffn: bool = False  # not ported: must stay False
 
@@ -47,6 +56,8 @@ class TransformerConfig:
             num_heads=1,
             intermediate_size=4,
             max_position_embeddings=64,
+            hidden_dropout=0.0,
+            attention_dropout=0.0,
         )
 
     @staticmethod
@@ -71,16 +82,49 @@ class TransformerConfig:
         )
 
 
+class DropoutRng:
+    """The dropout randomness of one training step, a pure function of
+    ``(seed, step)`` as JAX's ``fold_in(dropout_rng, step)`` is.
+
+    Hidden and unfused-attention masks are drawn from a generator on the
+    activations' device; the fused attention kernel takes one int seed per
+    call, drawn from a CPU generator, so no seed needs a device sync."""
+
+    def __init__(self, seed: int, step: int, device):
+        state = np.random.SeedSequence((int(seed), int(step))).generate_state(2, np.uint64)
+        self.cpu = torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))
+        self.device = torch.Generator(device=torch.device(device)).manual_seed(
+            int(state[1] >> np.uint64(1))
+        )
+
+    def kernel_seed(self) -> int:
+        return int(torch.randint(0, 2**32, (), generator=self.cpu))
+
+
+def dropout(x, rate: float, rng: Optional[DropoutRng]):
+    """Flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    entries by 1 / (1 - rate) in ``x``'s dtype; identity without ``rng``."""
+    if rng is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng.device, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Dense(nn.Module):
-    """``x @ weight + bias`` with Flax's ``(in, out)`` kernel layout."""
+    """``x @ weight + bias`` with Flax's ``(in, out)`` kernel layout; fp32
+    parameters cast to ``dtype`` at every call."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(d_out, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(d_in, d_out, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(d_out, dtype=torch.float32))
+        self.dtype = dtype
 
     def forward(self, x):
-        return torch.matmul(x, self.weight) + self.bias
+        return torch.matmul(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(
+            self.dtype
+        )
 
 
 class LayerNorm(nn.Module):
@@ -110,12 +154,13 @@ class SelfAttention(nn.Module):
         self.qkv = Dense(h, 3 * h, cfg.dtype)  # query | key | value columns
         self.output = Dense(h, h, cfg.dtype)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, rng: Optional[DropoutRng] = None):
         """x (B, L, H); attn_bias (B, 1, L) fp32 additive key mask."""
         cfg = self.cfg
         B, L, H = x.shape
         nh = cfg.num_heads
         hd = H // nh
+        rate = 0.0 if rng is None else cfg.attention_dropout
         qkv = self.qkv(x)
         # (B, L, 3, nh, hd) -> three contiguous (B, nh, L, hd)
         q, k, v = (
@@ -125,12 +170,14 @@ class SelfAttention(nn.Module):
         if cfg.fused_attention:
             from dpr_scale_tpu_torch.ops.attention import fused_attention
 
-            ctx = fused_attention(q, k, v, attn_bias)
+            seed = rng.kernel_seed() if rate > 0.0 else 0
+            ctx = fused_attention(q, k, v, attn_bias, seed, rate)
         else:
             # the JAX einsum path: logits in the activation dtype, then fp32
             logits = torch.matmul(q, k.transpose(-1, -2)).float()
             logits = logits / math.sqrt(hd) + attn_bias[:, :, None, :]
             probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            probs = dropout(probs, rate, rng)
             ctx = torch.matmul(probs, v)
         return self.output(ctx.transpose(1, 2).reshape(B, L, H))
 
@@ -139,16 +186,19 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         h, f = cfg.hidden_size, cfg.intermediate_size
+        self.cfg = cfg
         self.attention = SelfAttention(cfg)
         self.attention_ln = LayerNorm(h, cfg.layer_norm_eps, cfg.dtype)
         self.intermediate = Dense(h, f, cfg.dtype)
         self.ffn_output = Dense(f, h, cfg.dtype)
         self.output_ln = LayerNorm(h, cfg.layer_norm_eps, cfg.dtype)
 
-    def forward(self, x, attn_bias):
-        x = self.attention_ln(x + self.attention(x, attn_bias))
+    def forward(self, x, attn_bias, rng: Optional[DropoutRng] = None):
+        rate = self.cfg.hidden_dropout
+        attn = dropout(self.attention(x, attn_bias, rng), rate, rng)
+        x = self.attention_ln(x + attn)
         ffn = self.ffn_output(F.gelu(self.intermediate(x)))  # exact erf GELU
-        return self.output_ln(x + ffn)
+        return self.output_ln(x + dropout(ffn, rate, rng))
 
 
 class TransformerEncoder(nn.Module):
@@ -160,22 +210,30 @@ class TransformerEncoder(nn.Module):
             raise NotImplementedError(
                 "fused_ffn is not ported yet; set task.model.fused_ffn=false"
             )
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat is not ported yet (queued in ROADMAP.md): "
+                "torch.utils.checkpoint replays only the default generators, "
+                "not the explicit dropout generators of this port, so its "
+                "dropout gradients would be wrong; set task.model.remat=false"
+            )
         self.cfg = cfg
         h = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, dtype=cfg.dtype)
-        self.position_embeddings = nn.Embedding(
-            cfg.max_position_embeddings, h, dtype=cfg.dtype
-        )
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, h)
         if cfg.type_vocab_size > 0:
-            self.token_type_embeddings = nn.Embedding(
-                cfg.type_vocab_size, h, dtype=cfg.dtype
-            )
+            self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
         self.embeddings_ln = LayerNorm(h, cfg.layer_norm_eps, cfg.dtype)
         self.layers = nn.ModuleList(
             TransformerLayer(cfg) for _ in range(cfg.num_layers)
         )
 
-    def forward(self, input_ids, attention_mask: Optional[torch.Tensor] = None):
+    def forward(
+        self,
+        input_ids,
+        attention_mask: Optional[torch.Tensor] = None,
+        rng: Optional[DropoutRng] = None,
+    ):
         cfg = self.cfg
         B, L = input_ids.shape
         input_ids = input_ids.long()
@@ -186,12 +244,14 @@ class TransformerEncoder(nn.Module):
             pos_ids = torch.cumsum(am, dim=1) * am + (cfg.position_offset - 1)
         else:
             pos_ids = torch.arange(L, device=input_ids.device).expand(B, L)
-        x = self.word_embeddings(input_ids) + self.position_embeddings(pos_ids)
+        # fp32 rows gathered then cast: the values of Flax's cast-then-take
+        x = self.word_embeddings(input_ids).to(cfg.dtype)
+        x = x + self.position_embeddings(pos_ids).to(cfg.dtype)
         if cfg.type_vocab_size > 0:
-            x = x + self.token_type_embeddings(torch.zeros_like(input_ids))
-        x = self.embeddings_ln(x)
+            x = x + self.token_type_embeddings(torch.zeros_like(input_ids)).to(cfg.dtype)
+        x = dropout(self.embeddings_ln(x), cfg.hidden_dropout, rng)
         # additive key bias (B, 1, L): 0 keep, -1e9 drop
         attn_bias = (1.0 - attention_mask.float())[:, None, :] * -1e9
         for layer in self.layers:
-            x = layer(x, attn_bias)
+            x = layer(x, attn_bias, rng)
         return x

@@ -1,12 +1,14 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at first use, never at import: this module imports on machines with
-no CUDA toolkit, where only the kernels' plain PyTorch versions run.
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build happens at first use,
+never at import: this module imports on machines with no CUDA toolkit, where
+only the kernels' plain PyTorch versions run.
 
 The library lands in ``build/dpr_scale_tpu_torch/`` at the root of the
-checkout, named by a hash of the sources and flags, so an edited source
+checkout, named by a hash of the sources, the headers they include and the
+flags, so an edited source
 rebuilds and an unchanged one is reused. Concurrent first uses (several
 processes on one checkout) are serialised by a file lock.
 """
@@ -23,11 +25,12 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("attention_fwd.cu", "count_groups.cu")
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "count_groups.cu")
+HEADERS = ("attention_tiles.cuh", "dropout_bits.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpr_scale_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -52,7 +55,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(SRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -70,16 +73,31 @@ def build() -> str:
         if os.path.exists(path):  # built by another process meanwhile
             return path
         tmp = f"{path}.tmp.{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-            os.path.join(SRC_DIR, s) for s in SOURCES
+        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+        cmds = [
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(SRC_DIR, src)]
+            for src, obj in zip(SOURCES, objs)
         ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        with open(path[: -len(".so")] + ".log", "w") as log:
-            log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        outs = [p.communicate()[0] for p in procs]
+        link = [_nvcc(), "-shared", "-o", tmp, *objs]
+        log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = [link]
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        with open(path[: -len(".so")] + ".log", "w") as f:
+            f.write(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{log}")
         os.replace(tmp, path)
     return path
 
@@ -99,8 +117,11 @@ def library() -> ctypes.CDLL:
             path = build()
             lib = ctypes.CDLL(path)
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.dst_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            u, f = ctypes.c_uint, ctypes.c_float
+            lib.dst_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, f, p]
             lib.dst_attention_fwd.restype = i
+            lib.dst_attention_bwd.argtypes = [p] * 9 + [i, i, i, i, u, u, f, p]
+            lib.dst_attention_bwd.restype = i
             lib.dst_count_above_groups.argtypes = [p, p, p, p, i, ll, i, ll, i, p]
             lib.dst_count_above_groups.restype = i
             _lib, _lib_path = lib, path

@@ -40,8 +40,9 @@ SEED = 0
 PROFILED_CALLS = 3
 # kernel-name fragments per class; the first class that matches wins
 CLASSES = (
-    ("attention kernel", ("attention_fwd_kernel",)),
+    ("attention kernels", ("attention_fwd_kernel", "attention_bwd_")),
     ("count kernel", ("count_groups_kernel",)),
+    ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
     ("top-k / sort", ("topk", "sort")),
     ("elementwise / copy / reduce", ("elementwise", "reduce", "copy", "cat", "fill",

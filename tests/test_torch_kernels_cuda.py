@@ -56,6 +56,103 @@ def test_attention_kernel_refuses_what_it_cannot_run(cuda_device):
         attention.fused_attention(q, q, q, bias)
     with pytest.raises(ValueError, match="bf16"):
         attention.fused_attention(q.float(), q.float(), q.float(), bias)
+    with pytest.raises(ValueError, match="bf16"):
+        attention.attention_bwd_kernel(q.float(), q.float(), q.float(), bias, q.float())
+
+
+def _attention_inputs(dev, B, nh, L, hd, seed, full_mask_row=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, go = (
+        torch.randn(B, nh, L, hd, generator=g, device=dev).bfloat16() for _ in range(4)
+    )
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    lens[0] = L
+    bias = (torch.arange(L, device=dev)[None, :] >= lens[:, None]).float() * -1e9
+    if full_mask_row:
+        bias[-1] = -1e9  # every key of the last sequence dropped
+    return q, k, v, bias[:, None, :].contiguous(), go
+
+
+_LENGTHS = [1, 16, 32, 48, 256, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("L", _LENGTHS)
+def test_attention_fwd_dropout_matches_plain(cuda_device, L, hd, rate):
+    """The forward at rates 0 and 0.1, the same seed for kernel and plain
+    (the same keep bits): within 1e-2 + 1e-2 |ref|, as at rate 0."""
+    B, nh = (2, 2) if L >= 256 else (4, 3)
+    q, k, v, bias, _ = _attention_inputs(cuda_device, B, nh, L, hd, L + hd)
+    out = attention.attention_fwd_kernel(q, k, v, bias, 1234, rate)
+    torch.cuda.synchronize()
+    ref = attention.attention_plain(q, k, v, bias, 1234, rate)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+def _assert_grads_close(got, ref):
+    """Each of dq, dk, dv within 2e-2 of its max |ref| everywhere: ds is
+    rounded to bf16 at the same point in both, but from fp32 values summed
+    in other orders, so single entries may round one bf16 ulp apart."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * scale + 1e-6, f"{name}: max err {err} vs max |ref| {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("L", _LENGTHS)
+def test_attention_bwd_matches_plain(cuda_device, L, hd, rate):
+    B, nh = (2, 2) if L >= 256 else (4, 3)
+    q, k, v, bias, go = _attention_inputs(cuda_device, B, nh, L, hd, 7 * L + hd)
+    before = attention.attention_bwd_kernel.launches
+    got = attention.attention_bwd_kernel(q, k, v, bias, go, 99, rate)
+    torch.cuda.synchronize()
+    assert attention.attention_bwd_kernel.launches == before + 1
+    _assert_grads_close(got, attention.attention_bwd_plain(q, k, v, bias, go, 99, rate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_fully_masked_row_is_finite_both_ways(cuda_device, rate):
+    q, k, v, bias, go = _attention_inputs(cuda_device, 3, 2, 40, 64, 5, full_mask_row=True)
+    out = attention.attention_fwd_kernel(q, k, v, bias, 3, rate)
+    grads = attention.attention_bwd_kernel(q, k, v, bias, go, 3, rate)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), attention.attention_plain(q, k, v, bias, 3, rate).float(),
+        atol=1e-2, rtol=1e-2,
+    )
+    _assert_grads_close(grads, attention.attention_bwd_plain(q, k, v, bias, go, 3, rate))
+
+
+@pytest.mark.cuda
+def test_fused_attention_autograd_launches_both_kernels(cuda_device):
+    q, k, v, bias, go = _attention_inputs(cuda_device, 2, 12, 64, 64, 11)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fwd, bwd = attention.attention_fwd_kernel.launches, attention.attention_bwd_kernel.launches
+    out = attention.fused_attention(q, k, v, bias, 5, 0.1)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert attention.attention_fwd_kernel.launches == fwd + 1
+    assert attention.attention_bwd_kernel.launches == bwd + 1
+    ref = attention.attention_bwd_plain(q.detach(), k.detach(), v.detach(), bias, go, 5, 0.1)
+    _assert_grads_close((q.grad, k.grad, v.grad), ref)
+
+
+@pytest.mark.cuda
+def test_attention_dropout_seed_repeats_and_varies(cuda_device):
+    q, k, v, bias, _ = _attention_inputs(cuda_device, 2, 2, 64, 64, 13)
+    a = attention.attention_fwd_kernel(q, k, v, bias, 21, 0.1)
+    b = attention.attention_fwd_kernel(q, k, v, bias, 21, 0.1)
+    c = attention.attention_fwd_kernel(q, k, v, bias, 22, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def _midpoint_tau(s):
