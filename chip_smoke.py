@@ -52,7 +52,32 @@ training (``cli.train``, dropout 0.1). Phases:
      counter must rise in training and ``fused_ffn_ln``'s in validation and
      test; the gradient check runs the training composition (``fused_ffn``
      between two LayerNorms) with the FFN's plain version on the card as
-     the second witness.
+     the second witness;
+ 11. the three posting gather-score kernels (serial, pipelined, streamed)
+     vs their plain version at bucket sizes 512 .. 131,072, D = 32 and 128
+     bf16 (and fp32 once), ragged entry counts, entries spread over the
+     experts, all on one expert and with pad slots: max |err| within
+     GATHER_REL of max |ref|; repeatability; their times beside the gather
+     + bmm yardstick and the bound;
+ 12. the CITADEL CLI slice at full width (conf/citadel.yaml, bert_base from
+     seed 0, the phase-4 vocab): ``cli.generate_multivec_embeddings``
+     encodes 4,096 passages at L = 128 into expert shards, then
+     ``cli.citadel_retrieval`` answers 256 TREC queries from the host index,
+     the bf16 and the fp32 device index, the fp32 device index with every
+     bucket streamed (``STREAM_MODE="on"``) and the bf16 device index with
+     ``DPR_GATHER_KERNEL=pipelined``; fp32 runs equal the host run within
+     CITADEL_TOL, bf16 within CITADEL_BF16_REL, pipelined equals serial;
+     the serial, streamed and pipelined counters must rise;
+ 13. the device search at the size its users run: the MS MARCO-like layout
+     of tools/bench_citadel_device.py (8.8M docs, 21.1M padded postings in
+     five buckets, D = 32 bf16, a 128-dim bf16 CLS plane) built on the
+     card, B = 128 queries of 32 tokens routed uniformly, searched with the
+     CLS term (dense combine) and without it (sorted combine): median
+     search time, queries/s, the latency dict, peak memory and the device
+     time by kernel class; the kernel path equals the plain-scorer path on
+     the card and a numpy oracle on 4 queries; the tiled top-k equals
+     ``torch.topk`` on a (128, 8.8M) accumulator (both timed); the
+     kernels' JSON times are taken on that search's buckets.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -104,14 +129,34 @@ GRAD_WEIGHT_STD = 0.05
 FFN_REL = 1e-2
 FFN_H, FFN_F = 768, 3072  # bert_base
 FFN_INDEX_ROWS = 1 << 17  # phase 9's index: the fused FFN changes the encoder, not the index
+# gather-score kernels vs plain: max |err| over max |ref| (both sides sum
+# fp32 products of the same rounded operands, only in another order)
+GATHER_REL = 1e-4
+GATHER_BUCKETS = (512, 2048, 8192, 32768, 131072)
+GATHER_SCORES = 1 << 21  # entries x rows of one phase-11 call (E = 2**21 / L)
+# phase 12: fp32 device vs host run, each query's {doc: score} (the JAX CLI
+# test's tolerance); bf16 device vs host, relative to the query's top score;
+# pipelined vs serial (the same per-row sums; index_add_ orders its fp32
+# atomics differently run to run)
+CITADEL_TOL = 1e-4
+CITADEL_BF16_REL = 1e-2
+CITADEL_SAME_REL = 1e-5
+CITADEL_PASSAGES, CITADEL_QUERIES = 4096, 256
+# phase 13: tools/bench_citadel_device.py's layout (bucket size, experts)
+CITADEL_DOCS = 8_800_000
+CITADEL_PLAN = ((512, 8000), (2048, 3000), (8192, 800), (32768, 100), (131072, 8))
+CITADEL_BATCH, CITADEL_QTOKENS, CITADEL_DIM, CITADEL_CLS_DIM = 128, 32, 32, 128
+CITADEL_ORACLE_QUERIES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # CUDA cores, no tensor cores
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS):
     """(bound_ms, bound_by): the least time for ``nbytes`` of device memory
-    traffic and ``flops`` bf16 operations on an H100 SXM."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    traffic and ``flops`` operations at ``peak`` (bf16 tensor cores unless
+    given) on an H100 SXM."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -143,6 +188,28 @@ def cuda_ms(fn, reps=10, warmup=2):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls=20, reps=3):
+    """Median device time of one call for kernels of tens of microseconds:
+    ``calls`` calls enqueued back to back behind a GPU sleep, so the host's
+    per-call launch cost (a wrapper's checks and ctypes call) does not
+    leave the card idle between them, as it does inside ``cuda_ms``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)  # the host enqueues the calls meanwhile
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -329,9 +396,9 @@ def phase_slice(work, dev, n_rows=1 << 20, n_encoded=4096, extra=()):
     from dpr_scale_tpu_torch.retrieve.server import make_server
 
     rng = np.random.default_rng(SEED)
-    words = [f"w{i}" for i in range(30522 - 5)]
+    words = np.array([f"w{i}" for i in range(30522 - 5)])  # rng.choice copies a list per call
     tok_dir, tsv, embs = (os.path.join(work, n) for n in ("tok", "passages.tsv", "embs"))
-    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)
+    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words.tolist())
     lengths = rng.integers(40, 200, size=n_encoded)  # up to ~L=256 with the title
     with open(tsv, "w") as f:
         f.write("id\ttext\ttitle\n")
@@ -604,9 +671,9 @@ def phase_train(work, dev, batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, extra=()):
     from dpr_scale_tpu_torch.ops import attention, ffn
 
     rng = np.random.default_rng(SEED + 4)
-    words = [f"w{i}" for i in range(30522 - 5)]
+    words = np.array([f"w{i}" for i in range(30522 - 5)])
     tok_dir = os.path.join(work, "tok")
-    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)
+    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words.tolist())
     train_path, val_path = os.path.join(work, "train.jsonl"), os.path.join(work, "val.jsonl")
     write_dpr_jsonl(train_path, rng, words, batch_size * steps)
     write_dpr_jsonl(val_path, rng, words, batch_size)
@@ -891,6 +958,484 @@ def phase_ffn_kernels():
     return out
 
 
+def _gather_bound(vecs, slots, q):
+    """(bound_ms, bound_by) of one gather-score call: each distinct posting
+    block read once, q and the slots read once, the (E, L) fp32 scores
+    written once; E * L * D fp32 multiply-adds on the CUDA cores."""
+    import torch
+
+    n_exp, L, D = vecs.shape
+    live = slots[(slots >= 0) & (slots < n_exp)]
+    blocks = int(torch.unique(live).numel())
+    E, size = slots.shape[0], vecs.element_size()
+    return (blocks * L * D * size + E * L * 4 + E * D * size + E * 4, 2 * E * L * D)
+
+
+def _gather_inputs(dev, n_exp, L, D, E, dtype, case, seed):
+    """One bucket's postings (std 0.3), slot-sorted slots and queries:
+    entries spread over the experts, all on one expert, or every third
+    entry on the pad slot n_exp."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vecs = (torch.randn(n_exp, L, D, generator=g, device=dev) * 0.3).to(dtype)
+    q = torch.randn(E, D, generator=g, device=dev)
+    if case == "one_slot":
+        slots = torch.full((E,), n_exp // 2, dtype=torch.int32, device=dev)
+    else:
+        slots = torch.randint(0, n_exp, (E,), generator=g, device=dev, dtype=torch.int32)
+        if case == "pad":
+            slots[::3] = n_exp
+    return vecs, torch.sort(slots).values, q
+
+
+def _yardstick(vecs, slots, q):
+    """The gather + batched product a user would write: cuBLAS bmm in the
+    postings' dtype (bf16 products, fp32 accumulation, bf16 result)."""
+    import torch
+
+    idx = slots.long().clamp(0, vecs.shape[0] - 1)
+    return torch.bmm(vecs[idx], q.to(vecs.dtype)[:, :, None])
+
+
+def _gather_kernels():
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    return {
+        "gather_score_serial": lambda v, s, q, p=None: gs.gather_score_serial_kernel(v, s, q),
+        "gather_score_pipelined": lambda v, s, q, p=None: gs.gather_score_pipelined_kernel(v, s, q),
+        "gather_score_streamed": lambda v, s, q, p=None: gs.gather_score_streamed_kernel(v, q, s, p),
+    }
+
+
+def phase_gather_kernels():
+    """Phase 11: each gather-score kernel against the plain version at
+    every bucket size the index uses, D = 32 (conf/citadel.yaml) and 128
+    (tools/bench_citadel_device.py's default), bf16, plus fp32 once; three
+    routings each, E ragged; repeatability; times of the spread routing.
+    Returns each kernel's max |err|."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    dev = torch.device("cuda", 0)
+    kernels = _gather_kernels()
+    errs = dict.fromkeys(kernels, 0.0)
+    shapes = [(D, L, torch.bfloat16) for D in (32, 128) for L in GATHER_BUCKETS]
+    shapes.append((32, 2048, torch.float32))
+    for i, (D, L, dtype) in enumerate(shapes):
+        n_exp, E = max(8, GATHER_SCORES // L), GATHER_SCORES // L - 3
+        for case in ("spread", "one_slot", "pad"):
+            vecs, slots, q = _gather_inputs(dev, n_exp, L, D, E, dtype, case, SEED + 9 + i)
+            want = gs.gather_score_plain(vecs, slots, q)
+            scale = want.abs().max().item()
+            line = []
+            for name, fn in kernels.items():
+                got = fn(vecs, slots, q)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                line.append(f"{name[13:]} {err:.3g}")
+                if not torch.isfinite(got).all() or err > GATHER_REL * scale:
+                    raise AssertionError(f"{name} (L={L} D={D} {dtype} {case}): max_abs_err "
+                                         f"{err} of max |ref| {scale}")
+                errs[name] = max(errs[name], err)
+                del got
+            times = ""
+            if case == "spread":
+                pieces = torch.from_numpy(gs.stream_pieces(slots.cpu().numpy())).to(dev)
+                ms = {n: device_ms(lambda: fn(vecs, slots, q, pieces)) for n, fn in kernels.items()}
+                plain_ms = device_ms(lambda: gs.gather_score_plain(vecs, slots, q), calls=5)
+                yard_ms = device_ms(lambda: _yardstick(vecs, slots, q))
+                b = bound(*_gather_bound(vecs, slots, q), FP32_FLOPS)
+                times = ("; " + ", ".join(f"{n[13:]} {t:.4f} ms" for n, t in ms.items())
+                         + f", plain {plain_ms:.4f} ms, gather+bmm {yard_ms:.4f} ms, bound "
+                         f"{b[0]:.4f} ms ({b[1]}) = {b[0] / ms['gather_score_serial']:.1%} of serial")
+            print(f"gather L={L} D={D} {str(dtype)[6:]} n_exp={n_exp} E={E} {case}: max_abs_err "
+                  + ", ".join(line) + f" of max |ref| {scale:.3g}" + times)
+            del vecs, slots, q, want
+        torch.cuda.empty_cache()
+    # repeatability: inputs made again from the same seed, the same bits
+    for name, fn in kernels.items():
+        a = fn(*_gather_inputs(dev, 64, 512, 32, 301, torch.bfloat16, "spread", 5))
+        b = fn(*_gather_inputs(dev, 64, 512, 32, 301, torch.bfloat16, "spread", 5))
+        c = fn(*_gather_inputs(dev, 64, 512, 32, 301, torch.bfloat16, "spread", 6))
+        torch.cuda.synchronize()
+        if not torch.equal(a, b) or torch.equal(a, c):
+            raise AssertionError(f"{name}: a repeated seed gives other scores, or another the same")
+    print("gather kernels: repeated inputs give the same bits")
+    return errs
+
+
+def _same_runs(want, got, tol):
+    """Queries whose ranked (doc, score) lists disagree beyond ``tol`` (a
+    number or a function of the wanted list), compared as {doc: score}
+    maps: the ranked scores and each shared doc's score within tol, a doc
+    in only one list within tol of the lists' last score (near-tie swaps)."""
+    import numpy as np
+
+    bad = 0
+    for w, g in zip(want, got):
+        t = tol(w) if callable(tol) else tol
+        if len(w) != len(g):
+            bad += 1
+            continue
+        if not w:
+            continue
+        ws, gs_ = np.array([s for _d, s in w]), np.array([s for _d, s in g])
+        wm, gm = dict(w), dict(g)
+        floor = min(w[-1][1], g[-1][1]) + t
+        ok = (np.all(np.isfinite(gs_)) and np.all(np.abs(ws - gs_) <= t)
+              and all(abs(wm[d] - gm[d]) <= t for d in wm.keys() & gm.keys())
+              and all(wm.get(d, gm.get(d)) <= floor for d in wm.keys() ^ gm.keys()))
+        bad += not ok
+    return bad
+
+
+def _rel_tol(rel):
+    return lambda w: rel * max((abs(s) for _d, s in w), default=0.0)
+
+
+def phase_citadel_cli(work, dev, n_passages=CITADEL_PASSAGES, n_queries=CITADEL_QUERIES,
+                      extra=()):
+    """Phase 12, the CITADEL CLI slice on ``dev``; ``n_passages``/
+    ``n_queries``/``extra`` config overrides only shrink it for a rehearsal
+    on the CPU. Returns the kernels' launch counts."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.cli import citadel_retrieval, generate_multivec_embeddings
+    from dpr_scale_tpu_torch.index import inverted_device
+    from dpr_scale_tpu_torch.index.inverted import InvertedExpertIndex
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    rng = np.random.default_rng(SEED + 8)
+    words = np.array([f"w{i}" for i in range(30522 - 5)])  # rng.choice copies a list per call
+    tok_dir = os.path.join(work, "tok")
+    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words.tolist())
+    tsv, queries, embs = (os.path.join(work, n) for n in ("passages.tsv", "queries.tsv", "index"))
+    with open(tsv, "w") as f:
+        f.write("id\ttext\ttitle\n")
+        for i in range(n_passages):
+            text = " ".join(rng.choice(words, size=int(rng.integers(40, 120))))
+            f.write(f"p{i}\t{text}\t{' '.join(rng.choice(words, size=3))}\n")
+    with open(queries, "w") as f:
+        f.writelines(f"q{i}\t{' '.join(rng.choice(words, size=12))}\n" for i in range(n_queries))
+    cfg_path = os.path.join(ROOT, "conf", "citadel.yaml")
+    base = ["--config", cfg_path, "--device", str(dev), f"task.transform.model_path={tok_dir}",
+            f"datamodule.passages_path={tsv}", f"datamodule.test_path={queries}",
+            "datamodule.trec_format=true", f"task.ctx_embeddings_dir={embs}", *extra]
+
+    kernels = (gs.gather_score_serial_kernel, gs.gather_score_streamed_kernel,
+               gs.gather_score_pipelined_kernel)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    stats = generate_multivec_embeddings.main(base + ["task.shard=0", "task.num_shards=1",
+                                                      "datamodule.encode_batch_size=64"])
+    gen_s = time.perf_counter() - t0
+    lengths = np.array([len(p.doc_ids) for p in InvertedExpertIndex.load(
+        embs, num_docs=n_passages).experts.values()])
+    buckets = np.searchsorted(inverted_device.BUCKET_SIZES, lengths)
+    print(f"generate_multivec_embeddings: {n_passages} passages in {gen_s:.2f} s wall "
+          f"(CLI incl. model init, tokenization, index build, shard write); {stats}; experts "
+          "per bucket " + str({inverted_device.BUCKET_SIZES[min(b, 5)]: int(c) for b, c in
+                               zip(*np.unique(buckets, return_counts=True))})
+          + f"; longest list {lengths.max()}")
+    if lengths.max() > inverted_device.BUCKET_SIZES[-1]:
+        raise AssertionError("an expert list exceeds the largest bucket: the device index "
+                             "would truncate it")
+
+    def run(tag, more):
+        t0 = time.perf_counter()
+        res = citadel_retrieval.main(base + more)
+        wall = time.perf_counter() - t0
+        print(f"citadel_retrieval {tag}: {len(res)} queries in {wall:.2f} s wall (CLI incl. "
+              "model init, index load and build)")
+        return [[(c["id"], c["score"]) for c in ctxs] for ctxs in res]
+
+    host = run("host index", [])
+    bf16 = run("device index bf16", ["task.device_index=true"])
+    fp32 = run("device index fp32", ["task.device_index=true", "task.device_index_dtype=float32"])
+    inverted_device.STREAM_MODE = "on"
+    try:
+        streamed = run("device index fp32, STREAM_MODE on",
+                       ["task.device_index=true", "task.device_index_dtype=float32"])
+    finally:
+        inverted_device.STREAM_MODE = "auto"
+    os.environ["DPR_GATHER_KERNEL"] = "pipelined"
+    try:
+        pipelined = run("device index bf16, DPR_GATHER_KERNEL=pipelined",
+                        ["task.device_index=true"])
+    finally:
+        del os.environ["DPR_GATHER_KERNEL"]
+    launches = {"gather_score_serial": kernels[0].launches,
+                "gather_score_streamed": kernels[1].launches,
+                "gather_score_pipelined": kernels[2].launches}
+
+    if len(host) != n_queries or any(len(r) != min(100, n_passages) for r in host):
+        raise AssertionError(f"host run: {len(host)} queries, lengths {set(map(len, host))}")
+    checks = [("fp32 device vs host", fp32, host, CITADEL_TOL),
+              ("fp32 device streamed vs host", streamed, host, CITADEL_TOL),
+              ("bf16 device vs host", bf16, host, _rel_tol(CITADEL_BF16_REL)),
+              ("bf16 pipelined vs bf16 serial", pipelined, bf16, _rel_tol(CITADEL_SAME_REL))]
+    worst = max(abs(s) for r in host for _d, s in r)
+    for what, got, want, tol in checks:
+        bad = _same_runs(want, got, tol)
+        diff = max(max(abs(a - b) for (_x, a), (_y, b) in zip(w, g)) for w, g in zip(want, got))
+        print(f"{what}: {bad} of {len(want)} queries disagree; ranked scores differ by at most "
+              f"{diff:.3g} (scores up to {worst:.3g})")
+        if bad:
+            raise AssertionError(f"{what}: {bad} queries disagree")
+    print(f"citadel-path launches: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the CITADEL path never launched: {launches}")
+    return launches
+
+
+def _synth_bucket(rng, n_exp, bsize, n_docs, fill=0.7):
+    """tools/bench_citadel_device.py::synth_bucket's doc layout: per
+    expert, sorted random doc ids on the first 70% of the rows (-1 after,
+    the pad rows, which join the last run), with its run ids and the
+    run-compact (run_doc, start_pos) layout."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.index.inverted_device import _pad_2bit
+
+    docs = np.sort(rng.integers(0, n_docs, size=(n_exp, bsize)), axis=1)
+    f = int(bsize * fill)
+    docs[:, f:] = -1
+    starts = np.zeros((n_exp, bsize), bool)
+    starts[:, 0] = True
+    starts[:, 1:f] = docs[:, 1:f] != docs[:, : f - 1]
+    run_id = np.zeros((n_exp, bsize), np.int32)
+    run_id[:, :f] = np.cumsum(starts[:, :f], axis=1) - 1
+    run_id[:, f:] = run_id[:, f - 1 : f]
+    nruns = run_id[:, f - 1].astype(np.int64) + 1
+    R_pad = min(_pad_2bit(int(nruns.max()), minimum=8), bsize)
+    rows, cols = np.nonzero(starts)  # row-major: each expert's starts in order
+    rank = np.arange(len(rows)) - np.repeat(np.cumsum(nruns) - nruns, nruns)
+    keep = rank < R_pad
+    run_doc = np.full((n_exp, R_pad), -1, np.int64)
+    start_pos = np.zeros((n_exp, R_pad), np.int64)
+    run_doc[rows[keep], rank[keep]] = docs[rows[keep], cols[keep]]
+    start_pos[rows[keep], rank[keep]] = cols[keep]
+    flat = (np.arange(n_exp)[:, None] * bsize + run_id)[:, :f]
+    max_run_len = int(np.bincount(flat.ravel()).max())
+    return docs, run_id, run_doc, start_pos, max_run_len
+
+
+def _oracle(index, docs_of, query, rows):
+    """numpy scores of queries ``rows`` over every doc: per routed entry the
+    score of each posting (q rounded to the index dtype, products summed in
+    fp64), the max over each doc's postings, the zero floor, summed in fp32;
+    plus the CLS dot products (fp32)."""
+    import numpy as np
+    import torch
+
+    def rounded(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(index.dtype).float().numpy()
+
+    acc = np.zeros((len(rows), index.num_docs), np.float32)
+    for i, b in enumerate(rows):
+        for t in np.flatnonzero(query["attention_mask"][b] > 0):
+            e, w = int(query["expert_ids"][b, t, 0]), float(query["expert_weights"][b, t, 0])
+            bsize, slot = int(index._route_bsize[e]), int(index._route_slot[e])
+            q = rounded(np.float32(w) * query["expert_repr"][b, t]).astype(np.float64)
+            block = index.buckets[bsize]["vecs"][slot].float().cpu().numpy()
+            docs = docs_of[bsize][slot]
+            live = docs >= 0
+            s, d = (block @ q)[live], docs[live]
+            first = np.flatnonzero(np.concatenate([[True], d[1:] != d[:-1]]))
+            acc[i, d[first]] += np.maximum(np.maximum.reduceat(s, first), 0.0)
+    if "cls_repr" in query:
+        qc = rounded(query["cls_repr"][rows])
+        step = 1 << 20
+        for lo in range(0, index.num_docs, step):
+            acc[:, lo : lo + step] += qc @ index.cls[lo : lo + step].float().cpu().numpy().T
+    return acc
+
+
+def phase_citadel_search(dev, n_docs=CITADEL_DOCS, plan=CITADEL_PLAN, batch=CITADEL_BATCH,
+                         qtokens=CITADEL_QTOKENS, dim=CITADEL_DIM, cls_dim=CITADEL_CLS_DIM,
+                         reps=5):
+    """Phase 13 on ``dev``; the sizes only shrink for a rehearsal on the
+    CPU. Returns the serial kernel's launches, the per-search numbers and
+    the buckets' (vecs, slots, q) of one CLS search."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    rng = np.random.default_rng(SEED + 10)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    t0 = time.perf_counter()
+    index = DeviceExpertIndex(n_docs, torch.bfloat16, dev)
+    docs_of, first = {}, 0
+    for bsize, n_exp in plan:
+        docs, run_id, run_doc, start_pos, mrl = _synth_bucket(rng, n_exp, bsize, n_docs)
+        vecs = (torch.randn(n_exp, bsize, dim, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+        vecs[:, int(bsize * 0.7):] = 0  # pad rows score 0, as from_host_index leaves them
+        index.add_bucket(bsize, np.arange(first, first + n_exp), vecs, run_id, run_doc,
+                         start_pos, mrl)
+        docs_of[bsize], first = docs, first + n_exp
+        del vecs
+    index.cls = torch.empty(n_docs, cls_dim, dtype=torch.bfloat16, device=dev)
+    for lo in range(0, n_docs, 1 << 20):
+        rows = min(1 << 20, n_docs - lo)
+        index.cls[lo : lo + rows] = torch.randn(rows, cls_dim, generator=g, device=dev) * 0.3
+    postings = sum(b * n for b, n in plan)
+    nbytes = sum(b["vecs"].numel() * 2 for b in index.buckets.values())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"citadel index built on {dev} in {time.perf_counter() - t0:.2f} s: {first} experts, "
+          f"{postings} padded postings, D={dim} bf16 ({nbytes / 1e9:.3f} GB), CLS plane "
+          f"({n_docs}, {cls_dim}) bf16 ({index.cls.numel() * 2 / 1e9:.3f} GB), {n_docs} docs; "
+          "max run lengths " + str({b: v["max_run_len"] for b, v in index.buckets.items()}))
+
+    qrng = np.random.default_rng(SEED + 11)
+    query = {
+        "expert_ids": qrng.integers(0, first, size=(batch, qtokens, 1)).astype(np.int64),
+        "expert_weights": qrng.random((batch, qtokens, 1)).astype(np.float32),
+        "expert_repr": qrng.normal(size=(batch, qtokens, dim)).astype(np.float32),
+        "attention_mask": np.ones((batch, qtokens), np.int64),
+        "cls_repr": qrng.normal(size=(batch, cls_dim)).astype(np.float32),
+    }
+    no_cls = {k: v for k, v in query.items() if k != "cls_repr"}
+    cuda = dev.type == "cuda"
+    gs.gather_score_serial_kernel.launches = gs.gather_score_streamed_kernel.launches = 0
+    stats = {}
+    for tag, q in (("with CLS", query), ("without CLS", no_cls)):
+        index.search(q, 100)  # warm-up
+        index.latency.clear()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: index.search(q, 100), reps=reps, warmup=0)
+        latency = {k: round(v / reps * 1e3, 3) for k, v in index.latency.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        stats[tag] = {"ms": ms, "queries_per_s": batch * 1e3 / ms, "peak_gib": peak}
+        print(f"citadel search {tag} (B={batch}, {qtokens} tokens, query_topk 1, k=100, "
+              f"{n_docs} docs): median {ms:.2f} ms host = {batch * 1e3 / ms:.1f} queries/s; "
+              f"latency ms per search {latency}; scorers {index.last_plan}; peak device "
+              f"memory {peak:.2f} GiB")
+    launches = {"gather_score_serial": gs.gather_score_serial_kernel.launches,
+                "gather_score_streamed": gs.gather_score_streamed_kernel.launches}
+
+    # one more search of each kind, recording the buckets' scorer inputs,
+    # against the plain scorers on the same device and the numpy oracle
+    captured = []
+    serial, streamed = gs.gather_score_serial, gs.gather_score_streamed
+
+    def record_serial(v, s, qv):
+        captured.append((v, s.clone(), qv.clone()))
+        return serial(v, s, qv)
+
+    def record_streamed(v, qv, s, pieces=None):
+        captured.append((v, s.clone(), qv.clone()))
+        return streamed(v, qv, s, pieces)
+
+    oracle_rows = list(range(CITADEL_ORACLE_QUERIES))
+    t0 = time.perf_counter()
+    for tag, q in (("with CLS", query), ("without CLS", no_cls)):
+        if tag == "with CLS":
+            with mock.patch.object(gs, "gather_score_serial", record_serial), \
+                    mock.patch.object(gs, "gather_score_streamed", record_streamed):
+                got = index.search(q, 100)
+        else:
+            got = index.search(q, 100)
+        with mock.patch.object(gs, "_dispatch", lambda t, kernel, plain: plain):
+            plain = index.search(q, 100)
+        ranked = [[list(zip(d.tolist(), s.tolist())) for s, d in zip(*r)] for r in (got, plain)]
+        if not np.isfinite(got[0]).all() or got[0].shape != (batch, 100):
+            raise AssertionError(f"citadel search {tag}: {got[0].shape}, not all finite")
+        bad_plain = _same_runs(ranked[1], ranked[0], _rel_tol(CITADEL_TOL))
+        acc = _oracle(index, docs_of, q, oracle_rows)
+        top = np.argpartition(-acc, 99, axis=1)[:, :100]
+        top = np.take_along_axis(top, np.argsort(-np.take_along_axis(acc, top, 1), 1), 1)
+        want = [list(zip(t.tolist(), acc[i, t].tolist())) for i, t in enumerate(top)]
+        bad_oracle = _same_runs(want, ranked[0][: len(oracle_rows)], _rel_tol(CITADEL_TOL))
+        diff = np.abs(got[0] - plain[0]).max()
+        print(f"citadel search {tag}: kernel path vs plain scorers on {dev}: {bad_plain} of "
+              f"{batch} queries disagree (ranked scores differ by at most {diff:.3g}, scores up "
+              f"to {np.abs(plain[0]).max():.3g}); vs the numpy oracle: {bad_oracle} of "
+              f"{len(oracle_rows)} disagree ({time.perf_counter() - t0:.1f} s into the checks)")
+        if bad_plain or bad_oracle:
+            raise AssertionError(f"citadel search {tag} disagrees with its plain path or oracle")
+    if cuda:
+        from dpr_scale_tpu_torch.index.inverted_device import _tiled_topk
+        from dpr_scale_tpu_torch.tools.profile_serve import report
+
+        for tag, q in (("with CLS", query), ("without CLS", no_cls)):
+            report(f"citadel search {tag}, B={batch}", lambda: index.search(q, 100), dev, None)
+        # the dense combine's tiled top-k against torch.topk on a (B, num_docs)
+        # accumulator of CLS scores
+        acc = index._cls_scores(query["cls_repr"])
+        same = torch.equal(_tiled_topk(acc, 100)[0], torch.topk(acc, 100, dim=1).values)
+        tiled_ms = cuda_ms(lambda: _tiled_topk(acc, 100))
+        topk_ms = cuda_ms(lambda: torch.topk(acc, 100, dim=1))
+        print(f"top-100 of the ({batch}, {n_docs}) fp32 accumulator: tiled {tiled_ms:.3f} ms, "
+              f"torch.topk {topk_ms:.3f} ms; the same values: {same}")
+        del acc
+        if not same:
+            raise AssertionError("the tiled top-k disagrees with torch.topk")
+    print(f"citadel search launches: {launches}")
+    if launches["gather_score_serial"] < 1:
+        raise AssertionError(f"the serial gather kernel never launched: {launches}")
+    return launches, stats, captured
+
+
+def citadel_kernel_entries(captured):
+    """The gather-score kernels' JSON entries on the buckets of one CLS
+    search of phase 13 (their sums over the buckets): device time
+    (``device_ms``), the plain version's, the bound and the gather + bmm
+    yardstick; the streamed kernel takes each bucket's entries sorted by
+    slot. The serial kernel's time of one call with its host launch cost
+    (``cuda_ms``) is printed beside it."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    kernels = _gather_kernels()
+    total = {n: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0} for n in kernels}
+    nb = flops = yard = 0.0
+    for v, s, q in captured:
+        order = torch.argsort(s, stable=True)
+        s_sorted, q_sorted = s[order].contiguous(), q[order].contiguous()
+        pieces = torch.from_numpy(gs.stream_pieces(s_sorted.cpu().numpy())).to(v.device)
+        want = gs.gather_score_plain(v, s, q)
+        plain_ms = device_ms(lambda: gs.gather_score_plain(v, s, q), calls=5)
+        line = []
+        for name, fn in kernels.items():
+            if name == "gather_score_streamed":
+                args, ref = (v, s_sorted, q_sorted, pieces), want[order]
+            else:
+                args, ref = (v, s, q), want
+            err = (fn(*args) - ref).abs().max().item()
+            ms = device_ms(lambda: fn(*args))
+            total[name]["ms"] += ms
+            total[name]["plain_ms"] += plain_ms
+            total[name]["max_abs_err"] = max(total[name]["max_abs_err"], err)
+            line.append(f"{name[13:]} {ms:.4f} ms")
+        b = _gather_bound(v, s, q)
+        nb, flops = nb + b[0], flops + b[1]
+        y = device_ms(lambda: _yardstick(v, s, q))
+        yard += y
+        bb = bound(*b, FP32_FLOPS)
+        print(f"bucket L={v.shape[1]} ({v.shape[0]} experts) E={s.shape[0]}: " + ", ".join(line)
+              + f", plain {plain_ms:.4f} ms, gather+bmm {y:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+    launch = sum(cuda_ms(lambda: gs.gather_score_serial_kernel(v, s, q)) for v, s, q in captured)
+    print(f"gather_score_serial, one call per bucket with its host launch cost: {launch:.4f} ms")
+    b_ms, b_by = bound(nb, flops, FP32_FLOPS)
+    for name, t in total.items():
+        t.update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"{name} over the {len(captured)} buckets of one B={CITADEL_BATCH} search: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, gather+bmm yardstick {yard:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) = {b_ms / t['ms']:.1%} of the kernel's time; no "
+              "single PyTorch call computes it")
+    return total
+
+
 def main():
     import torch
 
@@ -943,6 +1488,22 @@ def main():
         phase_train_grads(torch.device("cuda", 0), data, extra=fused_ffn)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gather_errs = phase_gather_kernels()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        citadel_launches = phase_citadel_cli(work, torch.device("cuda", 0))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    search_launches, _stats, captured = phase_citadel_search(torch.device("cuda", 0))
+    gather = citadel_kernel_entries(captured)
+    del captured
+    for name, err in gather_errs.items():
+        gather[name]["max_abs_err"] = max(gather[name]["max_abs_err"], err)
+    citadel_launches["gather_score_serial"] += search_launches["gather_score_serial"]
+    citadel_launches["gather_score_streamed"] += search_launches["gather_score_streamed"]
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"
     kernels = [
@@ -965,6 +1526,11 @@ def main():
         {"name": "ffn_ln_fwd", "route": "cuda", "source": source + "ffn_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/ffn.py:387",
          "launches": ffn_launches["ffn_ln_fwd"], **ffn_kernels["ffn_ln_fwd"]},
+        *({"name": name, "route": "cuda", "source": source + "gather_score.cu",
+           "replaces": f"dpr_scale_tpu/index/inverted_device.py:{line}",
+           "launches": citadel_launches[name], **gather[name]}
+          for name, line in (("gather_score_serial", 431), ("gather_score_pipelined", 550),
+                             ("gather_score_streamed", 648))),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

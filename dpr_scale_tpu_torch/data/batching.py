@@ -61,8 +61,9 @@ class DPRBatcher:
 
 
 class TextBatcher:
-    """Tokenize corpus passages for encoding (the passage collate path of
-    dpr_scale/datamodule/dpr.py:415-479)."""
+    """Tokenize plain text rows (corpus passages / queries) for encoding
+    (the passage and query collate paths of
+    dpr_scale/datamodule/dpr.py:415-528)."""
 
     def __init__(self, tokenizer: HFTokenizer, use_title: bool = False, sep_token=None):
         self.tokenizer = tokenizer
@@ -79,3 +80,8 @@ class TextBatcher:
         if rows and "id" in rows[0]:
             out["corpus_ids"] = np.asarray([r["id"] for r in rows], dtype=object)
         return out
+
+    def queries(self, rows: Sequence[dict]) -> Dict[str, np.ndarray]:
+        texts = [r["question"] for r in rows]
+        ids, mask = self.tokenizer(texts)
+        return {"input_ids": ids, "attention_mask": mask}

@@ -8,7 +8,9 @@ batches (reference: dpr_scale/datamodule/dpr.py:162-479):
     negative counts, list-valued ``train_path`` and the docidx ``corpus_path``
     mode;
   * ``PassagesDataModule`` — corpus TSV -> context batches for embedding
-    generation, with contiguous sharding.
+    generation, with contiguous sharding;
+  * ``QueriesDataModule`` — query file (CSV answers or TREC TSV) -> query
+    batches for retrieval.
 
 Batches are built on one background thread (``utils.prefetch``); the JAX
 package's worker-process pool (``num_workers > 0``) is not ported.
@@ -16,7 +18,7 @@ package's worker-process pool (``num_workers > 0``) is not ported.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -25,6 +27,8 @@ from dpr_scale_tpu_torch.data.datasets import (
     CSVDataset,
     MemoryMappedDataset,
     MultiSourceDataset,
+    QueryCSVDataset,
+    QueryTSVDataset,
 )
 from dpr_scale_tpu_torch.data.example import DPRExampleBuilder
 from dpr_scale_tpu_torch.data.tokenize import HFTokenizer
@@ -248,5 +252,51 @@ class PassagesDataModule:
         def gen():
             for lo, hi in spans:
                 yield self.passages_batch_for(lo, hi)
+
+        return prefetch(gen(), self.prefetch_batches)
+
+
+class QueriesDataModule:
+    """Query file -> fixed-size query batches (CSV answers or TREC TSV).
+
+    The final batch is padded up to ``batch_size`` with its last row
+    repeated, ``pad_count`` reporting how many."""
+
+    def __init__(
+        self,
+        tokenizer: HFTokenizer,
+        queries_path: str,
+        batch_size: int = 128,
+        trec_format: bool = False,
+        prefetch_batches: int = 2,
+    ):
+        self.dataset = (
+            QueryTSVDataset(queries_path) if trec_format else QueryCSVDataset(queries_path)
+        )
+        self.batcher = TextBatcher(tokenizer)
+        self.batch_size = batch_size
+        self.prefetch_batches = prefetch_batches
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def rows(self) -> List[dict]:
+        return [self.dataset[i] for i in range(len(self.dataset))]
+
+    def batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        def gen():
+            buf: List[dict] = []
+            for i in range(len(self.dataset)):
+                buf.append(self.dataset[i])
+                if len(buf) == self.batch_size:
+                    out = self.batcher.queries(buf)
+                    out["pad_count"] = np.int32(0)
+                    yield out
+                    buf = []
+            if buf:
+                pad = self.batch_size - len(buf)
+                out = self.batcher.queries(buf + [buf[-1]] * pad)
+                out["pad_count"] = np.int32(pad)
+                yield out
 
         return prefetch(gen(), self.prefetch_batches)

@@ -1,12 +1,14 @@
 """Memory-mapped random-access datasets over JSONL / TSV files.
 
 The port's copy of the datasets of ``dpr_scale_tpu/data/datasets.py`` that
-its dense train / encode / serve paths read (reference:
-dpr_scale/datamodule/dpr.py:23-106):
+its dense train / encode / serve paths and the CITADEL retrieval CLI read
+(reference: dpr_scale/datamodule/dpr.py:23-159):
 
   * ``MemoryMappedDataset``      — line-offset random access over an mmap'd file
   * ``MultiSourceDataset``       — sample a random source per index
   * ``CSVDataset``               — TSV with header -> dict rows
+  * ``QueryCSVDataset``          — question \\t [answers] eval query files
+  * ``QueryTSVDataset``          — TREC-style ``qid \\t query``
 
 The offset index is a packed ``numpy.uint64`` array (~8 bytes/row), scanned
 by the native C++ scanner (:mod:`dpr_scale_tpu_torch.utils.native`) when it
@@ -15,6 +17,7 @@ builds, else by numpy, and cached next to the data file as
 """
 from __future__ import annotations
 
+import ast
 import mmap
 import os
 from typing import Dict, List, Optional, Sequence
@@ -144,3 +147,40 @@ class CSVDataset(MemoryMappedDataset):
     def process_line(self, line: bytes) -> Dict[str, str]:
         vals = parse_tsv_line(line.decode("utf-8"), self.sep)
         return dict(zip(self.columns, vals))
+
+
+class QueryCSVDataset(MemoryMappedDataset):
+    """Eval query file: ``question \\t <python-list of answer strings>``.
+
+    The reference parses the answers column with ``eval`` (dpr.py:133);
+    ``ast.literal_eval`` is used for safety, falling back to a
+    single-answer list for malformed rows.
+    """
+
+    def __init__(self, path: str):
+        super().__init__(path, header=False)
+
+    def process_line(self, line: bytes) -> Dict[str, object]:
+        parts = parse_tsv_line(line.decode("utf-8"))
+        question = parts[0]
+        answers: List[str] = []
+        if len(parts) > 1 and parts[1]:
+            try:
+                answers = list(ast.literal_eval(parts[1]))
+            except (ValueError, SyntaxError):
+                answers = [parts[1]]
+        return {"question": question, "answers": answers}
+
+
+class QueryTSVDataset(MemoryMappedDataset):
+    """TREC-style query file ``qid \\t query``.
+
+    Reference behavior: dpr_scale/datamodule/dpr.py:139-159.
+    """
+
+    def __init__(self, path: str):
+        super().__init__(path, header=False)
+
+    def process_line(self, line: bytes) -> Dict[str, str]:
+        parts = parse_tsv_line(line.decode("utf-8"))
+        return {"id": parts[0], "question": parts[1] if len(parts) > 1 else ""}

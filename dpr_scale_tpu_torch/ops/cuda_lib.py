@@ -25,7 +25,9 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "count_groups.cu", "ffn_fwd.cu")
+SOURCES = (
+    "attention_fwd.cu", "attention_bwd.cu", "count_groups.cu", "ffn_fwd.cu", "gather_score.cu",
+)
 HEADERS = ("attention_tiles.cuh", "dropout_bits.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpr_scale_tpu_torch")
 NVCC_FLAGS = (
@@ -128,6 +130,12 @@ def library() -> ctypes.CDLL:
             lib.dst_ffn_fwd.restype = i
             lib.dst_ffn_ln_fwd.argtypes = [p] * 14 + [i, i, i, f, u, u, f, p]
             lib.dst_ffn_ln_fwd.restype = i
+            lib.dst_gather_serial.argtypes = [p] * 4 + [i, ll, i, i, i, i, p]
+            lib.dst_gather_serial.restype = i
+            lib.dst_gather_pipelined.argtypes = [p] * 4 + [i, ll, i, i, i, i, i, p]
+            lib.dst_gather_pipelined.restype = i
+            lib.dst_gather_streamed.argtypes = [p] * 5 + [i, ll, i, i, i, i, p]
+            lib.dst_gather_streamed.restype = i
             _lib, _lib_path = lib, path
         return _lib
 

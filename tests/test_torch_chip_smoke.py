@@ -64,3 +64,62 @@ def test_fused_ffn_train_phase_runs_on_cpu_until_the_launch_check(tmp_path, caps
     assert "train: 3 steps of 4 queries" in out
     assert ("training-path launches: {'attention_fwd_dropout': 0, 'attention_bwd': 0, "
             "'ffn_fwd': 0, 'ffn_ln_fwd': 0}") in out
+
+
+def test_citadel_cli_phase_runs_on_cpu_until_the_launch_check(tmp_path, capsys):
+    """Phase 12 at a tiny width: shards, then the host, bf16, fp32, streamed
+    and pipelined CLI runs, each compared with the host run; the three
+    gather-score counters must rise."""
+    extra = ["task.model.arch=tiny", "task.model.vocab_size=30522",
+             "task.transform.max_seq_len=32"]
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_citadel_cli(str(tmp_path), torch.device("cpu"), n_passages=48,
+                                     n_queries=12, extra=extra)
+    out = capsys.readouterr().out
+    for what in ("fp32 device vs host", "fp32 device streamed vs host", "bf16 device vs host",
+                 "bf16 pipelined vs bf16 serial"):
+        assert f"{what}: 0 of 12 queries disagree" in out
+    assert ("citadel-path launches: {'gather_score_serial': 0, 'gather_score_streamed': 0, "
+            "'gather_score_pipelined': 0}") in out
+
+
+def test_citadel_search_phase_runs_on_cpu_until_the_launch_check(capsys):
+    """Phase 13 at a tiny size (70,000 docs, over sorted_combine_min_docs, so
+    the search without CLS takes the sorted combine): the kernel path equals
+    the plain path and the numpy oracle, with and without the CLS term."""
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_citadel_search(torch.device("cpu"), n_docs=70_000,
+                                        plan=((128, 40), (512, 16), (2048, 4)), batch=6,
+                                        qtokens=8, dim=8, cls_dim=8, reps=1)
+    out = capsys.readouterr().out
+    for tag in ("with CLS", "without CLS"):
+        assert (f"citadel search {tag}: kernel path vs plain scorers on cpu: 0 of 6 queries "
+                "disagree") in out
+        assert f"{tag}" in out and "vs the numpy oracle: 0 of 4 disagree" in out
+    assert "citadel search launches: {'gather_score_serial': 0, 'gather_score_streamed': 0}" in out
+
+
+def test_synthetic_citadel_layout_matches_from_host_index():
+    """Phase 13 builds its index from tools/bench_citadel_device.py's layout;
+    the same postings through from_host_index give the same run ids,
+    run-compact docs and starts, and max run length."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.index.inverted import InvertedExpertIndex, _ExpertPostings
+    from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
+
+    rng = np.random.default_rng(0)
+    docs, run_id, run_doc, start_pos, mrl = chip_smoke._synth_bucket(rng, 6, 512, 300)
+    host = InvertedExpertIndex(dim=4, num_docs=300)
+    for e in range(6):
+        d = docs[e][docs[e] >= 0]
+        host.experts[e] = _ExpertPostings(d, np.ones(len(d), np.float32),
+                                          np.ones((len(d), 4), np.float32))
+    b = DeviceExpertIndex.from_host_index(host, dtype="float32", device="cpu").buckets[512]
+    n = int(b["vecs"].shape[0])
+    assert n >= 6
+    np.testing.assert_array_equal(b["run_id"].numpy()[:6], run_id)
+    R = run_doc.shape[1]
+    np.testing.assert_array_equal(b["run_doc"].numpy()[:6, :R], run_doc)
+    np.testing.assert_array_equal(b["start_pos"].numpy()[:6, :R], start_pos)
+    assert b["max_run_len"] == mrl

@@ -11,17 +11,23 @@ from dpr_scale_tpu.config import load_config as jax_load_config
 from dpr_scale_tpu.config import parse_overrides as jax_parse_overrides
 from dpr_scale_tpu.data.datamodule import DenseRetrieverDataModule as JaxDenseDM
 from dpr_scale_tpu.data.datamodule import PassagesDataModule as JaxPassagesDM
+from dpr_scale_tpu.data.datamodule import QueriesDataModule as JaxQueriesDM
 from dpr_scale_tpu.data.datamodule import contiguous_shard as jax_contiguous_shard
 from dpr_scale_tpu.data.datasets import CSVDataset as JaxCSVDataset
+from dpr_scale_tpu.data.datasets import QueryCSVDataset as JaxQueryCSV
+from dpr_scale_tpu.data.datasets import QueryTSVDataset as JaxQueryTSV
+from dpr_scale_tpu.retrieve import writers as jax_writers
 from dpr_scale_tpu.data.tokenize import HFTokenizer as JaxTokenizer
 from dpr_scale_tpu.utils.native import scan_line_offsets as jax_scan
 from dpr_scale_tpu_torch.config import load_config, parse_overrides
 from dpr_scale_tpu_torch.data.datamodule import (
     DenseRetrieverDataModule,
     PassagesDataModule,
+    QueriesDataModule,
     contiguous_shard,
 )
-from dpr_scale_tpu_torch.data.datasets import CSVDataset
+from dpr_scale_tpu_torch.data.datasets import CSVDataset, QueryCSVDataset, QueryTSVDataset
+from dpr_scale_tpu_torch.retrieve import writers
 from dpr_scale_tpu_torch.data.tokenize import HFTokenizer
 from dpr_scale_tpu_torch.utils import native
 
@@ -126,3 +132,53 @@ def test_scan_line_offsets_equals_jax_native_and_numpy(data, monkeypatch):
     got = native.scan_line_offsets(data, len(data))
     assert got.dtype == np.uint64
     np.testing.assert_array_equal(got, want)
+
+
+def _query_files(tmp_path):
+    csv = tmp_path / "queries.csv"
+    csv.write_text("who wrote the book\t['a', 'b']\nwhere\t[malformed\nno answers\n"
+                   '"quoted\tquestion"\t["x"]\nlast one\t[]\n')
+    tsv = tmp_path / "queries.tsv"
+    tsv.write_text("q1\twho wrote the book\nq2\twhere is it\nq3\n" + "".join(
+        f"q{i}\tquestion number {i}\n" for i in range(4, 9)))
+    return str(csv), str(tsv)
+
+
+def test_query_datasets_equal_jax(tmp_path):
+    csv, tsv = _query_files(tmp_path)
+    for port, ref in ((QueryCSVDataset(csv), JaxQueryCSV(csv)),
+                      (QueryTSVDataset(tsv), JaxQueryTSV(tsv))):
+        assert len(port) == len(ref) > 0
+        assert [port[i] for i in range(len(port))] == [ref[i] for i in range(len(ref))]
+    assert QueryCSVDataset(csv)[1] == {"question": "where", "answers": ["[malformed"]}
+    assert QueryTSVDataset(tsv)[2] == {"id": "q3", "question": ""}
+
+
+@pytest.mark.parametrize("trec_format", [True, False])
+def test_queries_datamodule_batches_equal_jax(tiny_bert_dir, tmp_path, trec_format):
+    """Full batches, the padded last batch and its pad_count, the rows."""
+    csv, tsv = _query_files(tmp_path)
+    path = tsv if trec_format else csv
+    port = QueriesDataModule(HFTokenizer(tiny_bert_dir, max_seq_len=12), path, batch_size=3,
+                             trec_format=trec_format)
+    ref = JaxQueriesDM(JaxTokenizer(tiny_bert_dir, max_seq_len=12), path, batch_size=3,
+                       trec_format=trec_format)
+    assert len(port) == len(ref) and port.rows() == ref.rows()
+    _assert_batches_equal(port.batches(), ref.batches())
+    assert int(list(port.batches())[-1]["pad_count"]) == (-len(port)) % 3
+
+
+def test_writers_write_the_jax_bytes(tmp_path):
+    questions = [{"question": "q one", "answers": ["a"], "id": "x1"}, {"question": "q two"}]
+    results = [[{"id": "7", "title": "t", "text": "b", "score": 1.5}],
+               [{"id": "3", "title": "", "text": "c", "score": -0.25},
+                {"id": "x1", "title": "", "text": "d", "score": -1.0}]]
+    for mod, tag in ((writers, "port"), (jax_writers, "jax")):
+        mod.write_dpr_json(str(tmp_path / f"{tag}.json"), questions, results)
+        for ignore in (False, True):
+            mod.write_trec_run(str(tmp_path / f"{tag}_{ignore}.trec"), ["x1", "1"],
+                               [["7", "x1"], ["3"]], [[1.5, 0.5], [-0.25]],
+                               ignore_identical_ids=ignore)
+    for name in ("{}.json", "{}_False.trec", "{}_True.trec"):
+        port = (tmp_path / name.format("port")).read_bytes()
+        assert port == (tmp_path / name.format("jax")).read_bytes() and port

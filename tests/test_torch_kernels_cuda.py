@@ -294,3 +294,88 @@ def test_fused_ffn_autograd_on_card_matches_cpu(cuda_device, rate):
     assert got[1].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in got[2:])
     for name, a, b in zip(("y", "dx", "dw1", "db1", "dw2", "db2"), got, run("cpu")):
         _assert_rel_close(name, a.cpu(), b, rel=2e-2)
+
+
+def _gather_inputs(dev, n_exp, L, D, E, dtype, case, seed):
+    """Postings, slots and queries of one bucket: entries spread over the
+    experts, all on one expert, or with pad slots (n_exp) mixed in."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vecs = (torch.randn(n_exp, L, D, generator=g, device=dev) * 0.3).to(dtype)
+    q = torch.randn(E, D, generator=g, device=dev)
+    if case == "one_slot":
+        slots = torch.full((E,), n_exp // 2, dtype=torch.int32, device=dev)
+    else:
+        slots = torch.randint(0, n_exp, (E,), generator=g, device=dev, dtype=torch.int32)
+        if case == "pad":
+            slots[::3] = n_exp
+    return vecs, torch.sort(slots).values, q
+
+
+_GATHER_SHAPES = [(40, 512, 32, 301), (9, 1024, 128, 9), (6, 256, 768, 3), (5, 2048, 32, 64),
+                  (3, 131072, 32, 5), (7, 100, 7, 13), (4, 96, 100, 10)]
+
+
+def _assert_scores_close(name, got, want):
+    """max |err| within 1e-4 of max |ref|: both sides sum fp32 products of
+    the same rounded operands, only in another order."""
+    assert got.shape == want.shape and got.dtype == torch.float32, name
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * scale + 1e-30, f"{name}: max err {err} vs max |ref| {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "one_slot", "pad"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_exp,L,D,E", _GATHER_SHAPES)
+def test_gather_score_kernels_match_plain(cuda_device, n_exp, L, D, E, dtype, case):
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    vecs, slots, q = _gather_inputs(cuda_device, n_exp, L, D, E, dtype, case, L + D + E)
+    want = gs.gather_score_plain(vecs, slots, q)
+    for name, kernel, fn in (
+        ("serial", gs.gather_score_serial_kernel, lambda: gs.gather_score_serial(vecs, slots, q)),
+        ("pipelined", gs.gather_score_pipelined_kernel,
+         lambda: gs.gather_score_pipelined(vecs, slots, q)),
+        ("streamed", gs.gather_score_streamed_kernel,
+         lambda: gs.gather_score_streamed(vecs, q, slots)),
+    ):
+        before = kernel.launches
+        got = fn()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        _assert_scores_close(name, got, want)
+    if case == "pad":
+        assert (want[slots == n_exp] == 0).all()
+
+
+@pytest.mark.cuda
+def test_gather_score_streamed_pieces_split_long_runs(cuda_device):
+    """An expert hit by more entries than one piece holds, with the pieces
+    passed from the host: the same scores as without them."""
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    vecs, slots, q = _gather_inputs(cuda_device, 8, 512, 32, 200, torch.bfloat16, "one_slot", 3)
+    pieces = gs.stream_pieces(slots.cpu().numpy())
+    assert len(pieces) - 1 == -(-200 // gs.STREAM_PIECE)
+    _assert_scores_close("pieces", gs.gather_score_streamed(vecs, q, slots, pieces),
+                         gs.gather_score_plain(vecs, slots, q))
+
+
+@pytest.mark.cuda
+def test_gather_score_kernels_refuse_what_they_cannot_run(cuda_device):
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    vecs, slots, q = _gather_inputs(cuda_device, 4, 64, 32, 5, torch.bfloat16, "spread", 1)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        gs.gather_score_serial_kernel(vecs.half(), slots, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        gs.gather_score_pipelined_kernel(vecs.cpu(), slots.cpu(), q.cpu())
+    with pytest.raises(ValueError, match=r"\(E, D\)"):
+        gs.gather_score_streamed_kernel(vecs, q[:, :8], slots)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.gather_score_serial_kernel(vecs.transpose(1, 2), slots,
+                                      torch.zeros(5, 64, device=cuda_device))
+    wide = torch.zeros(2, 8, 300, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="limit"):
+        gs.gather_score_serial_kernel(wide, slots[:2], torch.zeros(2, 300, device=cuda_device))
