@@ -77,7 +77,30 @@ training (``cli.train``, dropout 0.1). Phases:
      time by kernel class; the kernel path equals the plain-scorer path on
      the card and a numpy oracle on 4 queries; the tiled top-k equals
      ``torch.topk`` on a (128, 8.8M) accumulator (both timed); the
-     kernels' JSON times are taken on that search's buckets.
+     kernels' JSON times are taken on that search's buckets;
+ 14. the three MIPS sweep kernels (count_above, groupmax, tile_max_scores)
+     vs their plain versions over 2,097,152 x 768 bf16 rows (the JAX
+     bench.py geometry) at B = 512 (the retrieval CLI's query batch) and
+     B = 64, plus an fp32 case and a ragged one (B = 7, D = 100, rows not a
+     multiple of the kernels' 2,048-row span): counts exact where the
+     threshold sits clear of every score (within the COUNT_MARGIN_REL
+     bracket elsewhere), maxima within MAX_REL of max |ref|, repeated calls
+     the same bits; their times beside the plain version, a cuBLAS yardstick
+     (fp32-output products over 131,072-row chunks plus the reduction) and
+     the bound;
+ 15. the retrieval CLI slice at full width (conf/nq.yaml, bert_base from
+     seed 0, the phase-4 vocab): ``cli.generate_embeddings`` encodes 4,096
+     passages, fp16 distractors fill a second shard up to 2,097,152 rows
+     (index blocks of 4,096, 2,000,000 and 93,056 rows),
+     ``cli.generate_query_embeddings`` encodes 1,024 NQ-style questions,
+     ``cli.run_retrieval`` answers them at k = 100 with
+     ``task.mips_method=groupmax`` and ``=auto``, and ``retrieve()`` with
+     ``fused``, ``approx`` and ``exact_sort`` over one built index; every
+     method's DPR JSON equals a brute-force exact top-100 (``check_exact``),
+     ``eval.qa_eval`` equals a recount with ``has_answers``, the
+     count_above and groupmax counters must rise; then
+     ``MipsIndex.benchmark`` times groupmax, fused, auto and exact_sort at
+     B = 512 over the 2,097,152-row block.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -147,6 +170,13 @@ CITADEL_DOCS = 8_800_000
 CITADEL_PLAN = ((512, 8000), (2048, 3000), (8192, 800), (32768, 100), (131072, 8))
 CITADEL_BATCH, CITADEL_QTOKENS, CITADEL_DIM, CITADEL_CLS_DIM = 128, 32, 32, 128
 CITADEL_ORACLE_QUERIES = 4
+# phases 14-15: the JAX bench.py geometry (CORPUS_ROWS x 768 bf16); maxima
+# of the same fp32 products summed in another order within MAX_REL of max
+# |ref| (the COUNT_MARGIN_REL bound)
+MIPS_ROWS, MIPS_DIM = 1 << 21, 768
+MAX_REL = 2e-5
+YARD_CHUNK = 131072
+RETRIEVAL_QUERIES, RETRIEVAL_K, QUERY_BATCH = 1024, 100, 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # CUDA cores, no tensor cores
@@ -236,7 +266,7 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     print(smi)
     probe = {}
-    for mod in ("transformers", "tokenizers", "yaml"):
+    for mod in ("transformers", "tokenizers", "yaml", "regex"):
         try:
             probe[mod] = importlib.import_module(mod).__version__
         except ImportError:
@@ -355,31 +385,35 @@ def post(url, questions, k):
         return json.loads(resp.read())["results"]
 
 
-def check_exact(index, q, results, k):
+def check_exact(index, q, results, k, chunk=128):
     """Served ids against a brute-force fp32-accumulated top-k over the
-    index's own bf16 rows; swaps only among scores within TOPK_REL of the
-    k-th best."""
+    index's own bf16 rows, ``chunk`` queries at a time; swaps only among
+    scores within TOPK_REL of the k-th best."""
     import torch
 
-    s = torch.cat([
-        q.to(index.dtype).float() @ emb[:n].float().T for emb, n, _off in index._blocks
-    ], dim=1)
-    best = torch.topk(s, k, dim=1)
-    for b, ctxs in enumerate(results):
-        ids = [int(c["id"]) for c in ctxs]
-        kth = best.values[b, -1].item()
-        tol = TOPK_REL * abs(kth)
-        true = s[b, torch.tensor(ids, device=s.device)]
-        served = torch.tensor([c["score"] for c in ctxs], device=s.device)
-        if len(ids) != k or len(set(ids)) != k:
-            raise AssertionError(f"query {b}: {len(ids)} ids, {len(set(ids))} distinct, k={k}")
-        if ((served - true).abs() > TOPK_REL * true.abs() + 1e-6).any():
-            raise AssertionError(f"query {b}: served scores differ from brute force")
-        if (true < kth - tol).any():
-            raise AssertionError(f"query {b}: served a row below the exact k-th score")
-        missed = set(best.indices[b].tolist()) - set(ids)
-        if any(s[b, j].item() > kth + tol for j in missed):
-            raise AssertionError(f"query {b}: missed an exact top-{k} row")
+    for lo in range(0, len(results), chunk):
+        s = torch.cat([
+            q[lo : lo + chunk].to(index.dtype).float() @ emb[:n].float().T
+            for emb, n, _off in index._blocks
+        ], dim=1)
+        best = torch.topk(s, k, dim=1)
+        for j, ctxs in enumerate(results[lo : lo + chunk]):
+            b = lo + j
+            ids = [int(c["id"]) for c in ctxs]
+            kth = best.values[j, -1].item()
+            tol = TOPK_REL * abs(kth)
+            true = s[j, torch.tensor(ids, device=s.device)]
+            served = torch.tensor([c["score"] for c in ctxs], device=s.device)
+            if len(ids) != k or len(set(ids)) != k:
+                raise AssertionError(f"query {b}: {len(ids)} ids, {len(set(ids))} distinct, k={k}")
+            if ((served - true).abs() > TOPK_REL * true.abs() + 1e-6).any():
+                raise AssertionError(f"query {b}: served scores differ from brute force")
+            if (true < kth - tol).any():
+                raise AssertionError(f"query {b}: served a row below the exact k-th score")
+            missed = set(best.indices[j].tolist()) - set(ids)
+            if any(s[j, i].item() > kth + tol for i in missed):
+                raise AssertionError(f"query {b}: missed an exact top-{k} row")
+        del s, best
 
 
 def phase_slice(work, dev, n_rows=1 << 20, n_encoded=4096, extra=()):
@@ -1436,6 +1470,276 @@ def citadel_kernel_entries(captured):
     return total
 
 
+def _mips_kernels():
+    """name -> (kernel, plain, yardstick); looked up at call time."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    def yard_scores(q, corpus):
+        """cuBLAS products with fp32 output over YARD_CHUNK-row chunks."""
+        q = q.to(corpus.dtype)
+        for lo in range(0, corpus.shape[0], YARD_CHUNK):
+            yield lo, torch.mm(q, corpus[lo : lo + YARD_CHUNK].T, out_dtype=torch.float32)
+
+    def yard_count(q, corpus, tau):
+        return sum((s > tau[:, None]).sum(dim=1, dtype=torch.int32) for _lo, s in
+                   yard_scores(q, corpus))
+
+    def yard_groupmax(q, corpus):
+        t1 = torch.empty((corpus.shape[0] // 8, q.shape[0]), device=corpus.device)
+        for lo, s in yard_scores(q, corpus):
+            t1[lo // 8 : lo // 8 + s.shape[1] // 8] = s.view(q.shape[0], -1, 8).amax(dim=2).T
+        return t1, t1.view(-1, 16, q.shape[0]).amax(dim=1)
+
+    def yard_tile_max(q, corpus, tile):
+        return torch.cat([s.view(q.shape[0], -1, tile).amax(dim=2)
+                          for _lo, s in yard_scores(q, corpus)], dim=1)
+
+    return {
+        "count_above": (mk.count_above_kernel, mk.count_above_plain, yard_count),
+        "groupmax": (mk.groupmax_kernel, mk.groupmax_plain, yard_groupmax),
+        "tile_max_scores": (mk.tile_max_scores_kernel, mk.tile_max_scores_plain, yard_tile_max),
+    }
+
+
+# (B, N, D, dtype name, tile_max tile, timed): the retrieval CLI's query batch
+# and a serving batch over the bench geometry, an fp32 case, a ragged case
+MIPS_CASES = (
+    (QUERY_BATCH, MIPS_ROWS, MIPS_DIM, "bfloat16", 4096, True),
+    (64, MIPS_ROWS, MIPS_DIM, "bfloat16", 4096, True),
+    (37, 131072 + 4096, MIPS_DIM, "float32", 4096, False),
+    (7, 101 * 128, 100, "bfloat16", 1616, False),
+)
+
+
+def _top_scores(q, corpus, k):
+    """(B, k) best scores, descending, of the queries cast to the corpus
+    dtype, fp32 sums, chunk by chunk."""
+    import torch
+
+    best = None
+    for lo in range(0, corpus.shape[0], YARD_CHUNK):
+        s = q.to(corpus.dtype).float() @ corpus[lo : lo + YARD_CHUNK].float().T
+        t = torch.topk(s, min(k, s.shape[1]), dim=1).values
+        best = t if best is None else torch.topk(torch.cat([best, t], 1), k, dim=1).values
+    return best
+
+
+def phase_mips_kernels(dev, cases=MIPS_CASES):
+    """Phase 14: count_above, groupmax and tile_max_scores against their
+    plain versions on ``dev`` for each case; the timed cases also time
+    kernel, plain version and yardstick. Returns each kernel's JSON entry
+    from the first timed case (times absent if none ran), max |err| over all
+    cases."""
+    import torch
+
+    kernels = _mips_kernels()
+    entries = {n: {"max_abs_err": 0.0} for n in kernels}
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    for B, N, D, dtype_name, tile, timed in cases:
+        dtype = getattr(torch, dtype_name)
+        corpus = torch.randn(N, D, generator=g, device=dev).to(dtype)
+        q = torch.randn(B, D, generator=g, device=dev)
+        k = RETRIEVAL_K
+        best = _top_scores(q, corpus, k + 1)
+        tau = ((best[:, k - 1] + best[:, k]) / 2).contiguous()
+        margin = COUNT_MARGIN_REL * tau.abs()
+        clear = (best[:, k - 1] - best[:, k]) > 2 * margin  # no score near tau
+        del best
+        what = f"B={B} N={N} D={D} {dtype_name}"
+        args = {"count_above": (q, corpus, tau), "groupmax": (q, corpus),
+                "tile_max_scores": (q, corpus, tile)}
+        for name, (kernel, plain, yard) in kernels.items():
+            got, again = kernel(*args[name]), kernel(*args[name])
+            want = plain(*args[name])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} ({what}): repeated calls give other bits")
+            if name == "count_above":
+                lo_c, hi_c = plain(q, corpus, tau + margin), plain(q, corpus, tau - margin)
+                (c,), (p,) = got, want
+                err = (c - p).abs().max().item()
+                bad = (((c != p) & clear).sum().item() + ((c < lo_c) | (c > hi_c)).sum().item()
+                       + (p[clear] != k).sum().item())
+                line = (f"{(c != p).sum().item()} of {B} counts differ from plain ({int(clear.sum())} "
+                        f"thresholds clear of every score, {int((p[clear] == k).sum())} of those "
+                        f"count {k}), {bad} outside the check")
+            else:
+                err = max((a - b).abs().max().item() for a, b in zip(got, want))
+                scale = max(b.abs().max().item() for b in want)
+                bad = int(err > MAX_REL * scale or any(a.shape != b.shape for a, b in zip(got, want))
+                          or not all(torch.isfinite(a).all() for a in got))
+                line = f"max_abs_err {err:.3g} of max |ref| {scale:.3g}"
+            print(f"{name} ({what}): {line}; repeatable")
+            if bad:
+                raise AssertionError(f"{name} ({what}) disagrees with its plain version")
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], float(err))
+            del got, again, want
+            if timed:
+                out_bytes = {"count_above": nbytes(tau) + 4 * B,
+                             "groupmax": 4 * B * (N // 8 + N // 128),
+                             "tile_max_scores": 4 * B * (N // tile)}[name]
+                b_ms, b_by = bound(nbytes(q, corpus) + out_bytes, 2 * B * N * D)
+                ms = cuda_ms(lambda: kernel(*args[name]))
+                plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, warmup=1)
+                yard_ms = cuda_ms(lambda: yard(*args[name]), reps=5, warmup=1)
+                print(f"{name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
+                      f"yardstick {yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = "
+                      f"{b_ms / ms:.1%} of the kernel's time; no single PyTorch call computes it")
+                if "ms" not in entries[name]:
+                    entries[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                         library_ms=None)
+        del corpus, q, tau
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return entries
+
+
+def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
+                        n_queries=RETRIEVAL_QUERIES, extra=(), bench_iters=4):
+    """Phase 15, the retrieval CLI slice on ``dev``; ``n_rows``/
+    ``n_encoded``/``n_queries``/``extra`` only shrink it for a rehearsal on
+    the CPU. Returns the kernels' launch counts."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli import generate_embeddings, generate_query_embeddings, run_retrieval
+    from dpr_scale_tpu_torch.data.datasets import QueryCSVDataset
+    from dpr_scale_tpu_torch.encode.embeddings import load_embedding_shard
+    from dpr_scale_tpu_torch.eval.qa_eval import SimpleTokenizer, evaluate_retrieval, has_answers
+    from dpr_scale_tpu_torch.index.mips import MipsIndex
+    from dpr_scale_tpu_torch.ops import mips_kernels
+    from dpr_scale_tpu_torch.retrieve.retrieval import build_index, retrieve
+
+    rng = np.random.default_rng(SEED + 21)
+    words = np.array([f"w{i}" for i in range(30522 - 5)])
+    tok_dir, tsv, csv, embs = (os.path.join(work, n) for n in
+                               ("tok", "passages.tsv", "questions.csv", "embs"))
+    write_tokenizer(tok_dir, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words.tolist())
+    with open(tsv, "w") as f:
+        f.write("id\ttext\ttitle\n")
+        for i in range(n_encoded):
+            text = " ".join(rng.choice(words, size=int(rng.integers(40, 200))))
+            f.write(f"{i}\t{text}\t{' '.join(rng.choice(words, size=3))}\n")
+        f.writelines(f"{i}\tdistractor {i}\tdistractor\n" for i in range(n_encoded, n_rows))
+    with open(csv, "w") as f:  # NQ-style: question \t python list of answers
+        f.writelines(f"{' '.join(rng.choice(words, size=12))}\t{[str(rng.choice(words))]}\n"
+                     for _ in range(n_queries))
+    cfg_path = os.path.join(ROOT, "conf", "nq.yaml")
+    base = ["--config", cfg_path, "--device", str(dev), f"task.transform.model_path={tok_dir}",
+            f"datamodule.passages_path={tsv}", f"datamodule.test_path={csv}",
+            f"task.ctx_embeddings_dir={embs}", "datamodule.encode_batch_size=128", *extra]
+
+    t0 = time.perf_counter()
+    generate_embeddings.main(base + ["task.shard=0", f"task.num_shards={n_rows // n_encoded}"])
+    emb = load_embedding_shard(os.path.join(embs, "reps_0000.pkl"))
+    e = torch.from_numpy(emb).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    noise = torch.randn(n_rows - n_encoded, emb.shape[1], generator=g, device=dev)
+    np.save(os.path.join(embs, "reps_0001.npy"), (e.mean(0) + noise * e.std(0)).half().cpu().numpy())
+    del e, noise
+    qpath = generate_query_embeddings.main(base)
+    q_emb = load_embedding_shard(qpath)
+    print(f"corpus and query embeddings: {n_encoded} encoded + {n_rows - n_encoded} distractor rows, "
+          f"{q_emb.shape} queries ({q_emb.dtype}) in {time.perf_counter() - t0:.2f} s wall")
+    if q_emb.shape != (n_queries, emb.shape[1]) or not np.isfinite(q_emb).all():
+        raise AssertionError(f"query_reps.pkl: {q_emb.shape}, finite={np.isfinite(q_emb).all()}")
+
+    mips_kernels.count_above_kernel.launches = mips_kernels.groupmax_kernel.launches = 0
+    outputs = {}
+    for method in ("groupmax", "auto"):
+        outputs[method] = os.path.join(work, f"{method}.json")
+        t0 = time.perf_counter()
+        run_retrieval.main(base + [f"task.mips_method={method}", f"task.topk={RETRIEVAL_K}",
+                                   f"task.output_path={outputs[method]}",
+                                   f"task.output_trec_path={work}/{method}.trec"])
+        print(f"run_retrieval mips_method={method}: {n_queries} queries in "
+              f"{time.perf_counter() - t0:.2f} s wall (CLI incl. shard load, index build, "
+              "search, JSON and TREC write)")
+    t0 = time.perf_counter()
+    index = build_index(embs, dev)
+    print(f"build_index: {time.perf_counter() - t0:.2f} s, blocks "
+          f"{[(b[1], b[0].shape[0]) for b in index._blocks]} (valid, padded rows)")
+    questions = QueryCSVDataset(csv)
+    questions = [questions[i] for i in range(len(questions))]
+    for method in ("fused", "approx", "exact_sort"):
+        index.method = method
+        outputs[method] = os.path.join(work, f"{method}.json")
+        t0 = time.perf_counter()
+        retrieve(q_emb, questions, tsv, embs, index=index, k=RETRIEVAL_K,
+                 query_batch=QUERY_BATCH, output_json_path=outputs[method])
+        print(f"retrieve method={method}: {n_queries} queries in {time.perf_counter() - t0:.2f} s "
+              f"wall (search, JSON write); repairs of the last batch {index.last_repair}")
+    launches = {"count_above": mips_kernels.count_above_kernel.launches,
+                "groupmax": mips_kernels.groupmax_kernel.launches}
+
+    q = torch.from_numpy(q_emb).to(dev)
+    for method in ("groupmax", "auto"):  # the CLI's own index is gone: one batch again
+        index.method = method
+        index.search(q[:QUERY_BATCH], RETRIEVAL_K)
+        print(f"{method}: repairs of a {min(QUERY_BATCH, n_queries)}-query batch {index.last_repair}")
+    for method, path in outputs.items():
+        with open(path) as f:
+            results = [row["ctxs"] for row in json.load(f)]
+        check_exact(index, q, results, RETRIEVAL_K)
+        print(f"{method}: {len(results)} queries, each top-{RETRIEVAL_K} equals the brute-force "
+              f"exact top-{RETRIEVAL_K} within {TOPK_REL} (near-tie swaps allowed)")
+
+    cuts = [1, 5, 20, RETRIEVAL_K]
+    acc = evaluate_retrieval(outputs["groupmax"], cuts)
+    tok = SimpleTokenizer()
+    with open(outputs["groupmax"]) as f:
+        payload = json.load(f)
+    first = [next((i for i, c in enumerate(row["ctxs"]) if has_answers(c["text"], row["answers"], tok)),
+                  RETRIEVAL_K) for row in payload]
+    if any(acc[c] != [int(h < c) for h in first] for c in cuts):
+        raise AssertionError("qa_eval disagrees with a recount of has_answers")
+    print("qa_eval on the groupmax run: " + ", ".join(f"top-{c} {np.mean(acc[c]):.4f}" for c in cuts)
+          + " (random weights), equal to a recount with has_answers")
+    print(f"retrieval-path launches: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the retrieval path never launched: {launches}")
+
+    # ---- benchmark(): the methods over the 2,097,152-row block ----
+    blk, n_valid, _off = max(index._blocks, key=lambda b: b[0].shape[0])
+    bench = MipsIndex(dev)
+    bench.add(blk[:n_valid])
+    del index, blk
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    qb = q_emb[: n_queries // QUERY_BATCH * QUERY_BATCH].reshape(-1, QUERY_BATCH, q_emb.shape[1])
+    qb = np.concatenate([qb] * max(1, bench_iters // len(qb)))
+    for method in ("groupmax", "fused", "auto", "exact_sort"):
+        bench.method = method
+        stats = bench.benchmark(qb, RETRIEVAL_K)
+        print(f"benchmark {method} over {bench._blocks[0][0].shape[0]} rows ({n_valid} valid), "
+              f"B={QUERY_BATCH} k={RETRIEVAL_K}: {stats}")
+    # where the time of one search goes (device time by kernel class)
+    from dpr_scale_tpu_torch.tools import profile_serve
+
+    q0 = torch.from_numpy(qb[0]).to(dev)
+    rows = bench._blocks[0][0]
+    qd = q0.to(rows.dtype)
+    sweep = cuda_ms(lambda: mips_kernels.groupmax_kernel(qd, rows))
+    bench.method = "groupmax"
+    search = cuda_ms(lambda: bench._device_search(rows, q0, RETRIEVAL_K, n_valid))
+    _prof, kern = profile_serve.device_profile(lambda: mips_kernels.groupmax_kernel(qd, rows), dev)
+    prof_sweep = sum(us for key, us in kern.items() if "groupmax_kernel" in key)
+    print(f"groupmax over these rows, B={QUERY_BATCH}, CUDA events: sweep kernel {sweep:.4f} ms, one "
+          f"device search {search:.4f} ms, the rest (selection, gather, rescore, soundness) "
+          f"{search - sweep:.4f} ms = {(search - sweep) / search:.1%}; the profiler on the sweep "
+          f"kernel alone: {prof_sweep / profile_serve.PROFILED_CALLS / 1e3:.4f} ms per call")
+    for method in ("groupmax", "fused"):
+        bench.method = method
+        profile_serve.report(f"{method} search B={QUERY_BATCH} k={RETRIEVAL_K} over "
+                             f"{bench._blocks[0][0].shape[0]} rows",
+                             lambda: bench.search(q0, RETRIEVAL_K), dev, None)
+    return launches
+
+
 def main():
     import torch
 
@@ -1445,6 +1749,7 @@ def main():
     sys.path.insert(0, ROOT)
     from dpr_scale_tpu_torch.ops import cuda_lib
 
+    t_start = time.perf_counter()
     smi = phase_device()
     t0 = time.perf_counter()
     cuda_lib.library()
@@ -1504,6 +1809,14 @@ def main():
         gather[name]["max_abs_err"] = max(gather[name]["max_abs_err"], err)
     citadel_launches["gather_score_serial"] += search_launches["gather_score_serial"]
     citadel_launches["gather_score_streamed"] += search_launches["gather_score_streamed"]
+    torch.cuda.empty_cache()
+    mips = phase_mips_kernels(torch.device("cuda", 0))
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        retrieval_launches = phase_retrieval_cli(work, torch.device("cuda", 0))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"
     kernels = [
@@ -1531,6 +1844,10 @@ def main():
            "launches": citadel_launches[name], **gather[name]}
           for name, line in (("gather_score_serial", 431), ("gather_score_pipelined", 550),
                              ("gather_score_streamed", 648))),
+        *({"name": name, "route": "cuda", "source": source + "mips_scan.cu",
+           "replaces": f"dpr_scale_tpu/ops/mips_kernels.py:{line}",
+           "launches": retrieval_launches.get(name, 0), **mips[name]}
+          for name, line in (("count_above", 71), ("groupmax", 208), ("tile_max_scores", 242))),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
-"""Retrieval serving endpoint (dense tower, verified-exact MIPS).
+"""Retrieval serving endpoint (dense tower, exact or approximate MIPS).
 
 Usage:
     python -m dpr_scale_tpu_torch.cli.serve --config conf/nq.yaml \
         task.ctx_embeddings_dir=/embs \
         datamodule.passages_path=psgs_w100.tsv \
-        serve.port=8080 [serve.method=fused|exact_sort] [serve.k=10] [--device cuda:0]
+        serve.port=8080 [serve.method=approx|fused|groupmax|auto|exact_sort] \
+        [serve.k=10] [--device cuda:0]
 
     curl -XPOST localhost:8080/search -d '{"questions": ["who wrote hamlet"], "k": 5}'
 
-The query tower is initialised from a seed (``task.checkpoint_path`` raises:
+``serve.method`` defaults to ``approx``, as in the JAX CLI; ``fused``,
+``groupmax`` and ``auto`` serve verified-exact results. ``int8`` / ``int4``
+raise (ROADMAP A9). The query tower is initialised from a seed (``task.checkpoint_path`` raises:
 orbax checkpoints need jax).
 """
 from __future__ import annotations
@@ -38,7 +41,12 @@ def build_retriever(cfg, device=None) -> Retriever:
     check_vocab_compat(tokenizer, build_model_config(cfg))
     encoder = CorpusEncoder(build_biencoder(cfg, device), device, use_query_tower=True)
     index = build_index(
-        cfg.task["ctx_embeddings_dir"], device, method=s.get("method", "fused")
+        cfg.task["ctx_embeddings_dir"],
+        device,
+        host_resident=cfg.task.get("host_resident_index", False),
+        method=s.get("method", "approx"),  # serving default: low latency
+        index_store=s.get("index_store"),
+        device_rows=s.get("device_rows"),
     )
     retriever = Retriever(
         encoder,

@@ -9,87 +9,36 @@
 //     out[b, g] = #{ r in group g : q[b] . c[r] > tau[b] }     (B, N / group) int32
 //
 // with fp32 accumulation of bf16 (tensor cores, wmma) or fp32 (scalar FMA)
-// inputs.  The (B, N) scores never reach device memory.
+// inputs (score_tile.cuh).  The (B, N) scores never reach device memory.
 //
 // What bounds it on an H100: at large B the B x N x D product, so the
 // tensor-core rate; at small B (serving batches of 8-64 queries) the single
 // read of the N x D corpus, so HBM bandwidth.  Design: one block owns one
-// (64-query tile, row group) pair whole and walks the group in 128-row tiles,
-// staging 64-column slices of corpus and queries through shared memory; the
-// fp32 score tile is compared with tau in shared memory and reduced to one
-// count per query.  A block owns its group, so there are no atomics in device
+// (64-query tile, row group) pair whole and walks the group in 128-row score
+// tiles; each fp32 tile is compared with tau in shared memory and reduced to
+// one count per query.  A block owns its group, so there are no atomics in device
 // memory and no second pass, and any group size that divides N works (a
-// single group spanning the corpus included).  No cp.async/TMA pipelining
-// yet: loads and MMAs alternate.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-#include <type_traits>
+// single group spanning the corpus included).
+#include "score_tile.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace mips_tile;
 
 namespace {
-
-constexpr int ROWS = 128;  // corpus rows per tile (8 warps x 16 rows)
-constexpr int QT = 64;     // queries per block
-constexpr int KC = 64;     // embedding columns per shared-memory stage
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = QT + 4;  // fp32 score tile row stride
-
-template <typename T>
-struct Tile {
-  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
-  static constexpr int LD = KC + VEC;         // staged row stride, 16-byte aligned
-  static size_t smem_bytes() {
-    return (size_t)(ROWS + QT) * LD * sizeof(T) + (size_t)ROWS * LDS * 4 + QT * 4;
-  }
-};
-
-// rows [0, rows) x columns [d0, d0 + KC) of a row-major (*, D) matrix;
-// rows >= valid and columns >= D are zero
-template <typename T>
-__device__ inline void stage(T* dst, const T* src, int valid, int rows, int D, int d0,
-                             bool vec_ok) {
-  constexpr int VEC = Tile<T>::VEC, LD = Tile<T>::LD;
-  if (vec_ok) {
-    constexpr int per_row = KC / VEC;
-    for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
-      const int r = i / per_row, c = (i % per_row) * VEC;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid && d0 + c < D)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + d0 + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * KC; i += THREADS) {
-      const int r = i / KC, c = i % KC;
-      T val = T(0.0f);
-      if (r < valid && d0 + c < D) val = src[(size_t)r * D + d0 + c];
-      dst[r * LD + c] = val;
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 count_groups_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
                     const float* __restrict__ tau, int* __restrict__ out, int B, int D,
                     long long group, long long ngroups, bool vec_ok) {
-  constexpr int LD = Tile<T>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sC = reinterpret_cast<T*>(smem);                    // (ROWS, LD)
-  T* sQ = sC + ROWS * LD;                                // (QT, LD)
-  float* sS = reinterpret_cast<float*>(sQ + QT * LD);    // (ROWS, LDS) scores
-  int* sCnt = reinterpret_cast<int*>(sS + ROWS * LDS);   // (QT,)
+  const Smem<T> sm(smem);
+  int* sCnt = reinterpret_cast<int*>(sm.extra);  // (QT,)
 
   const long long g = blockIdx.x;
   const int q0 = blockIdx.y * QT;
   const int q_valid = min(QT, B - q0);
   const T* qbase = q + (size_t)q0 * D;
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int my_q = tid % QT, my_r0 = tid / QT;  // count phase: one query, every 4th row
   const float my_tau = my_q < q_valid ? tau[q0 + my_q] : 0.0f;
   int my_count = 0;
@@ -97,51 +46,10 @@ count_groups_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
 
   for (long long rbase = 0; rbase < group; rbase += ROWS) {
     const int r_valid = (int)min((long long)ROWS, group - rbase);
-    const T* cbase = corpus + ((size_t)g * group + rbase) * D;
-
-    if constexpr (std::is_same<T, bf16>::value) {
-      // warp w: rows [16w, 16w + 16) x all QT queries, 4 accumulator tiles
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[QT / 16];
-      for (int j = 0; j < QT / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-      for (int d0 = 0; d0 < D; d0 += KC) {
-        __syncthreads();
-        stage(sC, cbase, r_valid, ROWS, D, d0, vec_ok);
-        stage(sQ, qbase, q_valid, QT, D, d0, vec_ok);
-        __syncthreads();
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, sC + warp * 16 * LD + kk * 16, LD);
-          for (int j = 0; j < QT / 16; ++j) {
-            // queries row-major (QT, KC) are the column-major (KC, QT) B operand
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fb, sQ + j * 16 * LD + kk * 16, LD);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-          }
-        }
-      }
-      for (int j = 0; j < QT / 16; ++j)
-        wmma::store_matrix_sync(sS + warp * 16 * LDS + j * 16, acc[j], LDS,
-                                wmma::mem_row_major);
-    } else {
-      // thread: query my_q x rows my_r0 + 4i, 32 fp32 accumulators
-      float acc[ROWS / 4];
-      for (int i = 0; i < ROWS / 4; ++i) acc[i] = 0.0f;
-      for (int d0 = 0; d0 < D; d0 += KC) {
-        __syncthreads();
-        stage(sC, cbase, r_valid, ROWS, D, d0, vec_ok);
-        stage(sQ, qbase, q_valid, QT, D, d0, vec_ok);
-        __syncthreads();
-        for (int kk = 0; kk < KC; ++kk) {
-          const float qv = sQ[my_q * LD + kk];
-          for (int i = 0; i < ROWS / 4; ++i)
-            acc[i] = fmaf(sC[(my_r0 + 4 * i) * LD + kk], qv, acc[i]);
-        }
-      }
-      for (int i = 0; i < ROWS / 4; ++i) sS[(my_r0 + 4 * i) * LDS + my_q] = acc[i];
-    }
-    __syncthreads();
+    score_tile(sm, corpus + ((size_t)g * group + rbase) * D, qbase, r_valid, q_valid, D,
+               vec_ok);
     for (int r = my_r0; r < r_valid; r += THREADS / QT)
-      my_count += sS[r * LDS + my_q] > my_tau;
+      my_count += sm.s[r * LDS + my_q] > my_tau;
   }
   atomicAdd(&sCnt[my_q], my_count);  // shared-memory reduction of the 4 row strides
   __syncthreads();
@@ -151,14 +59,12 @@ count_groups_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
 template <typename T>
 int launch(const void* q, const void* corpus, const void* tau, void* out, int B,
            long long N, int D, long long group, cudaStream_t stream) {
-  const size_t smem = Tile<T>::smem_bytes();
+  const size_t smem = Tile<T>::smem_bytes() + QT * 4;
   cudaError_t err = cudaFuncSetAttribute(
       count_groups_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long ngroups = N / group;
-  // 16-byte vector loads need D % VEC == 0 and 16-byte aligned base pointers
-  const bool vec_ok = D % Tile<T>::VEC == 0 && (uintptr_t)q % 16 == 0 &&
-                      (uintptr_t)corpus % 16 == 0;
+  const bool vec_ok = vectorizable<T>(q, corpus, D);
   const dim3 grid((unsigned)ngroups, (B + QT - 1) / QT);
   count_groups_kernel<T><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)corpus, (const float*)tau, (int*)out, B, D, group, ngroups, vec_ok);

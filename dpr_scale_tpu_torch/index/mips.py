@@ -1,7 +1,8 @@
 """Exact MIPS engine: verified-exact top-k over embedding blocks on one device.
 
-Counterpart of :class:`dpr_scale_tpu.index.mips.MipsIndex`, methods
-``"fused"`` (the default) and ``"exact_sort"``. The fused pipeline per block:
+Counterpart of :class:`dpr_scale_tpu.index.mips.MipsIndex` with its five
+unquantised methods: ``"fused"`` (the default), ``"groupmax"``, ``"auto"``,
+``"approx"`` and ``"exact_sort"``. The fused pipeline per block:
 
   1. pass 1: ``kc`` candidates per query from a matmul + ``torch.topk`` over
      ``CHUNK_ROWS``-row chunks. The JAX pass is a dot fused into
@@ -17,9 +18,22 @@ Counterpart of :class:`dpr_scale_tpu.index.mips.MipsIndex`, methods
      batch) and merged exactly; queries beyond that budget fall back to an
      exact host-driven rescan.
 
+``"groupmax"`` is verified-exact in one sweep: the group-max kernel
+(``ops.mips_kernels.groupmax``) reduces the scores to the max of every 8-row
+group and of every 128 rows; the true top-k lives in the top-k groups by
+max, so the selected groups are gathered whole, rescored in fp32 and
+re-ranked, and a soundness check sends any query whose selection could have
+missed a group to the exact fallback. ``"auto"`` is pass 1 alone followed
+by a whole-block count of the scores above the k-th (``ops.mips_kernels.
+count_above``), failing queries rescanned exactly. ``"approx"`` is pass 1
+with ``max(4k, 128)`` candidates and no verification; the JAX pass is
+``lax.approx_max_k`` (recall ~0.994 at k = 100 on the TPU), this one is
+exact, so its recall is 1.0. ``"exact_sort"`` is pass 1 at depth k.
+
 Blocks are searched one after another and merged on the host
 (``merge_topk_batched``); global row ids follow insertion order, and masked
-(pad) rows surface as index ``-1``.
+(pad) rows surface as index ``-1``. The quantised methods (``int8``,
+``int4``) and host-resident blocks are not ported (ROADMAP A9).
 
 Exactness caveat, as in the JAX package: scores are fp32 accumulations of
 bf16 inputs, so rows whose scores differ by under ~1 ulp may swap ranks; the
@@ -32,7 +46,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dpr_scale_tpu_torch.ops.mips_kernels import GROUP_ROWS, count_above_groups
+from dpr_scale_tpu_torch.ops.mips_kernels import (
+    GMAX_ROWS,
+    GMAX_TIER2,
+    GROUP_ROWS,
+    count_above,
+    count_above_groups,
+    groupmax,
+)
 
 NEG_INF = -1e30
 CHUNK_ROWS = 131072  # pass-1 / exact-scan chunk (scores tile: B x CHUNK fp32)
@@ -44,6 +65,13 @@ COUNT_MARGIN_REL = 2e-5  # candidates are credited only when they clear tau by
 # so a candidate straddling tau by an ulp must not cancel a genuine miss in
 # its group (see dpr_scale_tpu/index/mips.py for the bound)
 EXACT_QUERY_CHUNK = 256  # queries per exact-fallback rescan
+# groupmax-pipeline tuning (method="groupmax")
+GMAX_T1_SLACK = 28  # extra tier-1 groups selected beyond k (tie headroom)
+GMAX_T2_SLACK = 16  # extra tier-2 groups beyond the tier-1 selection size
+GMAX_RESCORE_QUERIES = 64  # queries whose selected groups are rescored at once
+# (fp32 copies of 64 x (k + 28) x 8 rows: 200 MB at k = 100, D = 768)
+METHODS = ("fused", "groupmax", "auto", "approx", "exact_sort")
+UNVERIFIED = ("approx", "exact_sort")  # no verification, no last_repair events
 
 
 def merge_topk_batched(
@@ -67,14 +95,21 @@ class MipsIndex:
     ``add(embeddings)`` appends a block (rows indexed globally in insertion
     order); ``search(queries, k)`` returns global (scores, indices) as numpy.
     ``last_repair`` counts, per search, the (query, block) verification
-    failures routed to the exact fallback and the distinct queries repaired.
+    failures routed to the exact fallback and the distinct queries repaired
+    (methods fused, groupmax and auto).
     """
 
-    def __init__(self, device, dtype=torch.bfloat16, method: str = "fused"):
-        if method not in ("fused", "exact_sort"):
-            raise ValueError(
-                f"MipsIndex method {method!r} is not ported (fused, exact_sort)"
+    def __init__(
+        self, device, dtype=torch.bfloat16, method: str = "fused", host_resident: bool = False
+    ):
+        if method in ("int8", "int4") or host_resident:
+            what = f"method {method!r}" if method in ("int8", "int4") else "host_resident"
+            raise NotImplementedError(
+                f"MipsIndex {what} is not ported: the quantised and host-resident "
+                "tiers are ROADMAP A9"
             )
+        if method not in METHODS:
+            raise ValueError(f"unknown MipsIndex method {method!r} (one of {METHODS})")
         self.device = torch.device(device)
         self.dtype = dtype
         self.method = method
@@ -86,8 +121,10 @@ class MipsIndex:
 
     @staticmethod
     def _pad_rows(n: int) -> int:
-        """Round up to a 128-row multiple (CHUNK_ROWS above one chunk)."""
-        base = 128
+        """Round up to a GROUP_ROWS multiple (CHUNK_ROWS above one chunk), so
+        every block splits into whole rescue groups: a block whose rows were
+        one group would rescue (B, n_pad, D) rows a batch."""
+        base = GROUP_ROWS
         n_pad = (n + base - 1) // base * base
         if n_pad > CHUNK_ROWS:
             n_pad = (n + CHUNK_ROWS - 1) // CHUNK_ROWS * CHUNK_ROWS
@@ -139,7 +176,8 @@ class MipsIndex:
         return s, torch.where(s <= NEG_INF, -1, i)
 
     def _candidates(self, qd, emb, kc, n_valid):
-        """Pass 1 of the fused search: kc candidates per query."""
+        """Pass 1 of the fused, auto and approx searches: kc candidates per
+        query (exact here, approximate on the TPU)."""
         return self._topk_rows(qd, emb, kc, n_valid)
 
     def _fused_search(self, emb, q, k, n_valid):
@@ -148,7 +186,7 @@ class MipsIndex:
         n_pad, D = emb.shape
         B = q.shape[0]
         dev = q.device
-        group = GROUP_ROWS if n_pad % GROUP_ROWS == 0 else n_pad
+        group = GROUP_ROWS  # _pad_rows makes every block a multiple of it
         ngroups = n_pad // group
         kc = min(max(FUSED_KC, k), n_pad)
         qd = q.to(self.dtype)
@@ -231,21 +269,159 @@ class MipsIndex:
             out_i.append(i.cpu().numpy())
         return np.concatenate(out_s), np.concatenate(out_i)
 
-    def _search_block(self, emb, n_valid, q, k):
-        if self.method == "exact_sort":
+    def _groupmax_search(self, emb, q, k, n_valid):
+        """Verified-exact search of one block in one sweep (the JAX
+        ``_groupmax_search_impl`` step for step); same contract as
+        :meth:`_fused_search`."""
+        n_pad, D = emb.shape
+        B = q.shape[0]
+        dev = q.device
+        qd = q.to(self.dtype)
+        ng, n2 = n_pad // GMAX_ROWS, n_pad // (GMAX_ROWS * GMAX_TIER2)
+        T1 = min(k + GMAX_T1_SLACK, ng)
+        T2 = min(T1 + GMAX_T2_SLACK, n2)
+        t1, t2 = groupmax(qd, emb)  # (ng, B), (n2, B) fp32
+        # pad rows score exactly 0 and would outrank real negatives: mask the
+        # groups past the valid span (the one partly valid group keeps its
+        # 0-inflated max; the soundness check absorbs it)
+        t1[(n_valid + GMAX_ROWS - 1) // GMAX_ROWS :] = NEG_INF
+        t2[(n_valid + GMAX_ROWS * GMAX_TIER2 - 1) // (GMAX_ROWS * GMAX_TIER2) :] = NEG_INF
+
+        # selection: the top-T2 tier-2 groups, then the top-T1 tier-1 groups
+        # among their children (the top-T1 tier-1 groups lie inside them)
+        sel2 = torch.topk(t2.T, T2, dim=1).indices  # (B, T2)
+        cand1 = (sel2[:, :, None] * GMAX_TIER2 + torch.arange(GMAX_TIER2, device=dev)).reshape(
+            B, T2 * GMAX_TIER2
+        )
+        v1, pos1 = torch.topk(torch.gather(t1.T, 1, cand1), T1, dim=1)  # (B, T1)
+        sel1 = torch.gather(cand1, 1, pos1)
+
+        # gather the selected groups whole and rescore them: fp32 sums of
+        # the exact (fp32) products of the bf16 inputs, never rounded to bf16
+        groups = emb.view(ng, GMAX_ROWS, D)
+        rs = torch.empty((B, T1 * GMAX_ROWS), dtype=torch.float32, device=dev)
+        for lo in range(0, B, GMAX_RESCORE_QUERIES):
+            hi = min(lo + GMAX_RESCORE_QUERIES, B)
+            tiles = groups[sel1[lo:hi]].view(hi - lo, T1 * GMAX_ROWS, D).float()
+            rs[lo:hi] = torch.bmm(tiles, qd[lo:hi].float()[:, :, None])[:, :, 0]
+        rows = (sel1[:, :, None] * GMAX_ROWS + torch.arange(GMAX_ROWS, device=dev)).view(B, -1)
+        rs = torch.where(rows < n_valid, rs, NEG_INF)
+        ls, lpos = torch.topk(rs, min(k, T1 * GMAX_ROWS), dim=1)
+        li = torch.gather(rows, 1, lpos)
+
+        # soundness: every group whose sweep max strictly beats the k-th
+        # rescored score must be among the selected (ties at tau are
+        # arbitrary, as in FAISS); sweep maxima on both sides
+        tau = ls[:, -1]
+        cnt_all = (t1 > tau[None, :]).sum(dim=0)
+        cnt_sel = (v1 > tau[:, None]).sum(dim=1)
+        li = torch.where(ls <= NEG_INF, -1, li)  # pad/masked rows -> -1
+        return ls, li, cnt_all > cnt_sel
+
+    def _count_above(self, emb, n_valid, qd, tau):
+        """Per query, the block's rows scoring above ``tau``. The pad rows
+        score exactly 0: their count is subtracted where tau < 0 instead of
+        masking the sweep."""
+        cnt = count_above(qd, emb, tau)
+        return cnt - torch.where(tau < 0.0, emb.shape[0] - n_valid, 0).to(cnt.dtype)
+
+    def _auto_search(self, emb, q, k, n_valid):
+        """Pass 1 at depth k, verified by a whole-block count of the scores
+        above the k-th: exact iff that count equals the candidates above it
+        (credited with the COUNT_MARGIN_REL margin)."""
+        qd = q.to(self.dtype)
+        s, i = self._candidates(qd, emb, k, n_valid)
+        tau = s[:, k - 1]
+        cnt = self._count_above(emb, n_valid, qd, tau)
+        found = (s > (tau + COUNT_MARGIN_REL * tau.abs())[:, None]).sum(dim=1)
+        return s, torch.where(s <= NEG_INF, -1, i), cnt != found
+
+    def _approx_search(self, emb, q, k, n_valid):
+        """Pass 1 with max(4k, FUSED_KC) candidates, unverified."""
+        kc = min(max(4 * k, FUSED_KC), emb.shape[0])
+        cand_s, cand_i = self._candidates(q.to(self.dtype), emb, kc, n_valid)
+        s, pos = torch.topk(cand_s, k, dim=1)
+        return s, torch.where(s <= NEG_INF, -1, torch.gather(cand_i, 1, pos))
+
+    def _device_search(self, emb, q, k, n_valid):
+        """One block by ``self.method``: (scores (B, k), indices (B, k),
+        not_exact (B,) bool), all on the device."""
+        if self.method == "fused":
+            return self._fused_search(emb, q, k, n_valid)
+        if self.method == "groupmax":
+            return self._groupmax_search(emb, q, k, n_valid)
+        if self.method == "auto":
+            return self._auto_search(emb, q, k, n_valid)
+        if self.method == "approx":
+            s, i = self._approx_search(emb, q, k, n_valid)
+        else:
             s, i = self._exact_topk(emb, n_valid, q, k)
-            return s.cpu().numpy(), i.cpu().numpy()
-        s, i, not_exact = self._fused_search(emb, q, k, n_valid)
+        return s, i, torch.zeros((q.shape[0],), dtype=torch.bool, device=q.device)
+
+    def _search_block(self, emb, n_valid, q, k):
+        s, i, not_exact = self._device_search(emb, q, k, n_valid)
         s, i = s.cpu().numpy(), i.cpu().numpy()
+        if self.method in UNVERIFIED:
+            return s, i
         fail_idx = np.nonzero(not_exact.cpu().numpy())[0]
         # fail events count once per (query, block); queries_repaired stays
         # distinct queries across the blocks of one search
         self.last_repair["block_fail_events"] += len(fail_idx)
         self._repaired_queries.update(int(x) for x in fail_idx)
         self.last_repair["queries_repaired"] = len(self._repaired_queries)
-        if len(fail_idx):  # rescue budget overflow: exact rescan
+        if len(fail_idx):  # verification failed: exact rescan
             s[fail_idx], i[fail_idx] = self._exact_fallback(emb, n_valid, q, k, fail_idx)
         return s, i
+
+    def benchmark(self, queries_batches, k: int = 100) -> dict:
+        """Throughput of ``self.method`` over the index's single block, the
+        JAX ``MipsIndex.benchmark`` contract: ``queries_batches`` (iters, B,
+        D). Phase 1 searches every batch with the results left on the
+        device and one sync at the end (the fail flags); phase 2 rescans the
+        failing queries exactly. The time covers both phases, after one
+        untimed warm-up of each."""
+        import time
+
+        if len(self._blocks) != 1:
+            raise ValueError(f"benchmark expects a single block, the index has {len(self._blocks)}")
+        emb, n_valid, _off = self._blocks[0]
+        k = min(k, emb.shape[0])
+        iters, B, D = queries_batches.shape
+
+        def sync():
+            if emb.is_cuda:
+                torch.cuda.synchronize(emb.device)
+
+        with torch.inference_mode():
+            qs = torch.as_tensor(queries_batches).to(self.device, torch.float32)
+
+            def phase1():
+                fails = [self._device_search(emb, q, k, n_valid)[2] for q in qs]
+                return torch.stack(fails).reshape(-1).cpu().numpy()  # the one sync
+
+            def phase2(fails):
+                idx = np.nonzero(fails)[0]
+                if len(idx):
+                    self._exact_fallback(emb, n_valid, qs.reshape(-1, D), k, idx)
+                sync()
+
+            phase2(phase1())  # warm-up: allocator growth, kernel build
+            t0 = time.perf_counter()
+            fails = phase1()
+            t1 = time.perf_counter()
+            phase2(fails)
+            dt = time.perf_counter() - t0
+        return {
+            "seconds": dt,
+            "phase1_seconds": t1 - t0,
+            "qps": iters * B / dt,
+            # exact by construction after phase 2, except the unverified
+            # serving mode
+            "all_exact": self.method != "approx",
+            "fallback_queries": int(fails.sum()),
+            "iters": iters,
+            "batch": B,
+        }
 
     def search(self, queries, k: int = 100) -> Tuple[np.ndarray, np.ndarray]:
         """Global top-k over all blocks. ``queries``: (B, D) numpy array or

@@ -1,18 +1,35 @@
-"""Index building and result joining for retrieval.
+"""End-to-end retrieval: query embeddings + embedding shards -> top-k results.
 
-Counterpart of the parts of :mod:`dpr_scale_tpu.retrieve.retrieval` the
-serving slice runs: load every ``reps_*`` shard into one
-:class:`~dpr_scale_tpu_torch.index.mips.MipsIndex` (global row order = shard
-order = corpus order) and join (scores, global row ids) with the passages.
+Counterpart of :mod:`dpr_scale_tpu.retrieve.retrieval`: load every
+``reps_*`` shard into one :class:`~dpr_scale_tpu_torch.index.mips.MipsIndex`
+(global row order = shard order = corpus order), search the queries in
+batches, join (scores, global row ids) with the passages and write DPR JSON
+and/or a TREC run. The quantised and host-resident tiers (``host_resident``,
+``index_store``, ``device_rows``, ``rerank_oversample``,
+``int8_query_planes``) are not ported and raise (ROADMAP A9).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import json
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from dpr_scale_tpu_torch.data.datasets import CSVDataset
+from dpr_scale_tpu_torch.device import resolve_device
 from dpr_scale_tpu_torch.encode.embeddings import load_embedding_shards
 from dpr_scale_tpu_torch.index.mips import MipsIndex
+from dpr_scale_tpu_torch.retrieve.writers import write_dpr_json, write_trec_run
+
+
+def _refuse_unported(**options) -> None:
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r}: the quantised and host-resident index tiers "
+                "are not ported (ROADMAP A9)"
+            )
 
 
 def rows_to_ctxs(passages, scores, indices) -> List[List[Dict]]:
@@ -42,11 +59,15 @@ def build_index(
     device,
     dtype=torch.bfloat16,
     max_block_rows: int = 2_000_000,
+    host_resident: bool = False,
     method: str = "fused",
+    index_store: Optional[str] = None,
+    device_rows: Optional[int] = None,
 ) -> MipsIndex:
     """Every ``reps_*`` shard of a directory in one index; shards larger than
     ``max_block_rows`` split into several blocks."""
-    index = MipsIndex(device, dtype=dtype, method=method)
+    _refuse_unported(index_store=index_store, device_rows=device_rows)
+    index = MipsIndex(device, dtype=dtype, method=method, host_resident=host_resident)
     shards = load_embedding_shards(ctx_embeddings_dir)
     if not shards:
         raise FileNotFoundError(f"no reps_* shards in {ctx_embeddings_dir}")
@@ -54,3 +75,69 @@ def build_index(
         for lo in range(0, emb.shape[0], max_block_rows):
             index.add(emb[lo : lo + max_block_rows])
     return index
+
+
+def retrieve(
+    query_embeddings: np.ndarray,  # (B, D)
+    questions: Sequence[dict],  # rows with "question"/"answers" or "id"
+    passages_path: str,
+    ctx_embeddings_dir: str,
+    device=None,
+    k: int = 100,
+    output_json_path: Optional[str] = None,
+    output_trec_path: Optional[str] = None,
+    query_batch: int = 512,
+    ignore_identical_ids: bool = False,
+    index: Optional[MipsIndex] = None,
+    host_resident: bool = False,
+    method: str = "fused",
+    int8_query_planes: Optional[int] = None,
+    index_store: Optional[str] = None,
+    device_rows: Optional[int] = None,
+    rerank_oversample: Optional[int] = None,
+) -> List[List[Dict]]:
+    """Per-question context lists; optionally writes the output files.
+
+    Without ``index`` one is built from the shards on ``device`` (default
+    ``cuda:0``) with ``method``; a given index is searched with its own
+    method. The last query batch is padded with zero queries up to
+    ``query_batch`` and the pads' results dropped."""
+    _refuse_unported(int8_query_planes=int8_query_planes, rerank_oversample=rerank_oversample)
+    if index is None:
+        index = build_index(
+            ctx_embeddings_dir, resolve_device(device), host_resident=host_resident,
+            method=method, index_store=index_store, device_rows=device_rows,
+        )
+    passages = CSVDataset(passages_path)
+
+    nq = query_embeddings.shape[0]
+    if nq == 0:  # empty query set: empty outputs
+        if output_json_path:
+            with open(output_json_path, "w") as f:
+                json.dump([], f)
+        if output_trec_path:
+            open(output_trec_path, "w").close()
+        return []
+    all_scores, all_indices = [], []
+    for lo in range(0, nq, query_batch):
+        q = query_embeddings[lo : lo + query_batch]
+        pad = query_batch - q.shape[0]
+        s, i = index.search(np.pad(q, ((0, pad), (0, 0))) if pad else q, k)
+        all_scores.append(s[: q.shape[0]])
+        all_indices.append(i[: q.shape[0]])
+    results = rows_to_ctxs(
+        passages, np.concatenate(all_scores, 0), np.concatenate(all_indices, 0)
+    )
+
+    if output_json_path:
+        write_dpr_json(output_json_path, questions, results)
+    if output_trec_path:
+        qids = [str(q.get("id", i)) for i, q in enumerate(questions)]
+        write_trec_run(
+            output_trec_path,
+            qids,
+            [[c["id"] for c in ctxs] for ctxs in results],
+            [[c["score"] for c in ctxs] for ctxs in results],
+            ignore_identical_ids=ignore_identical_ids,
+        )
+    return results

@@ -45,10 +45,11 @@ CLASSES = (
     ("attention kernels", ("attention_fwd_kernel", "attention_bwd_")),
     ("FFN kernels", ("ffn_gemm_kernel", "ln_rows_kernel")),  # task.model.fused_ffn=true
     ("count kernel", ("count_groups_kernel",)),
+    ("MIPS sweep kernels", ("count_above_kernel", "groupmax_kernel", "tile_max_kernel")),
     ("gather-score kernels", ("gather_serial_kernel", "gather_pipelined_kernel",
                               "gather_streamed_kernel")),  # the CITADEL device search
     ("optimizer (multi-tensor)", ("multi_tensor",)),
-    ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
     ("top-k / sort", ("topk", "sort")),
     ("elementwise / copy / reduce", ("elementwise", "reduce", "copy", "cat", "fill",
                                      "index", "scatter", "gather", "where")),

@@ -123,3 +123,38 @@ def test_synthetic_citadel_layout_matches_from_host_index():
     np.testing.assert_array_equal(b["run_doc"].numpy()[:6, :R], run_doc)
     np.testing.assert_array_equal(b["start_pos"].numpy()[:6, :R], start_pos)
     assert b["max_run_len"] == mrl
+
+
+def test_mips_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):
+    """Phase 14's comparisons at a tiny size, each kernel replaced by its
+    plain version (the kernels have no CPU mode): every check passes, and a
+    wrong kernel is caught."""
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    for name in ("count_above", "groupmax", "tile_max_scores"):
+        monkeypatch.setattr(mk, f"{name}_kernel", getattr(mk, f"{name}_plain"))
+    cases = ((16, 8192, 32, "bfloat16", 4096, False), (5, 2048, 20, "float32", 256, False),
+             (3, 1152, 7, "bfloat16", 384, False))
+    entries = chip_smoke.phase_mips_kernels(torch.device("cpu"), cases)
+    assert set(entries) == {"count_above", "groupmax", "tile_max_scores"}
+    out = capsys.readouterr().out
+    assert out.count("repeatable") == 9 and "outside the check" in out
+    monkeypatch.setattr(mk, "groupmax_kernel", lambda q, c: tuple(t + 1e-3 for t in mk.groupmax_plain(q, c)))
+    with pytest.raises(AssertionError, match="groupmax .* disagrees"):
+        chip_smoke.phase_mips_kernels(torch.device("cpu"), cases[:1])
+
+
+def test_retrieval_cli_phase_runs_on_cpu_until_the_launch_check(tmp_path, capsys):
+    """Phase 15 at a tiny width: both CLIs, retrieve() with the other three
+    methods, every method's JSON equal to the brute-force top-100, qa_eval
+    equal to the recount; the count_above and groupmax counters must rise."""
+    extra = ["task.model.arch=tiny", "task.model.vocab_size=30522",
+             "task.transform.max_seq_len=32"]
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_retrieval_cli(str(tmp_path), torch.device("cpu"), n_rows=2048,
+                                       n_encoded=128, n_queries=16, extra=extra)
+    out = capsys.readouterr().out
+    for method in ("groupmax", "auto", "fused", "approx", "exact_sort"):
+        assert f"{method}: 16 queries, each top-100 equals the brute-force exact top-100" in out
+    assert "equal to a recount with has_answers" in out
+    assert "retrieval-path launches: {'count_above': 0, 'groupmax': 0}" in out

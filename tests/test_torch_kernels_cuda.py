@@ -188,6 +188,85 @@ def test_count_kernel_matches_plain(cuda_device, dtype, B, N, D, group):
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
+def _scan_inputs(dev, B, N, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).to(dtype)
+        for shape in ((B, D), (N, D))
+    )
+
+
+_SCAN_CASES = [(B, D, dtype) for B in (1, 7, 64, 512) for D in (16, 100, 768)
+               for dtype in (torch.bfloat16, torch.float32)]
+_SCAN_IDS = [f"B{B}-D{D}-{str(t)[6:]}" for B, D, t in _SCAN_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,dtype", _SCAN_CASES, ids=_SCAN_IDS)
+def test_count_above_kernel_matches_plain(cuda_device, B, D, dtype):
+    """N = 3 spans of 2,048 rows + 77 (a ragged last tile): exact counts, the
+    thresholds at midpoints of the scores of the inputs as cast."""
+    q, c = _scan_inputs(cuda_device, B, 3 * 2048 + 77, D, dtype, B + D)
+    s = torch.sort(q.double() @ c.double().T, dim=1).values.cpu().numpy()
+    tau = torch.from_numpy(_midpoint_tau(s).astype(np.float32)).to(cuda_device)
+    before = mips_kernels.count_above_kernel.launches
+    out = mips_kernels.count_above(q, c, tau)
+    torch.cuda.synchronize()
+    assert mips_kernels.count_above_kernel.launches == before + 1
+    torch.testing.assert_close(out, mips_kernels.count_above_plain(q, c, tau), atol=0, rtol=0)
+
+
+def _assert_max_close(name, got, want):
+    """Maxima of the same fp32 products summed in another order: within 2e-5
+    of max |ref| (the COUNT_MARGIN_REL bound)."""
+    assert got.shape == want.shape and torch.isfinite(got).all(), name
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5 * scale, f"{name}: max err {err} vs max |ref| {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,dtype", _SCAN_CASES, ids=_SCAN_IDS)
+def test_groupmax_kernel_matches_plain(cuda_device, B, D, dtype):
+    """N = 37 x 128 rows (the last 2,048-row span ragged); repeated calls
+    give the same bits."""
+    q, c = _scan_inputs(cuda_device, B, 37 * 128, D, dtype, 3 * B + D)
+    before = mips_kernels.groupmax_kernel.launches
+    t1, t2 = mips_kernels.groupmax(q, c)
+    again = mips_kernels.groupmax(q, c)
+    torch.cuda.synchronize()
+    assert mips_kernels.groupmax_kernel.launches == before + 2
+    r1, r2 = mips_kernels.groupmax_plain(q, c)
+    _assert_max_close("t1", t1, r1)
+    _assert_max_close("t2", t2, r2)
+    assert torch.equal(t1, again[0]) and torch.equal(t2, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,n_tiles", [(4096, 3), (300, 5)])
+@pytest.mark.parametrize("B,D,dtype", _SCAN_CASES, ids=_SCAN_IDS)
+def test_tile_max_kernel_matches_plain(cuda_device, B, D, dtype, tile, n_tiles):
+    """The default 4,096-row tile, and a 300-row tile that ends mid score tile."""
+    q, c = _scan_inputs(cuda_device, B, tile * n_tiles, D, dtype, 5 * B + D)
+    before = mips_kernels.tile_max_scores_kernel.launches
+    out = mips_kernels.tile_max_scores(q, c, tile)
+    torch.cuda.synchronize()
+    assert mips_kernels.tile_max_scores_kernel.launches == before + 1
+    _assert_max_close("tile max", out, mips_kernels.tile_max_scores_plain(q, c, tile))
+
+
+@pytest.mark.cuda
+def test_scan_kernels_refuse_what_they_cannot_run(cuda_device):
+    q = torch.zeros(4, 64, device=cuda_device, dtype=torch.bfloat16)
+    c = torch.zeros(256, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        mips_kernels.groupmax_kernel(q.half(), c.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        mips_kernels.count_above_kernel(q, c.T.contiguous().T, torch.zeros(4, device=cuda_device))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mips_kernels.tile_max_scores_kernel(q.cpu(), c, 128)
+
+
 def _ffn_inputs(dev, N, H, F, seed):
     """bf16 x and bf16-cast weights at the model's scales (weights std 0.05)."""
     g = torch.Generator(device=dev).manual_seed(seed)

@@ -1,6 +1,7 @@
 """Port serving slice (encoder CLI, index, Retriever, HTTP) against the JAX package."""
 import dataclasses
 import json
+import os
 import threading
 import urllib.request
 
@@ -28,6 +29,7 @@ from dpr_scale_tpu_torch.models.encoder import BiEncoder
 from dpr_scale_tpu_torch.models.transformer import TransformerConfig
 from dpr_scale_tpu_torch.retrieve.server import Retriever, make_server
 
+CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf")
 WORDS = ["passage", "text", "title", "query", "who", "what", "city"] + [str(i) for i in range(30)]
 QUESTIONS = ["who text 3", "what city 17", "passage 5 title 12", "query"]
 
@@ -50,7 +52,7 @@ def corpus(tmp_path_factory):
     return d, len(vocab)
 
 
-def _write_config(d, vocab_size, embs):
+def _write_config(d, vocab_size, embs, method="fused"):
     cfg = {
         "task": {
             "model": {"arch": "tiny", "dtype": "float32", "vocab_size": vocab_size,
@@ -60,9 +62,9 @@ def _write_config(d, vocab_size, embs):
             "ctx_embeddings_dir": str(embs),
         },
         "datamodule": {"passages_path": str(d / "passages.tsv"), "encode_batch_size": 8},
-        "serve": {"method": "fused", "k": 3},
+        "serve": {"method": method, "k": 3} if method else {"k": 3},
     }
-    path = d / "tiny_torch.yaml"
+    path = d / f"tiny_torch_{method}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return str(path)
 
@@ -172,3 +174,34 @@ def test_checkpoint_path_is_refused(corpus, tmp_path):
         generate_embeddings.main(
             ["--config", cfg_path, "--device", "cpu", "task.checkpoint_path=/ckpt"]
         )
+
+
+def test_serve_method_defaults_to_approx_as_in_the_jax_cli(corpus, tmp_path):
+    """Without serve.method both CLIs build an "approx" index; the port
+    builds and serves each of its five methods with the same answers, and
+    refuses the quantised ones."""
+    from dpr_scale_tpu.cli import serve as jax_serve
+    from dpr_scale_tpu.config import load_config as jax_load_config
+    from dpr_scale_tpu_torch.config import load_config
+
+    d, V = corpus
+    embs = tmp_path / "embs"
+    cfg_path = _write_config(d, V, embs, method=None)
+    generate_embeddings.main(["--config", cfg_path, "--device", "cpu"])
+    jcfg = jax_load_config(os.path.join(CONF, "tiny_smoke.yaml"), [
+        f"task.transform.model_path={d}", f"task.model.vocab_size={V}",
+        f"task.ctx_embeddings_dir={embs}", f"datamodule.passages_path={d}/passages.tsv"])
+    assert "serve" not in jcfg
+    assert jax_serve.build_retriever(jcfg).index.method == "approx"
+    retriever = serve.build_retriever(load_config(cfg_path), device="cpu")
+    assert retriever.index.method == "approx"
+    want = retriever.search(QUESTIONS, k=4)
+    for method in ("fused", "groupmax", "auto", "exact_sort"):
+        cfg = load_config(cfg_path, [f"serve.method={method}"])
+        got = serve.build_retriever(cfg, device="cpu")
+        assert got.index.method == method
+        assert [[c["id"] for c in r] for r in got.search(QUESTIONS, k=4)] == [
+            [c["id"] for c in r] for r in want]
+    for method in ("int8", "int4"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            serve.build_retriever(load_config(cfg_path, [f"serve.method={method}"]), device="cpu")
