@@ -100,15 +100,32 @@ training (``cli.train``, dropout 0.1). Phases:
      ``eval.qa_eval`` equals a recount with ``has_answers``, the
      count_above and groupmax counters must rise; then
      ``MipsIndex.benchmark`` times groupmax, fused, auto and exact_sort at
-     B = 512 over the 2,097,152-row block.
+     B = 512 over the 2,097,152-row block;
+ 16. the two integer sweep kernels vs their plain versions: int_groupmax
+     (the tool's i4_groupmax) at the tool's geometry (4,194,304 x 768 int4,
+     B = 256, random packed bytes, row scales U(0.5, 1.5)), at B = 512 and
+     64 over 2,097,152 x 768 rows in int8 and int4 with one and two query
+     planes, and ragged (B = 7, D = 100); int8_tile_max (the tool's
+     pallas_dot) on the int8 and the tool's rows; values and rows exactly
+     equal and repeatable; their times beside the plain version, a
+     ``torch._int_mm`` yardstick and the bound;
+ 17. the quantised tiers on phase 15's shards and questions:
+     ``cli.run_retrieval`` with ``task.mips_method=int8`` and with ``=int4
+     task.rerank_oversample=4``, ``retrieve()`` with int8 at
+     ``int8_query_planes=2`` and int4 without rerank; unreranked results
+     equal the plain path's dequantised top-100 on the card, reranked
+     scores the fp32 q . row of their shard rows; the int_groupmax counter
+     must rise; recall@100 against the exact fp32 top-100, peak memory and
+     ``MipsIndex.benchmark`` of int8, int4 and groupmax at B = 512 over the
+     2,097,152-row block.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
 standard output are a JSON object of per-kernel results (with each
 kernel's bound: the larger of the bytes it must move over 3.35 TB/s and its
-bf16 operations over 989 TFLOP/s, an H100 SXM's peaks, and the time of one
-PyTorch call computing the same function where one exists) and a JSON
-object ``{"ok": true, "device": {...}}``.
+operations over 989 TFLOP/s bf16 or 1,979 TOPS int8, an H100 SXM's peaks,
+and the time of one PyTorch call computing the same function where one
+exists) and a JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -179,6 +196,7 @@ YARD_CHUNK = 131072
 RETRIEVAL_QUERIES, RETRIEVAL_K, QUERY_BATCH = 1024, 100, 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12  # dense int8 tensor-core operations
 FP32_FLOPS = 67e12  # CUDA cores, no tensor cores
 
 
@@ -1740,6 +1758,289 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     return launches
 
 
+def _int_yardsticks():
+    """The yardsticks of int_groupmax and int8_tile_max: ``torch._int_mm``
+    (cuBLAS int8 x int8 -> int32) over YARD_CHUNK-row chunks, after the
+    torch unpack where the corpus is packed, then the scaling and the maxima
+    in PyTorch (no argmax)."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    def yard_groupmax(q8, corpus, sc, qsc, packed, planes):
+        B, N = qsc.shape[0], corpus.shape[0]
+        out = torch.empty((N // 8, B), device=corpus.device)
+        for lo in range(0, N, YARD_CHUNK):
+            x = corpus[lo : lo + YARD_CHUNK]
+            s = torch._int_mm(q8, (ik.unpack_int4(x) if packed else x).T).float()
+            if planes == 2:
+                s = s[:B] + s[B:] * ik.INV127
+            s = s * sc[lo : lo + YARD_CHUNK][None, :] * qsc[:, None]
+            out[lo // 8 : lo // 8 + s.shape[1] // 8] = s.view(B, -1, 8).amax(dim=2).T
+        return out
+
+    def yard_tile_max(q8, x8, tile):
+        return torch.cat([torch._int_mm(q8, x8[lo : lo + YARD_CHUNK].T).view(q8.shape[0], -1, tile)
+                          .amax(dim=2).T for lo in range(0, x8.shape[0], YARD_CHUNK)])
+
+    return yard_groupmax, yard_tile_max
+
+
+# (B, N, D, packed, planes, timed): the tool's geometry (int4, one plane),
+# the CLI's query batch and a serving batch over the bench geometry in both
+# tiers and both plane counts, two ragged cases
+INT_CASES = (
+    (256, 1 << 22, MIPS_DIM, True, 1, True),
+    *((B, MIPS_ROWS, MIPS_DIM, packed, planes, True) for B in (QUERY_BATCH, 64)
+      for packed in (False, True) for planes in (1, 2)),
+    (7, 101 * 128, 100, False, 1, False),
+    (7, 101 * 128, 100, True, 2, False),
+)
+
+
+def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
+    """Phase 16: int_groupmax (the tool's i4_groupmax, and its int8 and
+    two-plane forms) and int8_tile_max (the tool's pallas_dot) against their
+    plain versions on ``dev``: random query planes, random corpus bytes
+    (every nibble, -8 included), row scales U(0.5, 1.5), query scales 1 in
+    the tool's case and U(0.01, 0.1) elsewhere. Values and rows must equal
+    the plain version's exactly and repeat bit for bit. int8_tile_max runs on
+    the one-plane int8 cases and on the unpacked rows of the tool's case, as
+    the tool does. The timed cases also time kernel, plain version and the
+    ``torch._int_mm`` yardstick. Returns each kernel's JSON entry from the
+    first timed case, max |err| over all cases."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    yard_groupmax, yard_tile_max = _int_yardsticks()
+    entries = {n: {"max_abs_err": 0.0} for n in ("int_groupmax", "int8_tile_max")}
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def rand_int8(shape, lo):
+        return torch.randint(lo, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def record(name, what, got, again, want, timed, run, plain, yard, n_bytes, ops):
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} ({what}): repeated calls give other bits")
+        if any(a.shape != b.shape or not torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} ({what}) disagrees with its plain version")
+        err = max((a.double() - b.double()).abs().max().item() for a, b in zip(got, want))
+        print(f"{name} ({what}): equal to the plain version, max_abs_err {err:.3g}; repeatable")
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+        if not timed:
+            return
+        b_ms, b_by = bound(n_bytes, ops, peak=INT8_OPS)
+        ms = cuda_ms(run)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        yard_ms = library_ms(yard)
+        print(f"{name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+              f"yardstick {yard_ms} ms, bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of the "
+              "kernel's time; no single PyTorch call computes it")
+        if "ms" not in entries[name]:
+            entries[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None, yardstick_ms=yard_ms)
+
+    for B, N, D, packed, planes, timed in cases:
+        W = D // 2 if packed else D
+        q8, corpus = rand_int8((planes * B, D), -127), rand_int8((N, W), -128)
+        sc = torch.rand(N, generator=g, device=dev) + 0.5
+        tool = B == 256 and packed and planes == 1
+        qsc = torch.ones(B, device=dev) if tool else torch.rand(B, generator=g, device=dev) * 0.09 + 0.01
+        what = f"B={B} N={N} D={D} {'int4' if packed else 'int8'} planes={planes}"
+        args = (q8, corpus, sc, qsc)
+        kw = {"packed": packed, "planes": planes}
+        got, again = ik.int_groupmax_kernel(*args, **kw), ik.int_groupmax_kernel(*args, **kw)
+        want = ik.int_groupmax_plain(*args, **kw)
+        out_bytes = 2 * 4 * (N // 8) * B
+        record("int_groupmax", what, got, again, want, timed,
+               lambda: ik.int_groupmax_kernel(*args, **kw),
+               lambda: ik.int_groupmax_plain(*args, **kw),
+               lambda: yard_groupmax(*args, packed, planes),
+               nbytes(*args) + out_bytes, 2 * planes * B * N * D)
+        del got, again, want
+        if timed:  # the search's form: no argmax stored
+            ms = cuda_ms(lambda: ik.int_groupmax_kernel(*args, **kw, want_rows=False))
+            b_ms, b_by = bound(nbytes(*args) + out_bytes // 2, 2 * planes * B * N * D,
+                               peak=INT8_OPS)
+            print(f"int_groupmax ({what}) without rows, as the search calls it: kernel {ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by})")
+        if planes == 1 and (tool or not packed):
+            x8 = torch.cat([ik.unpack_int4(corpus[lo : lo + YARD_CHUNK])  # int32 temporaries
+                            for lo in range(0, N, YARD_CHUNK)]) if packed else corpus
+            n_tile = tile if N % tile == 0 else N // 8  # 1,616 rows: ragged score tiles
+            got, again = ik.int8_tile_max_kernel(q8, x8, n_tile), ik.int8_tile_max_kernel(q8, x8, n_tile)
+            want = ik.int8_tile_max_plain(q8, x8, n_tile)
+            record("int8_tile_max", f"B={B} N={N} D={D} tile={n_tile}", (got,), (again,), (want,),
+                   timed, lambda: ik.int8_tile_max_kernel(q8, x8, n_tile),
+                   lambda: ik.int8_tile_max_plain(q8, x8, n_tile),
+                   lambda: yard_tile_max(q8, x8, n_tile),
+                   nbytes(q8, x8) + 4 * B * (N // n_tile), 2 * B * N * D)
+            del got, again, want, x8
+        del q8, corpus, sc, qsc, args
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return entries
+
+
+def _plain_topk(index, q, k, chunk=256):
+    """The index's exact top-k by its plain chunked arithmetic (for a
+    quantised index: the dequantised scores), blocks merged, numpy."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.index.mips import merge_topk_batched
+
+    out_s, out_i = [], []
+    for lo in range(0, q.shape[0], chunk):
+        per_s, per_i = [], []
+        for emb, n_valid, offset in index._blocks:
+            s, i = index._exact_topk(emb, n_valid, q[lo : lo + chunk], min(k, emb.shape[0]))
+            i = i.cpu().numpy()
+            per_s.append(np.pad(s.cpu().numpy(), ((0, 0), (0, k - s.shape[1])), constant_values=-np.inf))
+            per_i.append(np.pad(np.where(i >= 0, i + offset, -1), ((0, 0), (0, k - i.shape[1])),
+                                constant_values=-1))
+        s, i = merge_topk_batched(np.stack(per_s), np.stack(per_i), k)
+        out_s.append(s)
+        out_i.append(i)
+    return np.concatenate(out_s), np.concatenate(out_i)
+
+
+def _same_topk(what, results, want_s, want_i):
+    """DPR ctx lists against (scores, rows): the same score lists exactly,
+    the same rows wherever a score stands clear of the k-th (dequantised
+    scores tie, and torch.topk breaks ties in its own order)."""
+    import numpy as np
+
+    for b, ctxs in enumerate(results):
+        s = np.array([c["score"] for c in ctxs], np.float32)
+        ids = np.array([int(c["id"]) for c in ctxs])
+        if not np.array_equal(s, want_s[b]):
+            raise AssertionError(f"{what}, query {b}: scores differ from the plain path's")
+        clear = s > s[-1]
+        if set(ids[clear]) != set(want_i[b][clear]):
+            raise AssertionError(f"{what}, query {b}: rows differ from the plain path's")
+
+
+def phase_int_retrieval(work, dev, n_queries=RETRIEVAL_QUERIES, extra=(), bench_iters=4):
+    """Phase 17, the quantised tiers on phase 15's shards and questions in
+    ``work`` (``n_queries``/``extra`` as there only shrink it on the CPU):
+    ``cli.run_retrieval`` with ``task.mips_method=int8`` and with
+    ``=int4 task.rerank_oversample=4``, then ``retrieve()`` over one built
+    index a tier, int8 with ``int8_query_planes=2`` and int4 without rerank.
+    Unreranked results must equal the plain path's dequantised top-k on
+    ``dev``, reranked scores the fp32 products with their shard rows; the
+    int_groupmax counter must rise. Prints recall@k against the exact fp32
+    top-k, ``MipsIndex.benchmark`` of int8, int4 and groupmax at B =
+    QUERY_BATCH over the largest block, and peak memory. Returns the
+    kernels' launch counts."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli import run_retrieval
+    from dpr_scale_tpu_torch.data.datasets import QueryCSVDataset
+    from dpr_scale_tpu_torch.encode.embeddings import ShardRowReader, load_embedding_shard
+    from dpr_scale_tpu_torch.index.mips import MipsIndex
+    from dpr_scale_tpu_torch.ops import int_kernels
+    from dpr_scale_tpu_torch.retrieve.retrieval import build_index, retrieve
+
+    tok_dir, tsv, csv, embs = (os.path.join(work, n) for n in
+                               ("tok", "passages.tsv", "questions.csv", "embs"))
+    base = ["--config", os.path.join(ROOT, "conf", "nq.yaml"), "--device", str(dev),
+            f"task.transform.model_path={tok_dir}", f"datamodule.passages_path={tsv}",
+            f"datamodule.test_path={csv}", f"task.ctx_embeddings_dir={embs}",
+            f"task.topk={RETRIEVAL_K}", *extra]
+    q_emb = load_embedding_shard(os.path.join(embs, "query_reps.pkl"))
+    questions = QueryCSVDataset(csv)
+    questions = [questions[i] for i in range(len(questions))]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    int_kernels.int_groupmax_kernel.launches = int_kernels.int8_tile_max_kernel.launches = 0
+    outputs = {}
+    for tag, opts in (("int8", ["task.mips_method=int8"]),
+                      ("int4_rerank4", ["task.mips_method=int4", "task.rerank_oversample=4"])):
+        outputs[tag] = os.path.join(work, f"{tag}.json")
+        t0 = time.perf_counter()
+        run_retrieval.main(base + opts + [f"task.output_path={outputs[tag]}",
+                                          f"task.output_trec_path={work}/{tag}.trec"])
+        print(f"run_retrieval {' '.join(opts)}: {n_queries} queries in "
+              f"{time.perf_counter() - t0:.2f} s wall (CLI incl. shard load, host quantisation, "
+              "search, JSON and TREC write)")
+    indexes = {}
+    for method, planes, tag in (("int8", 2, "int8_planes2"), ("int4", None, "int4")):
+        t0 = time.perf_counter()
+        indexes[tag] = build_index(embs, dev, method=method)
+        t1 = time.perf_counter()
+        outputs[tag] = os.path.join(work, f"{tag}.json")
+        retrieve(q_emb, questions, tsv, embs, index=indexes[tag], k=RETRIEVAL_K,
+                 query_batch=QUERY_BATCH, int8_query_planes=planes, output_json_path=outputs[tag])
+        print(f"retrieve method={method} int8_query_planes={indexes[tag].int8_query_planes}: "
+              f"build_index {t1 - t0:.2f} s, {n_queries} queries in {time.perf_counter() - t1:.2f} s "
+              f"wall (search, JSON write); repairs of the last batch {indexes[tag].last_repair}")
+    launches = {"int_groupmax": int_kernels.int_groupmax_kernel.launches,
+                "int8_tile_max": int_kernels.int8_tile_max_kernel.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+    # ---- checks: the plain path's dequantised top-k; the rerank's fp32 rescores
+    results = {}
+    for tag, path in outputs.items():
+        with open(path) as f:
+            results[tag] = [row["ctxs"] for row in json.load(f)]
+        if any(len(ctxs) != RETRIEVAL_K for ctxs in results[tag]):
+            raise AssertionError(f"{tag}: a query has fewer than {RETRIEVAL_K} results")
+    q = torch.from_numpy(q_emb).to(dev)
+    indexes["int8"] = indexes.pop("int8_planes2")
+    for tag, planes in (("int8", 1), ("int8_planes2", 2), ("int4", 1)):
+        index = indexes[tag.split("_")[0]]
+        index.int8_query_planes = planes
+        _same_topk(tag, results[tag], *_plain_topk(index, q, RETRIEVAL_K))
+        print(f"{tag}: {len(results[tag])} queries, each top-{RETRIEVAL_K} equals the plain "
+              f"path's dequantised top-{RETRIEVAL_K} on {dev} (scores exactly, rows clear of ties)")
+    reader = ShardRowReader(embs)
+    ids = np.array([[int(c["id"]) for c in ctxs] for ctxs in results["int4_rerank4"]])
+    served = np.array([[c["score"] for c in ctxs] for ctxs in results["int4_rerank4"]], np.float32)
+    true = np.einsum("bd,bkd->bk", q_emb, reader(ids.reshape(-1)).reshape(*ids.shape, -1))
+    rel = float(np.abs(served - true).max() / np.abs(true).max())
+    if rel > 1e-5:
+        raise AssertionError(f"int4_rerank4: reranked scores differ from fp32 q.row by {rel:.3g}")
+    print(f"int4_rerank4: every reranked score equals fp32 q.row of its shard row (max rel "
+          f"err {rel:.3g})")
+
+    exact = build_index(embs, dev, dtype=torch.float32, method="exact_sort")
+    exact_i = np.concatenate([exact.search(q[lo : lo + QUERY_BATCH], RETRIEVAL_K)[1]
+                              for lo in range(0, q.shape[0], QUERY_BATCH)])
+    del exact
+    recall = {tag: float(np.mean([len(set(int(c["id"]) for c in ctxs) & set(e.tolist()))
+                                  for ctxs, e in zip(res, exact_i)]) / RETRIEVAL_K)
+              for tag, res in results.items()}
+    print(f"recall@{RETRIEVAL_K} against the exact fp32 top-{RETRIEVAL_K} (random weights): "
+          f"{recall}; peak device memory of the phase's searches {peak:.2f} GiB")
+
+    # ---- benchmark(): the tiers and groupmax over the largest block ----
+    bq = min(QUERY_BATCH, n_queries)
+    qb = q_emb[: n_queries // bq * bq].reshape(-1, bq, q_emb.shape[1])
+    qb = np.concatenate([qb] * max(1, bench_iters // len(qb)))
+    for method in ("int8", "int4"):
+        blk, n_valid, _off = max(indexes[method]._blocks, key=lambda b: b[0].shape[0])
+        bench = MipsIndex(dev, method=method)
+        bench._blocks, bench._total_rows, bench._dim = [(blk, n_valid, 0)], n_valid, blk.shape[1]
+        stats = bench.benchmark(qb, RETRIEVAL_K)
+        print(f"benchmark {method} over {blk.shape[0]} rows ({n_valid} valid), B={bq} "
+              f"k={RETRIEVAL_K}: {stats}")
+        del bench, blk
+    indexes.clear()
+    rows = np.load(os.path.join(embs, "reps_0001.npy"), mmap_mode="r")[:n_valid]
+    bench = MipsIndex(dev, method="groupmax")
+    bench.add(torch.from_numpy(np.array(rows)).to(dev))
+    print(f"benchmark groupmax over the same rows, B={bq} k={RETRIEVAL_K}: "
+          f"{bench.benchmark(qb, RETRIEVAL_K)}")
+    del bench
+    print(f"quantised-retrieval launches: {launches}")
+    if launches["int_groupmax"] < 1:
+        raise AssertionError(f"a kernel of the quantised path never launched: {launches}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1814,6 +2115,10 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         retrieval_launches = phase_retrieval_cli(work, torch.device("cuda", 0))
+        torch.cuda.empty_cache()
+        int_entries = phase_int_kernels(torch.device("cuda", 0))
+        torch.cuda.empty_cache()
+        int_launches = phase_int_retrieval(work, torch.device("cuda", 0))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -1848,6 +2153,10 @@ def main():
            "replaces": f"dpr_scale_tpu/ops/mips_kernels.py:{line}",
            "launches": retrieval_launches.get(name, 0), **mips[name]}
           for name, line in (("count_above", 71), ("groupmax", 208), ("tile_max_scores", 242))),
+        *({"name": name, "route": "cuda", "source": source + "int_scan.cu",
+           "replaces": f"tools/microbench_int4_kernel.py:{line}",
+           "launches": int_launches[name], **int_entries[name]}
+          for name, line in (("int8_tile_max", 111), ("int_groupmax", 160))),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

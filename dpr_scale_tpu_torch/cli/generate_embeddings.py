@@ -9,7 +9,9 @@ Usage:
 Writes ``reps_{shard:04}.pkl`` (fp32 numpy pickle, readable by the JAX
 package's loader) for the contiguous corpus rows of ``task.shard``. The
 weights are initialised from a seed: ``task.checkpoint_path`` (an orbax
-checkpoint) cannot be read without jax and raises.
+checkpoint) cannot be read without jax and raises; so do
+``task.exported_encoder_path`` and ``task.quantized_checkpoint_path``, whose
+readers are not ported (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -35,6 +37,12 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
+    for key in ("exported_encoder_path", "quantized_checkpoint_path"):
+        if cfg.task.get(key):
+            raise NotImplementedError(
+                f"task.{key}={cfg.task[key]!r}: the exported and weight-only int8 "
+                "encoders are not ported (ROADMAP A8)"
+            )
     device = resolve_device(args.device)
 
     tokenizer = build_tokenizer(cfg)

@@ -8,7 +8,8 @@ Usage:
         datamodule.test_path=nq-test.csv \
         datamodule.passages_path=psgs_w100.tsv \
         task.output_path=/out/retrieval.json \
-        [task.mips_method=fused|groupmax|auto|approx|exact_sort] [--device cuda:0]
+        [task.mips_method=fused|groupmax|auto|approx|exact_sort|int8|int4] \
+        [task.rerank_oversample=4] [task.int8_query_planes=2] [--device cuda:0]
 
 The query embeddings come from ``task.query_emb_path`` or
 ``<ctx_embeddings_dir>/query_reps.pkl`` when that file exists (as

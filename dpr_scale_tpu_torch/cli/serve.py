@@ -4,15 +4,18 @@ Usage:
     python -m dpr_scale_tpu_torch.cli.serve --config conf/nq.yaml \
         task.ctx_embeddings_dir=/embs \
         datamodule.passages_path=psgs_w100.tsv \
-        serve.port=8080 [serve.method=approx|fused|groupmax|auto|exact_sort] \
-        [serve.k=10] [--device cuda:0]
+        serve.port=8080 [serve.method=approx|fused|groupmax|auto|exact_sort|int8|int4] \
+        [serve.int8_query_planes=2] [serve.k=10] [--device cuda:0]
 
     curl -XPOST localhost:8080/search -d '{"questions": ["who wrote hamlet"], "k": 5}'
 
 ``serve.method`` defaults to ``approx``, as in the JAX CLI; ``fused``,
-``groupmax`` and ``auto`` serve verified-exact results. ``int8`` / ``int4``
-raise (ROADMAP A9). The query tower is initialised from a seed (``task.checkpoint_path`` raises:
-orbax checkpoints need jax).
+``groupmax`` and ``auto`` serve verified-exact results; ``int8`` / ``int4``
+quantise the corpus (the exact top-k of the dequantised scores), with
+``serve.int8_query_planes=2`` for two-plane queries. The query tower is
+initialised from a seed (``task.checkpoint_path`` raises: orbax checkpoints
+need jax). The CITADEL tower (``serve_citadel``) is not ported and raises
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -36,6 +39,11 @@ def build_retriever(cfg, device=None) -> Retriever:
     """All the serving wiring short of binding the socket. ``device``
     defaults to ``cuda:0``."""
     s = cfg.get("serve", {})
+    if cfg.get("serve_citadel"):
+        raise NotImplementedError(
+            "serve_citadel: the CITADEL serving tower (CitadelRetriever) is not ported "
+            "(ROADMAP A7)"
+        )
     device = resolve_device(device)
     tokenizer = build_tokenizer(cfg)
     check_vocab_compat(tokenizer, build_model_config(cfg))
@@ -48,6 +56,8 @@ def build_retriever(cfg, device=None) -> Retriever:
         index_store=s.get("index_store"),
         device_rows=s.get("device_rows"),
     )
+    # 2: int16-precision queries over the quantised corpus (two int8 planes)
+    index.int8_query_planes = int(s.get("int8_query_planes", 1))
     retriever = Retriever(
         encoder,
         tokenizer,

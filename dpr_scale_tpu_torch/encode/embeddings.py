@@ -48,18 +48,77 @@ def load_embedding_shard(path: str) -> np.ndarray:
     return np.asarray(obj)
 
 
-def load_embedding_shards(ctx_embeddings_dir: str) -> List[Tuple[str, np.ndarray]]:
-    """All ``reps_*`` shards in a directory, sorted by shard id."""
-    names = sorted(
+def _shard_names(ctx_embeddings_dir: str) -> List[str]:
+    """The ``reps_*`` shard files of a directory, sorted by shard id; a
+    rerank sidecar (``.rerank.npy``) is none of them."""
+    return sorted(
         n
         for n in os.listdir(ctx_embeddings_dir)
         if n.startswith("reps_")
         and (n.endswith(".pkl") or n.endswith(".npy"))
         and not n.endswith(".rerank.npy")
     )
+
+
+def load_embedding_shards(ctx_embeddings_dir: str) -> List[Tuple[str, np.ndarray]]:
+    """All ``reps_*`` shards in a directory, sorted by shard id."""
     return [
-        (n, load_embedding_shard(os.path.join(ctx_embeddings_dir, n))) for n in names
+        (n, load_embedding_shard(os.path.join(ctx_embeddings_dir, n)))
+        for n in _shard_names(ctx_embeddings_dir)
     ]
+
+
+class ShardRowReader:
+    """Random row access over the ``reps_*`` shards of a directory without
+    the fp32 corpus in RAM: the exact-rerank source of the quantised tiers
+    (``MipsIndex.set_rerank``). ``.npy`` shards are memory-mapped; a
+    ``.pkl`` shard gets an fp32 ``.rerank.npy`` sidecar, built once (peak RAM
+    one shard) and reused while the pickle's (size, mtime) is unchanged. The
+    JAX package's reader, sidecar format included."""
+
+    def __init__(self, ctx_embeddings_dir: str):
+        names = _shard_names(ctx_embeddings_dir)
+        if not names:
+            raise FileNotFoundError(f"no reps_* shards in {ctx_embeddings_dir}")
+        self._maps: List[np.ndarray] = []
+        offsets = [0]
+        for n in names:
+            path = os.path.join(ctx_embeddings_dir, n)
+            m = np.load(path, mmap_mode="r") if n.endswith(".npy") else self._pkl_sidecar(path)
+            self._maps.append(m)
+            offsets.append(offsets[-1] + m.shape[0])
+        self._offsets = np.asarray(offsets, np.int64)
+        self.num_rows = int(self._offsets[-1])
+        self.dim = int(self._maps[0].shape[1])
+
+    @staticmethod
+    def _pkl_sidecar(path: str) -> np.ndarray:
+        side = path + ".rerank.npy"
+        st = os.stat(path)
+        fp_path = side + ".fp"
+        fp = f"{st.st_size}:{int(st.st_mtime)}"
+        if os.path.exists(side) and os.path.exists(fp_path):
+            with open(fp_path) as f:
+                if f.read() == fp:
+                    return np.load(side, mmap_mode="r")
+        arr = load_embedding_shard(path)
+        mm = np.lib.format.open_memmap(side, mode="w+", dtype=np.float32, shape=arr.shape)
+        mm[:] = arr
+        mm.flush()
+        del arr, mm
+        with open(fp_path, "w") as f:
+            f.write(fp)
+        return np.load(side, mmap_mode="r")
+
+    def __call__(self, ids: np.ndarray) -> np.ndarray:
+        """Global row ids -> (M, D) fp32 rows (the ``set_rerank`` contract)."""
+        ids = np.asarray(ids, np.int64)
+        out = np.empty((ids.size, self.dim), np.float32)
+        shard_of = np.searchsorted(self._offsets, ids, side="right") - 1
+        for si in np.unique(shard_of):
+            sel = shard_of == si
+            out[sel] = self._maps[si][ids[sel] - self._offsets[si]]
+        return out
 
 
 class CorpusEncoder:

@@ -43,7 +43,7 @@ class TransformerConfig:
     pad_token_id: int = 0
     position_offset: int = 0  # RoBERTa uses 2 (positions start at pad+1)
     dtype: torch.dtype = torch.bfloat16  # activation dtype
-    remat: bool = False  # not ported: must stay False
+    remat: bool = False  # a forward without gradients only (see REMAT_REFUSAL)
     fused_attention: bool = False  # ops.attention kernel instead of matmuls
     fused_ffn: bool = False  # ops.ffn kernels for the FFN half of each layer
 
@@ -229,18 +229,22 @@ class TransformerLayer(nn.Module):
         return self.output_ln(x + ffn.view(B, L, H))
 
 
+REMAT_REFUSAL = (
+    "remat with gradients is not ported yet (ROADMAP A4): torch.utils.checkpoint "
+    "replays only the default generators, not the explicit dropout generators of "
+    "this port, so its dropout gradients would be wrong; set task.model.remat=false"
+)
+
+
 class TransformerEncoder(nn.Module):
-    """Token ids -> contextual hidden states (B, L, H)."""
+    """Token ids -> contextual hidden states (B, L, H).
+
+    ``cfg.remat`` (JAX: each layer under ``nn.remat``) changes no forward
+    value, so a forward without gradients runs as without it; one that takes
+    gradients raises (REMAT_REFUSAL)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (queued in ROADMAP.md): "
-                "torch.utils.checkpoint replays only the default generators, "
-                "not the explicit dropout generators of this port, so its "
-                "dropout gradients would be wrong; set task.model.remat=false"
-            )
         self.cfg = cfg
         h = cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
@@ -259,6 +263,8 @@ class TransformerEncoder(nn.Module):
         rng: Optional[DropoutRng] = None,
     ):
         cfg = self.cfg
+        if cfg.remat and torch.is_grad_enabled() and self.word_embeddings.weight.requires_grad:
+            raise NotImplementedError(REMAT_REFUSAL)
         B, L = input_ids.shape
         input_ids = input_ids.long()
         if attention_mask is None:

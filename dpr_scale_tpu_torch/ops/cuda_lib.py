@@ -27,9 +27,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = (
     "attention_fwd.cu", "attention_bwd.cu", "count_groups.cu", "ffn_fwd.cu", "gather_score.cu",
-    "mips_scan.cu",
+    "int_scan.cu", "mips_scan.cu",
 )
-HEADERS = ("attention_tiles.cuh", "dropout_bits.cuh", "score_tile.cuh")
+HEADERS = ("attention_tiles.cuh", "dropout_bits.cuh", "int_tile.cuh", "score_tile.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpr_scale_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -133,6 +133,10 @@ def library() -> ctypes.CDLL:
             lib.dst_groupmax.restype = i
             lib.dst_tile_max.argtypes = [p, p, p, i, ll, i, ll, i, p]
             lib.dst_tile_max.restype = i
+            lib.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
+            lib.dst_int_groupmax.restype = i
+            lib.dst_int8_tile_max.argtypes = [p, p, p, i, ll, i, ll, p]
+            lib.dst_int8_tile_max.restype = i
             lib.dst_ffn_fwd.argtypes = [p] * 8 + [i, i, i, u, u, f, p]
             lib.dst_ffn_fwd.restype = i
             lib.dst_ffn_ln_fwd.argtypes = [p] * 14 + [i, i, i, f, u, u, f, p]

@@ -4,9 +4,11 @@ Counterpart of :mod:`dpr_scale_tpu.retrieve.retrieval`: load every
 ``reps_*`` shard into one :class:`~dpr_scale_tpu_torch.index.mips.MipsIndex`
 (global row order = shard order = corpus order), search the queries in
 batches, join (scores, global row ids) with the passages and write DPR JSON
-and/or a TREC run. The quantised and host-resident tiers (``host_resident``,
-``index_store``, ``device_rows``, ``rerank_oversample``,
-``int8_query_planes``) are not ported and raise (ROADMAP A9).
+and/or a TREC run. ``rerank_oversample`` attaches the host exact-rerank tier
+over the shards' original rows (``ShardRowReader``) to a lossy index;
+``int8_query_planes`` sets the quantised tiers' query planes. The
+host-resident tiers (``host_resident``, ``index_store``, ``device_rows``)
+are not ported and raise (ROADMAP A1).
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import torch
 
 from dpr_scale_tpu_torch.data.datasets import CSVDataset
 from dpr_scale_tpu_torch.device import resolve_device
-from dpr_scale_tpu_torch.encode.embeddings import load_embedding_shards
-from dpr_scale_tpu_torch.index.mips import MipsIndex
+from dpr_scale_tpu_torch.encode.embeddings import ShardRowReader, load_embedding_shards
+from dpr_scale_tpu_torch.index.mips import LOSSY, MipsIndex
 from dpr_scale_tpu_torch.retrieve.writers import write_dpr_json, write_trec_run
 
 
@@ -27,8 +29,8 @@ def _refuse_unported(**options) -> None:
     for name, value in options.items():
         if value:
             raise NotImplementedError(
-                f"{name}={value!r}: the quantised and host-resident index tiers "
-                "are not ported (ROADMAP A9)"
+                f"{name}={value!r}: the host-resident index tiers are not ported "
+                "(ROADMAP A1)"
             )
 
 
@@ -101,13 +103,26 @@ def retrieve(
     Without ``index`` one is built from the shards on ``device`` (default
     ``cuda:0``) with ``method``; a given index is searched with its own
     method. The last query batch is padded with zero queries up to
-    ``query_batch`` and the pads' results dropped."""
-    _refuse_unported(int8_query_planes=int8_query_planes, rerank_oversample=rerank_oversample)
+    ``query_batch`` and the pads' results dropped.
+
+    ``rerank_oversample`` (a lossy index only: int8, int4, approx): the
+    device search fetches ``rerank_oversample * k`` candidates and the host
+    rescores them against the shards' rows. ``int8_query_planes`` applies
+    to a given index too; None leaves its setting alone."""
     if index is None:
         index = build_index(
             ctx_embeddings_dir, resolve_device(device), host_resident=host_resident,
             method=method, index_store=index_store, device_rows=device_rows,
         )
+    if rerank_oversample:
+        # the index searched decides: a given one ignores ``method``
+        if index.method not in LOSSY:
+            raise ValueError(
+                f"rerank_oversample requires a lossy mips_method (index.method={index.method!r})"
+            )
+        index.set_rerank(ShardRowReader(ctx_embeddings_dir), oversample=int(rerank_oversample))
+    if int8_query_planes is not None:
+        index.int8_query_planes = int(int8_query_planes)
     passages = CSVDataset(passages_path)
 
     nq = query_embeddings.shape[0]

@@ -22,7 +22,7 @@ import torch
 
 from dpr_scale_tpu_torch.models.convert import init_params
 from dpr_scale_tpu_torch.models.encoder import BiEncoder
-from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig
+from dpr_scale_tpu_torch.models.transformer import REMAT_REFUSAL, DropoutRng, TransformerConfig
 from dpr_scale_tpu_torch.optim.factory import AdamW, global_norm
 from dpr_scale_tpu_torch.train.loss import contrastive_loss, rank_metrics
 
@@ -59,6 +59,8 @@ class DenseRetrieverTask:
                 f"encoder_family={self.encoder_family!r} is not ported yet; the "
                 "port trains the dense CLS bi-encoder"
             )
+        if self.cfg.remat:  # training takes gradients
+            raise NotImplementedError(REMAT_REFUSAL)
         if self.grad_cache_chunks > 1:
             raise NotImplementedError(
                 "task.grad_cache_chunks > 1 (GradCache) is not ported yet "

@@ -1,6 +1,9 @@
 """chip_smoke.py without a card: it refuses to run, and its slice phase runs
 end to end on the CPU at a tiny size up to the launch-count check (the
 kernels never launch on CPU tensors)."""
+import contextlib
+import io
+
 import pytest
 import torch
 
@@ -144,17 +147,61 @@ def test_mips_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):
         chip_smoke.phase_mips_kernels(torch.device("cpu"), cases[:1])
 
 
-def test_retrieval_cli_phase_runs_on_cpu_until_the_launch_check(tmp_path, capsys):
+@pytest.fixture(scope="module")
+def retrieval_work(tmp_path_factory):
+    """Phase 15 at a tiny width, run once up to its launch check: (work dir
+    with its shards and questions, its output, the model overrides)."""
+    work = tmp_path_factory.mktemp("retrieval_cli")
+    extra = ["task.model.arch=tiny", "task.model.vocab_size=30522",
+             "task.transform.max_seq_len=32"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_retrieval_cli(str(work), torch.device("cpu"), n_rows=2048,
+                                       n_encoded=128, n_queries=16, extra=extra)
+    return str(work), out.getvalue(), extra
+
+
+def test_retrieval_cli_phase_runs_on_cpu_until_the_launch_check(retrieval_work):
     """Phase 15 at a tiny width: both CLIs, retrieve() with the other three
     methods, every method's JSON equal to the brute-force top-100, qa_eval
     equal to the recount; the count_above and groupmax counters must rise."""
-    extra = ["task.model.arch=tiny", "task.model.vocab_size=30522",
-             "task.transform.max_seq_len=32"]
-    with pytest.raises(AssertionError, match="never launched"):
-        chip_smoke.phase_retrieval_cli(str(tmp_path), torch.device("cpu"), n_rows=2048,
-                                       n_encoded=128, n_queries=16, extra=extra)
-    out = capsys.readouterr().out
+    _work, out, _extra = retrieval_work
     for method in ("groupmax", "auto", "fused", "approx", "exact_sort"):
         assert f"{method}: 16 queries, each top-100 equals the brute-force exact top-100" in out
     assert "equal to a recount with has_answers" in out
     assert "retrieval-path launches: {'count_above': 0, 'groupmax': 0}" in out
+
+
+def test_int_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):
+    """Phase 16's comparisons at a tiny size, each kernel replaced by its
+    plain version: every check passes, and a wrong kernel is caught."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    for name in ("int_groupmax", "int8_tile_max"):
+        monkeypatch.setattr(ik, f"{name}_kernel", getattr(ik, f"{name}_plain"))
+    cases = ((5, 2048, 32, True, 1, False), (3, 1152, 20, False, 2, False),
+             (7, 1024, 100, False, 1, False))
+    entries = chip_smoke.phase_int_kernels(torch.device("cpu"), cases)
+    assert set(entries) == {"int_groupmax", "int8_tile_max"}
+    assert entries["int_groupmax"]["max_abs_err"] == 0.0
+    assert capsys.readouterr().out.count("repeatable") == 4  # 3 group max, 1 tile max
+    monkeypatch.setattr(ik, "int_groupmax_kernel", lambda *a, **k: (
+        lambda v, r: (v.nextafter(v + 1), r))(*ik.int_groupmax_plain(*a, **k)))
+    with pytest.raises(AssertionError, match="int_groupmax .* disagrees"):
+        chip_smoke.phase_int_kernels(torch.device("cpu"), cases[:1])
+
+
+def test_int_retrieval_phase_runs_on_cpu_until_the_launch_check(retrieval_work, capsys):
+    """Phase 17 on phase 15's tiny shards: both CLI runs and both retrieve()
+    runs equal the plain path's dequantised top-100, the rerank's scores the
+    fp32 products; the int_groupmax counter must rise."""
+    work, _out, extra = retrieval_work
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_int_retrieval(work, torch.device("cpu"), n_queries=16, extra=extra)
+    out = capsys.readouterr().out
+    for tag in ("int8", "int8_planes2", "int4"):
+        assert f"{tag}: 16 queries, each top-100 equals the plain path's dequantised" in out
+    assert "every reranked score equals fp32 q.row" in out
+    for method in ("int8", "int4", "groupmax"):
+        assert f"benchmark {method} over" in out
+    assert "quantised-retrieval launches: {'int_groupmax': 0, 'int8_tile_max': 0}" in out

@@ -458,3 +458,99 @@ def test_gather_score_kernels_refuse_what_they_cannot_run(cuda_device):
     wide = torch.zeros(2, 8, 300, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="limit"):
         gs.gather_score_serial_kernel(wide, slots[:2], torch.zeros(2, 300, device=cuda_device))
+
+
+def _int_inputs(dev, B, N, D, packed, planes, seed):
+    """Random int8 query planes, random corpus bytes (packed: every nibble,
+    -8 included), row scales U(0.5, 1.5), query scales U(0.01, 0.1)."""
+    rng = np.random.default_rng(seed)
+    W = D // 2 if packed else D
+    q8 = torch.from_numpy(rng.integers(-127, 128, size=(planes * B, D), dtype=np.int8)).to(dev)
+    c = torch.from_numpy(rng.integers(-128, 128, size=(N, W), dtype=np.int8)).to(dev)
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, size=N).astype(np.float32)).to(dev)
+    qsc = torch.from_numpy(rng.uniform(0.01, 0.1, size=B).astype(np.float32)).to(dev)
+    return q8, c, sc, qsc
+
+
+_INT_CASES = [(B, D) for B in (1, 7, 64, 130) for D in (16, 100, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("B,D", _INT_CASES, ids=[f"B{B}-D{D}" for B, D in _INT_CASES])
+def test_int_groupmax_kernel_equals_plain(cuda_device, B, D, packed, planes):
+    """N = 17 x 128 rows (the last 2,048-row span ragged): values and rows
+    exactly equal to the plain version (both sum exactly and scale in one
+    order), repeated calls the same bits, and without rows the same values."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, sc, qsc = _int_inputs(cuda_device, B, 17 * 128, D, packed, planes, B + D + planes)
+    before = ik.int_groupmax_kernel.launches
+    vals, rows = ik.int_groupmax(q8, c, sc, qsc, packed=packed, planes=planes)
+    again, _none = ik.int_groupmax(q8, c, sc, qsc, packed=packed, planes=planes, want_rows=False)
+    torch.cuda.synchronize()
+    assert ik.int_groupmax_kernel.launches == before + 2 and _none is None
+    want_v, want_r = ik.int_groupmax_plain(q8, c, sc, qsc, packed=packed, planes=planes)
+    assert torch.equal(vals, want_v) and torch.equal(rows, want_r)
+    assert torch.equal(vals, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,n_tiles", [(2048, 3), (300, 5)])
+@pytest.mark.parametrize("B,D", _INT_CASES, ids=[f"B{B}-D{D}" for B, D in _INT_CASES])
+def test_int8_tile_max_kernel_equals_plain(cuda_device, B, D, tile, n_tiles):
+    """The tool's 2,048-row tile, and a 300-row tile that ends mid score tile."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, _sc, _qsc = _int_inputs(cuda_device, B, tile * n_tiles, D, False, 1, 3 * B + D)
+    before = ik.int8_tile_max_kernel.launches
+    out = ik.int8_tile_max(q8, c, tile)
+    torch.cuda.synchronize()
+    assert ik.int8_tile_max_kernel.launches == before + 1
+    assert torch.equal(out, ik.int8_tile_max_plain(q8, c, tile))
+
+
+@pytest.mark.cuda
+def test_int_kernels_refuse_what_they_cannot_run(cuda_device):
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, sc, qsc = _int_inputs(cuda_device, 4, 256, 64, True, 1, 0)
+    with pytest.raises(ValueError, match="int8"):
+        ik.int_groupmax_kernel(q8.float(), c, sc, qsc, packed=True)
+    with pytest.raises(ValueError, match="do not agree"):
+        ik.int_groupmax_kernel(q8, c, sc, qsc, packed=False)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ik.int_groupmax_kernel(q8, c, sc.cpu(), qsc, packed=True)
+    with pytest.raises(ValueError, match="fp32 scales"):
+        ik.int_groupmax_kernel(q8, c, sc.double(), qsc, packed=True)
+    with pytest.raises(ValueError, match="must divide"):
+        ik.int8_tile_max_kernel(q8, c[:, :32].repeat(1, 2), 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["int8", "int4"])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_quantised_search_launches_the_kernel_and_equals_plain(cuda_device, method, planes):
+    """MipsIndex int8 / int4 on the card sweeps with int_groupmax_kernel and
+    returns what the same index returns on the CPU (the plain versions):
+    equal score lists, equal rows where the k-th and (k+1)-th differ."""
+    from dpr_scale_tpu_torch.index.mips import MipsIndex
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    rng = np.random.default_rng(planes)
+    blocks = [rng.normal(size=(n, 96)).astype(np.float32) for n in (3000, 1100)]
+    queries = rng.normal(size=(9, 96)).astype(np.float32)
+    got, want = MipsIndex(cuda_device, method=method), MipsIndex("cpu", method=method)
+    for index in (got, want):
+        index.int8_query_planes = planes
+        for b in blocks:
+            index.add(b)
+    before = ik.int_groupmax_kernel.launches
+    s, i = got.search(queries, k=12)
+    assert ik.int_groupmax_kernel.launches == before + 2
+    ws, wi = want.search(queries, k=12)
+    np.testing.assert_array_equal(s, ws)
+    for row in range(len(queries)):
+        above = s[row] > s[row, -1]  # rows tied with the k-th may differ
+        assert set(i[row][above]) == set(wi[row][above])

@@ -181,11 +181,14 @@ def test_search_takes_tensors_and_bf16_blocks():
 
 
 def test_unported_methods_are_refused():
+    """The quantised tiers are ported (tests/test_torch_int_mips.py holds
+    them to JAX); host-resident blocks still raise, naming ROADMAP A1."""
     for method in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="not ported.*A9"):
-            MipsIndex("cpu", method=method)
-    with pytest.raises(NotImplementedError, match="host_resident.*A9"):
+        assert MipsIndex("cpu", method=method).method == method
+    with pytest.raises(NotImplementedError, match="host_resident.*A1"):
         MipsIndex("cpu", host_resident=True)
+    with pytest.raises(NotImplementedError, match="host_resident.*A1"):
+        MipsIndex("cpu", method="int8", host_resident=True)
     with pytest.raises(ValueError, match="unknown"):
         MipsIndex("cpu", method="sorted")
 

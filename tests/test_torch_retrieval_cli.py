@@ -54,12 +54,12 @@ def setup(tmp_path_factory, tiny_bert_dir):
     return d, common, str(qpath)
 
 
-def _run_both(d, common, qpath, method):
+def _run_both(d, common, qpath, method, extra=()):
     outs = {}
     for side in ("jax", "port"):
         out = [f"task.query_emb_path={qpath}", f"task.mips_method={method}",
                f"task.output_path={d}/{side}_{method}.json",
-               f"task.output_trec_path={d}/{side}_{method}.trec"]
+               f"task.output_trec_path={d}/{side}_{method}.trec", *extra]
         if side == "jax":
             from dpr_scale_tpu.cli import run_retrieval as jax_run_retrieval
 
@@ -186,7 +186,30 @@ def test_retrieve_passes_ignore_identical_ids_through(setup):
     ("task.int8_query_planes", "2"), ("task.mips_method", "int8"),
 ])
 def test_unported_tiers_raise_naming_a9(setup, option, value):
+    """The host-resident tiers still raise, now naming ROADMAP A1. The
+    quantised options are ported and act as in the JAX CLI on the default
+    ``fused`` index: a rerank there raises ValueError on both sides, the
+    query planes change nothing; ``int8`` answers as the JAX CLI does
+    (tests/test_torch_int_cli.py holds the tiers in full)."""
     d, common, qpath = setup
-    with pytest.raises(NotImplementedError, match="A9"):
-        run_retrieval.main(common[:2] + ["--device", "cpu"] + common[2:] + [
-            f"task.query_emb_path={qpath}", f"{option}={value}"])
+    extra = [f"task.query_emb_path={qpath}", f"{option}={value}"]
+    if option in ("task.host_resident_index", "task.index_store", "task.device_rows"):
+        with pytest.raises(NotImplementedError, match="A1"):
+            run_retrieval.main(common[:2] + ["--device", "cpu"] + common[2:] + extra)
+        return
+    if option == "task.rerank_oversample":
+        from dpr_scale_tpu.cli import run_retrieval as jax_run_retrieval
+
+        for main, argv in ((jax_run_retrieval.main, common + extra),
+                           (run_retrieval.main, common[:2] + ["--device", "cpu"] + common[2:]
+                            + extra)):
+            with pytest.raises(ValueError, match="lossy"):
+                main(argv)
+        return
+    method = "int8" if option == "task.mips_method" else "fused"
+    (want, _), (got, _) = _run_both(d, common, qpath, method, [f"{option}={value}"])
+    for g, w in zip(got, want):
+        scores = [c["score"] for c in g["ctxs"]]
+        np.testing.assert_allclose(scores, [c["score"] for c in w["ctxs"]], rtol=1e-5)
+        clear = [c["id"] for c in g["ctxs"] if c["score"] > scores[-1] + 1e-5 * abs(scores[-1])]
+        assert clear == [c["id"] for c in w["ctxs"][: len(clear)]]

@@ -178,8 +178,10 @@ def test_checkpoint_path_is_refused(corpus, tmp_path):
 
 def test_serve_method_defaults_to_approx_as_in_the_jax_cli(corpus, tmp_path):
     """Without serve.method both CLIs build an "approx" index; the port
-    builds and serves each of its five methods with the same answers, and
-    refuses the quantised ones."""
+    builds and serves each of its five exact methods with the same answers,
+    and the quantised ones (``serve.int8_query_planes`` read as in the JAX
+    CLI) with the answers of the JAX index of that tier over the same rows
+    and the served query embeddings."""
     from dpr_scale_tpu.cli import serve as jax_serve
     from dpr_scale_tpu.config import load_config as jax_load_config
     from dpr_scale_tpu_torch.config import load_config
@@ -202,6 +204,19 @@ def test_serve_method_defaults_to_approx_as_in_the_jax_cli(corpus, tmp_path):
         assert got.index.method == method
         assert [[c["id"] for c in r] for r in got.search(QUESTIONS, k=4)] == [
             [c["id"] for c in r] for r in want]
-    for method in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            serve.build_retriever(load_config(cfg_path, [f"serve.method={method}"]), device="cpu")
+    tok = HFTokenizer(str(d), max_seq_len=12)
+    (_, emb), = load_embedding_shards(str(embs))
+    for method, planes in (("int8", 1), ("int4", 1), ("int4", 2)):
+        got = serve.build_retriever(load_config(cfg_path, [
+            f"serve.method={method}", f"serve.int8_query_planes={planes}"]), device="cpu")
+        assert (got.index.method, got.index.int8_query_planes) == (method, planes)
+        results = got.search(QUESTIONS, k=4)
+        ref = JaxMipsIndex(get_mesh(1), method=method)
+        ref.int8_query_planes = planes
+        ref.add(emb)
+        ws, wi = ref.search(got.encoder.encode(*tok(QUESTIONS)).numpy(), k=4)
+        for r, w_s, w_i in zip(results, ws, wi):
+            scores = [c["score"] for c in r]
+            np.testing.assert_allclose(scores, w_s, rtol=1e-6)
+            clear = [c["id"] for c in r if c["score"] > w_s[-1] + 1e-6 * abs(w_s[-1]) + 1e-9]
+            assert clear == [f"d{j}" for j in w_i[: len(clear)]]

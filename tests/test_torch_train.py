@@ -273,10 +273,8 @@ def test_unported_task_options_raise():
         DenseRetrieverTask(cfg=ttask.cfg, grad_cache_chunks=2)
     with pytest.raises(NotImplementedError):
         DenseRetrieverTask(cfg=ttask.cfg, encoder_family="splade")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from dpr_scale_tpu_torch.models.transformer import TransformerEncoder
-
-        TransformerEncoder(dataclasses.replace(ttask.cfg, remat=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*dropout generators"):
+        DenseRetrieverTask(cfg=dataclasses.replace(ttask.cfg, remat=True))
 
 
 # ------------------------------------------------------------------ config + CLI
