@@ -11,7 +11,11 @@ training (``cli.train``, dropout 0.1). Phases:
   1. the card (nvidia-smi name and power limit) and the tokenizer / config
      packages it has;
   2. attention kernel vs its plain PyTorch version at the encode shape
-     (B=128, 12 heads, L=256, head_dim 64, bf16, ragged key masks);
+     (B=128, 12 heads, L=256, head_dim 64, bf16, ragged key masks) and the
+     query-encode shape (B=512, L=32); its registers and shared memory,
+     its times beside scaled_dot_product_attention's and the share of its
+     bound; torch.profiler's device time of the kernel within 10% of CUDA
+     events (ROADMAP C4);
   3. group-count kernel vs its plain version at B=64, N=1,048,576, D=768
      bf16, thresholds at each query's 99.99th score percentile;
   4. the serving slice: a synthetic 30,522-entry WordPiece vocab and
@@ -26,7 +30,9 @@ training (``cli.train``, dropout 0.1). Phases:
      plain versions at the shapes phase 6 gives them (B=256 contexts and
      B=128 queries, 12 heads, L=256, head_dim 64, bf16, ragged key masks,
      rates 0 and 0.1, one seed for both), seed repeatability, and their
-     times;
+     times at both rates beside scaled_dot_product_attention's and the
+     share of their bound; the backward kernels' registers and shared
+     memory;
   6. the training slice: a synthetic DPR-JSON train/val set over the same
      vocab, ``cli.train`` on conf/nq.yaml for 8 steps at batch 128 (128
      queries, 256 contexts, L = 256, dropout 0.1), then validation and test;
@@ -131,6 +137,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -212,11 +219,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def library_ms(fn):
-    """cuda_ms of a PyTorch call that computes a kernel's function, the
-    yardstick beside it; None (and the reason printed) if the call fails."""
+def library_ms(fn, timer=None):
+    """Device time (``cuda_ms`` unless ``timer`` is given) of a PyTorch call
+    that computes a kernel's function, the yardstick beside it; None (and
+    the reason printed) if the call fails."""
     try:
-        return cuda_ms(fn)
+        return (timer or cuda_ms)(fn)
     except RuntimeError as e:
         print(f"library call failed: {e}")
         return None
@@ -293,43 +301,94 @@ def phase_device():
     return smi
 
 
-def phase_attention():
+def kernel_resources(prefix):
+    """Registers, stack and spills of each kernel of the build whose name
+    starts with ``prefix``, as ptxas printed them (``cuda_lib.build_log()``),
+    one line per template instance ``name<width, dropout>``."""
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    found, name = {}, None
+    for line in cuda_lib.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the function's own name: the digit-free run before its template
+            # arguments (the anonymous namespace's name holds the file's)
+            t = re.search(r"([A-Za-z_]+_kernel)ILi(\d+)ELb([01])E", m.group(1))
+            name = (f"{t.group(1)}<{t.group(2)}, {t.group(3)}>"
+                    if t and t.group(1).startswith(prefix) else None)
+        elif name and ("Used" in line or "stack frame" in line):
+            found.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return [f"{n}: {'; '.join(v)}" for n, v in sorted(found.items())]
+
+
+def _fwd_case(dev, B, L, seed, nh=12, hd=64):
+    """The rate-0 forward against plain at one shape with ragged key masks:
+    max error, kernel times (queued and single-call), plain and SDPA times,
+    bound and its share."""
     import torch
 
-    from dpr_scale_tpu_torch.ops import attention
+    from dpr_scale_tpu_torch.ops import attention, cuda_lib
 
-    dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    B, nh, L, hd = 128, 12, 256, 64
-    q, k, v = (
-        torch.randn(B, nh, L, hd, generator=g, device=dev).to(torch.bfloat16)
-        for _ in range(3)
-    )
-    lens = torch.randint(16, L + 1, (B,), generator=g, device=dev)
-    lens[0] = L
-    bias = (torch.arange(L, device=dev)[None, :] >= lens[:, None]).float() * -1e9
-    bias = bias[:, None, :].contiguous()
+    q, k, v, bias, _ = _attention_inputs(dev, B, nh, L, hd, seed)
     out = attention.attention_fwd_kernel(q, k, v, bias)
     torch.cuda.synchronize()
     ref = attention.attention_plain(q, k, v, bias)
     err = (out.float() - ref.float()).abs()
     bad = (err > ATTN_ATOL + ATTN_RTOL * ref.float().abs()).sum().item()
     max_err = err.max().item()
-    ms = cuda_ms(lambda: attention.attention_fwd_kernel(q, k, v, bias))
+    if bad or not torch.isfinite(out).all():
+        raise AssertionError(f"attention kernel disagrees with its plain version at B={B} L={L}")
+    del ref, err
+    fn = lambda: attention.attention_fwd_kernel(q, k, v, bias)
+    ms, single_ms = device_ms(fn), cuda_ms(fn)
     plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, bias))
     mask = bias.to(q.dtype)[:, :, None, :]
     lib_ms = library_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask))
+        q, k, v, attn_mask=mask), timer=device_ms)
     bound_ms, bound_by = bound(nbytes(q, k, v, bias, out), 4 * B * nh * L * L * hd)
-    print(
-        f"attention_fwd (B={B} nh={nh} L={L} hd={hd} bf16): max_abs_err {max_err:.3g}, "
-        f"{bad} outside {ATTN_ATOL}+{ATTN_RTOL}|ref|; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {lib_ms} ms, bound {bound_ms:.4f} ms ({bound_by})"
-    )
-    if bad or not torch.isfinite(out).all():
-        raise AssertionError("attention kernel disagrees with its plain version")
+    smem = cuda_lib.library().dst_attention_fwd_smem(L, hd)
+    print(f"attention_fwd (B={B} nh={nh} L={L} hd={hd} bf16, rate 0): max_abs_err {max_err:.3g}, "
+          f"{bad} outside {ATTN_ATOL}+{ATTN_RTOL}|ref|; kernel {ms:.4f} ms queued "
+          f"({single_ms:.4f} ms single call), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms} ms, bound {bound_ms:.4f} ms ({bound_by}) = "
+          f"{bound_ms / ms:.1%} of the kernel's time; {smem} bytes of shared memory a block")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_profiler(dev, B=128, L=256, nh=12, hd=64, tol=0.1):
+    """ROADMAP C4: ``profile_serve.device_profile`` (torch.profiler) on lone
+    ``attention_fwd_kernel`` calls must report the kernel's device time
+    within ``tol`` of its CUDA-event time (calls queued behind a GPU sleep)."""
+    from dpr_scale_tpu_torch.ops import attention
+    from dpr_scale_tpu_torch.tools import profile_serve
+
+    q, k, v, bias, _ = _attention_inputs(dev, B, nh, L, hd, SEED)
+    fn = lambda: attention.attention_fwd_kernel(q, k, v, bias)
+    events = device_ms(fn)
+    _prof, kernels = profile_serve.device_profile(fn, dev)
+    prof = sum(us for name, us in kernels.items() if "attention_fwd_kernel" in name)
+    prof = prof / profile_serve.PROFILED_CALLS / 1e3
+    launches = profile_serve.port_kernel_ms(fn, dev)["attention kernels"]
+    print(f"torch.profiler on a lone attention_fwd_kernel call (B={B} L={L}): {prof:.4f} ms of "
+          f"device time vs {events:.4f} ms by CUDA events (queued calls), {launches:.4f} ms by "
+          f"the reports' events around each launch; kernels seen {sorted(kernels)}")
+    if abs(prof - events) > tol * events:
+        raise AssertionError("torch.profiler misses the port's kernel time (ROADMAP C4)")
+
+
+def phase_attention():
+    """Phase 2: the forward against plain at the encode shape (B=128,
+    L=256) and the query-encode shape (the retrieval CLI's batch, L=32),
+    the kernels' registers and shared memory, and the profiler check."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    print("\n".join(kernel_resources("attention_fwd_kernel")))
+    entry = _fwd_case(dev, 128, 256, SEED)
+    _fwd_case(dev, QUERY_BATCH, 32, SEED + 1)
+    check_profiler(dev)
+    return entry
 
 
 def phase_count():
@@ -599,6 +658,7 @@ def _check_train_kernels(B, nh=12, L=256, hd=64):
     import torch
 
     from dpr_scale_tpu_torch.ops import attention
+    from dpr_scale_tpu_torch.tools import profile_serve
 
     dev = torch.device("cuda", 0)
     q, k, v, bias, go = _attention_inputs(dev, B, nh, L, hd, SEED + 3)
@@ -638,41 +698,55 @@ def _check_train_kernels(B, nh=12, L=256, hd=64):
         raise AssertionError("the dropout kernels do not repeat for a repeated seed")
     if torch.equal(first, other) or torch.equal(dq_first, dq_other):
         raise AssertionError("the dropout kernels ignore their seed")
-    fwd_ms = cuda_ms(lambda: attention.attention_fwd_kernel(q, k, v, bias, seed, 0.1))
-    fwd_plain = cuda_ms(lambda: attention.attention_plain(q, k, v, bias, seed, 0.1))
-    bwd_ms = cuda_ms(lambda: attention.attention_bwd_kernel(q, k, v, bias, go, seed, 0.1))
-    bwd_plain = cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, bias, go, seed, 0.1))
-    bwd0_ms = cuda_ms(lambda: attention.attention_bwd_kernel(q, k, v, bias, go, seed, 0.0))
-    bwd0_plain = cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, bias, go, seed, 0.0))
-    # the yardstick: scaled_dot_product_attention at the same rate, forward
-    # and (through autograd, its graph kept) backward
+    # times at both rates: the kernels queued behind a GPU sleep (and as
+    # single calls), the plain versions, and the yardstick,
+    # scaled_dot_product_attention at the same rate, forward and (through
+    # autograd, its graph kept) backward
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = bias.to(q.dtype)[:, :, None, :]
-    lib_fwd = library_ms(lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=0.1))
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    try:
-        lib_out = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=0.1)
-        lib_bwd = library_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), go,
-                                                         retain_graph=True))
-    except RuntimeError as e:
-        print(f"library call failed: {e}")
-        lib_bwd = None
-    del qg, kg, vg
     fwd_bound = bound(nbytes(q, k, v, bias, q), 4 * B * nh * L * L * hd)
     bwd_bound = bound(nbytes(q, k, v, bias, go) + 3 * nbytes(q), 10 * B * nh * L * L * hd)
-    print(f"B={B}: seed repeats and varies; rate 0.1: forward kernel {fwd_ms:.4f} ms, plain "
-          f"{fwd_plain:.4f} ms, scaled_dot_product_attention {lib_fwd} ms, bound "
-          f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); backward kernel {bwd_ms:.4f} ms, plain "
-          f"{bwd_plain:.4f} ms, scaled_dot_product_attention {lib_bwd} ms, bound "
-          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); rate 0: backward kernel {bwd0_ms:.4f} ms, "
-          f"plain {bwd0_plain:.4f} ms")
+    times = {}
+    for rate in (0.0, 0.1):
+        fwd = lambda: attention.attention_fwd_kernel(q, k, v, bias, seed, rate)
+        bwd = lambda: attention.attention_bwd_kernel(q, k, v, bias, go, seed, rate)
+        t = {"fwd": device_ms(fwd), "fwd_single": cuda_ms(fwd),
+             "fwd_plain": cuda_ms(lambda: attention.attention_plain(q, k, v, bias, seed, rate)),
+             "bwd": device_ms(bwd), "bwd_single": cuda_ms(bwd),
+             "bwd_plain": cuda_ms(
+                 lambda: attention.attention_bwd_plain(q, k, v, bias, go, seed, rate)),
+             "fwd_lib": library_ms(lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=rate),
+                                   timer=device_ms)}
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        try:
+            lib_out = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=rate)
+            t["bwd_lib"] = library_ms(lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), go, retain_graph=True), timer=device_ms)
+        except RuntimeError as e:
+            print(f"library call failed: {e}")
+            t["bwd_lib"] = None
+        del qg, kg, vg
+        _prof, kernels = profile_serve.device_profile(bwd, dev)
+        t["bwd_split"] = {part: sum(us for name, us in kernels.items() if f"{part}_kernel" in name)
+                          / profile_serve.PROFILED_CALLS / 1e3 for part in ("dq", "dkdv")}
+        times[rate] = t
+        print(f"B={B} rate {rate}: forward kernel {t['fwd']:.4f} ms queued ({t['fwd_single']:.4f} "
+              f"ms single call), plain {t['fwd_plain']:.4f} ms, scaled_dot_product_attention "
+              f"{t['fwd_lib']} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) = "
+              f"{fwd_bound[0] / t['fwd']:.1%}; backward kernel {t['bwd']:.4f} ms queued "
+              f"({t['bwd_single']:.4f} ms single call), plain {t['bwd_plain']:.4f} ms, "
+              f"scaled_dot_product_attention {t['bwd_lib']} ms, bound {bwd_bound[0]:.4f} ms "
+              f"({bwd_bound[1]}) = {bwd_bound[0] / t['bwd']:.1%}; by kernel (torch.profiler) "
+              f"dq {t['bwd_split']['dq']:.4f} ms, dk/dv {t['bwd_split']['dkdv']:.4f} ms")
+    print(f"B={B}: seed repeats and varies")
+    t = times[0.1]
     return {
-        "attention_fwd_dropout": {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain,
-                                  "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-                                  "library_ms": lib_fwd},
-        "attention_bwd": {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain,
+        "attention_fwd_dropout": {"max_abs_err": fwd_err, "ms": t["fwd"],
+                                  "plain_ms": t["fwd_plain"], "bound_ms": fwd_bound[0],
+                                  "bound_by": fwd_bound[1], "library_ms": t["fwd_lib"]},
+        "attention_bwd": {"max_abs_err": bwd_err, "ms": t["bwd"], "plain_ms": t["bwd_plain"],
                           "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-                          "library_ms": lib_bwd},
+                          "library_ms": t["bwd_lib"]},
     }
 
 
@@ -683,6 +757,12 @@ def phase_train_kernels():
     (the larger of the two) and the contexts' times."""
     import torch
 
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    print("\n".join(kernel_resources("attention_bwd_")))
+    lib = cuda_lib.library()
+    print(f"shared memory a block at L=256 hd=64: dq kernel {lib.dst_attention_bwd_smem(256, 64, 0)}"
+          f" bytes, dk/dv kernel {lib.dst_attention_bwd_smem(256, 64, 1)} bytes")
     ctx = _check_train_kernels(2 * TRAIN_BATCH)
     torch.cuda.empty_cache()
     qry = _check_train_kernels(TRAIN_BATCH)
@@ -1744,12 +1824,15 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     sweep = cuda_ms(lambda: mips_kernels.groupmax_kernel(qd, rows))
     bench.method = "groupmax"
     search = cuda_ms(lambda: bench._device_search(rows, q0, RETRIEVAL_K, n_valid))
-    _prof, kern = profile_serve.device_profile(lambda: mips_kernels.groupmax_kernel(qd, rows), dev)
+    lone = lambda: mips_kernels.groupmax_kernel(qd, rows)
+    _prof, kern = profile_serve.device_profile(lone, dev)
     prof_sweep = sum(us for key, us in kern.items() if "groupmax_kernel" in key)
+    events = profile_serve.port_kernel_ms(lone, dev)["MIPS sweep kernels"]
     print(f"groupmax over these rows, B={QUERY_BATCH}, CUDA events: sweep kernel {sweep:.4f} ms, one "
           f"device search {search:.4f} ms, the rest (selection, gather, rescore, soundness) "
           f"{search - sweep:.4f} ms = {(search - sweep) / search:.1%}; the profiler on the sweep "
-          f"kernel alone: {prof_sweep / profile_serve.PROFILED_CALLS / 1e3:.4f} ms per call")
+          f"kernel alone: {prof_sweep / profile_serve.PROFILED_CALLS / 1e3:.4f} ms per call, "
+          f"the reports' CUDA events around its launch {events:.4f} ms")
     for method in ("groupmax", "fused"):
         bench.method = method
         profile_serve.report(f"{method} search B={QUERY_BATCH} k={RETRIEVAL_K} over "

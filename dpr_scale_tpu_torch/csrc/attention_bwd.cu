@@ -14,79 +14,61 @@
 //     ds   = bf16((p * (dp - dsum)) * scale)
 //     dq   = ds . k,   dk = ds^T . q
 //
-// dq, dk, dv are bf16, every product accumulates in fp32 on the tensor cores
-// (wmma).  What bounds it on an H100: like the forward, small per-(sequence,
-// head) GEMMs, so latency and shared memory.  The TPU kernel holds a whole
-// (L, L) problem per grid step; a Hopper block has 227 KB, and blocks run in
-// no order, so the work is split in two deterministic passes with no
-// atomics:
+// dq, dk, dv are bf16; every product accumulates in fp32 on the tensor cores
+// (mma.sync m16n8k16).  What bounds it on an H100: five L x L x hd products
+// on 8 (L, hd) tensors per head, below the bf16 ridge at BERT shapes, so
+// device-memory bytes if each input is read once.  Design: the register
+// tiles of attention_tiles.cuh in two deterministic kernels, no atomics, so
+// every call gives the same bits:
 //
-//   (a) dq pass, one block per (query tile, head, sequence): the (TQ, L)
-//       fp32 P row block, dp, dsum and ds stay in shared memory; it writes
-//       dq and, per query row, the softmax max and sum and dsum (fp32
-//       (B, nh, L) each).  TQ is 32, or 16 when 32 rows would not fit
-//       (L > 256 at hd = 64), so L = 512 fits.
-//   (b) dk/dv pass, one block per (32-key tile, head, sequence): it walks the
-//       query tiles of 64 rows, recomputes the P^T tile from those
-//       statistics, regenerates the keep bits by counter and accumulates dk
-//       and dv in fp32 in shared memory.
+//   (a) dq + statistics, one block per (64 query rows, head, sequence), each
+//       warp 16 rows, K and V streaming in 64-key tiles (cp.async, two
+//       buffers).  Sweep 1: S = Q K^T and dP = G V^T give the rows' max m,
+//       sum l and the dsum numerator sum_j dp e^(s - m), both rescaled
+//       online as m grows; the dropout keep bits it hashes wait in shared
+//       memory, a word per thread and key tile.  Sweep 2 recomputes S and dP
+//       sixteen keys at a time, forms ds in registers and accumulates
+//       dq += ds K with ds as the A fragment.  Writes dq and (m, l, dsum) as
+//       fp32 (B, nh, L) each.
+//   (b) dk / dv, one block per (64 key rows, head, sequence), each warp 16
+//       keys with their K and V fragments in registers (hd <= 64), Q and G
+//       streaming in 64-query tiles with their rows' (m, l, dsum) and
+//       dropout keys.  It recomputes the transposed tiles S^T = K Q^T and
+//       dP^T = V G^T, and accumulates dv += bf16(pd)^T G and dk += ds^T Q in
+//       registers.
+//
+// No pass holds a (rows, L) tile, so L = 512 runs with the same tiles.  As
+// in the forward, p = expf(s - m) / l with s's product and sum rounded
+// apart, the plain version's arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
 #include "dropout_bits.cuh"
 
-using namespace nvcuda;
 using namespace dst_attn;
 
 namespace {
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
+template <int HDT>
+__host__ __device__ inline size_t dq_smem_bytes(int L) {
+  // Q, G (Q later dQ), two K and two V tiles, the key bias, each thread's
+  // dropout keep bits (a word per key tile)
+  return (size_t)6 * TILE * (HDT + PAD) * sizeof(bf16) + (size_t)n_tiles(L) * TILE * sizeof(float) +
+         (size_t)n_tiles(L) * THREADS * sizeof(uint32_t);
+}
 
-// C (rows, cols) = A (rows, depth) . B^T with A, B row-major bf16 tiles;
-// every 16 x 16 output tile is one warp's, at the given fp32 stride
-__device__ inline void gemm_abt(float* C, int ldc, const bf16* A, int lda,
-                                const bf16* Bm, int ldb, int rows, int cols, int depth,
-                                int warp) {
-  const int n_ct = cols / 16;
-  for (int t = warp; t < (rows / 16) * n_ct; t += WARPS) {
-    const int rt = t / n_ct, ct = t % n_ct;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < depth / 16; ++kk) {
-      ARow fa;
-      BCol fb;
-      wmma::load_matrix_sync(fa, A + rt * 16 * lda + kk * 16, lda);
-      wmma::load_matrix_sync(fb, Bm + ct * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(C + rt * 16 * ldc + ct * 16, acc, ldc, wmma::mem_row_major);
-  }
+template <int HDT>
+__host__ __device__ inline size_t dkdv_smem_bytes() {
+  // K, V (later dK, dV), two Q and two G tiles, two tiles' row statistics
+  return (size_t)6 * TILE * (HDT + PAD) * sizeof(bf16) + (size_t)2 * 5 * TILE * sizeof(float);
 }
 
 // ---------------------------------------------------------------- pass (a)
 
-__host__ __device__ inline int ld_region(int Lp, int hd) {
-  return (Lp > hd ? Lp : hd) + PAD_F;
-}
-
-__host__ __device__ inline size_t dq_smem_bytes(int tq, int Lp, int hd) {
-  const size_t ldh = hd + PAD_H;
-  return 2 * (size_t)tq * ldh * 2               // Q, G
-         + (size_t)Lp * ldh * 2                 // K / V / K
-         + (size_t)tq * ld_region(Lp, hd) * 4   // S -> P; later dQ
-         + (size_t)tq * (Lp + PAD_F) * 4        // g . v^T -> dp
-         + (size_t)tq * (Lp + PAD_H) * 2;       // ds (bf16)
-}
-
-template <int TQ, bool DROP>
+template <int HDT, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -94,282 +76,324 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float* __restrict__ row_max, float* __restrict__ row_sum,
                         float* __restrict__ row_dsum, int L, int hd, float scale,
                         uint32_t seed, uint32_t thr, float inv_keep) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Lp = round16(L);
-  const int ldh = hd + PAD_H, ldr = ld_region(Lp, hd), ldd = Lp + PAD_F;
-  const int ldb = Lp + PAD_H, ldo = hd + PAD_F;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);               // (TQ, ldh)
-  bf16* sG = sQ + TQ * ldh;                               // (TQ, ldh)
-  bf16* sKV = sG + TQ * ldh;                              // (Lp, ldh)
-  float* sS = reinterpret_cast<float*>(sKV + Lp * ldh);   // (TQ, ldr): S, P; dQ (TQ, ldo)
-  float* sD = sS + TQ * ldr;                              // (TQ, ldd)
-  bf16* sDS = reinterpret_cast<bf16*>(sD + TQ * ldd);     // (TQ, ldb)
+  constexpr int LD = HDT + PAD, KT = HDT / 16, NT = HDT / 8, STEP = TILE * LD;
+  unsigned char* smem = dynamic_smem();
+  bf16* sQ = reinterpret_cast<bf16*>(smem);                // (TILE, LD); dQ on the way out
+  bf16* sG = sQ + STEP;                                    // (TILE, LD)
+  bf16* sK = sG + STEP;                                    // 2 x (TILE, LD)
+  bf16* sV = sK + 2 * STEP;                                // 2 x (TILE, LD)
+  float* sBias = reinterpret_cast<float*>(sV + 2 * STEP);  // (n_tiles * TILE)
+  const int nt = n_tiles(L);
+  // keep bits of the thread's 32 entries of key tile t (bit 16 h + 2 n + w
+  // for row gid + 8 h, key t TILE + 8 n + 2 tig + w): hashed in sweep 1,
+  // read back in sweep 2; only the thread itself touches its words
+  uint32_t* sKeep = reinterpret_cast<uint32_t*>(sBias + nt * TILE) + threadIdx.x;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
-  const int bh = b * gridDim.y + h;
-  const size_t head = (size_t)bh * (size_t)L * hd;
-  const float* bb = bias + (size_t)b * L;
+  const int b = blockIdx.z, q0 = blockIdx.x * TILE;
+  const int bh = b * gridDim.y + blockIdx.y;
+  const size_t head = (size_t)bh * L * hd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q_rows = min(TQ, L - q0);
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row0 = warp * 16;
 
-  load_rows(sQ, q + head + (size_t)q0 * hd, q_rows, TQ, hd, ldh);
-  load_rows(sG, g + head + (size_t)q0 * hd, q_rows, TQ, hd, ldh);
-  load_rows(sKV, k + head, L, Lp, hd, ldh);
-  __syncthreads();
+  for (int c = threadIdx.x; c < nt * TILE; c += THREADS)
+    sBias[c] = c < L ? bias[(size_t)b * L + c] : 0.0f;
+  load_tile(sQ, LD, q + head, q0, L, hd);
+  load_tile(sG, LD, g + head, q0, L, hd);
+  load_tile(sK, LD, k + head, 0, L, hd);
+  load_tile(sV, LD, v + head, 0, L, hd);
+  cp_async_commit();
 
-  gemm_abt(sS, ldr, sQ, ldh, sKV, ldh, TQ, Lp, hd, warp);  // S = Q K^T
-  __syncthreads();
-
-  load_rows(sKV, v + head, L, Lp, hd, ldh);  // V replaces K
-  // fp32 softmax in place, one warp per row; the statistics go to (B, nh, L)
-  for (int r = warp; r < TQ; r += WARPS) {
-    float* srow = sS + r * ldr;
-    float m = -INFINITY;
-    for (int c = lane; c < L; c += 32) {
-      const float s = srow[c] * scale + bb[c];
-      srow[c] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int c = lane; c < L; c += 32) {
-      const float e = expf(srow[c] - m);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < Lp; c += 32) srow[c] = c < L ? srow[c] / sum : 0.0f;
-    if (lane == 0 && r < q_rows) {
-      row_max[(size_t)bh * L + q0 + r] = m;
-      row_sum[(size_t)bh * L + q0 + r] = sum;
-    }
+  uint32_t rk[2] = {0u, 0u};  // dropout keys of the thread's rows gid, gid + 8
+  if (DROP) {
+    rk[0] = dst_row_key(seed, bh, q0 + row0 + gid);
+    rk[1] = dst_row_key(seed, bh, q0 + row0 + gid + 8);
   }
-  __syncthreads();
+  uint32_t qa[KT][4], ga[KT][4];
+  // m, l and dn = sum_j dp e^(s - m), which ends as dsum = dn / l
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, dn[2] = {0.0f, 0.0f};
 
-  gemm_abt(sD, ldd, sG, ldh, sKV, ldh, TQ, Lp, hd, warp);  // g . v^T
-  __syncthreads();
-
-  load_rows(sKV, k + head, L, Lp, hd, ldh);  // K again, for dq = ds . k
-  for (int r = warp; r < TQ; r += WARPS) {
-    const float* prow = sS + r * ldr;
-    float* drow = sD + r * ldd;
-    float dsum = 0.0f;
-    if (DROP) {
-      const uint32_t rk = dst_row_key(seed, bh, q0 + r);
-      for (int c = lane; c < L; c += 32) {
-        const float dp = dst_bits(rk, c) >= thr ? drow[c] * inv_keep : 0.0f;
-        drow[c] = dp;
-        dsum += dp * prow[c];
+  // sweep 1 (items 0 .. nt - 1): the statistics, rescaled online
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    const int next = (t + 1) % nt;  // the last item prefetches sweep 2's first
+    load_tile(sK + (buf ^ 1) * STEP, LD, k + head, next * TILE, L, hd);
+    load_tile(sV + (buf ^ 1) * STEP, LD, v + head, next * TILE, L, hd);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+      load_a<HDT>(qa, sQ, LD, row0, hd, lane);
+      load_a<HDT>(ga, sG, LD, row0, hd, lane);
+    }
+    float s[8][4], d[8][4];
+    scores<HDT, 8>(s, qa, sK + buf * STEP, LD, 0, hd, lane);
+    scores<HDT, 8>(d, ga, sV + buf * STEP, LD, 0, hd, lane);
+    scale_bias_mask(s, sBias, t * TILE, L, scale, tig);
+    float mx[2] = {-INFINITY, -INFINITY};
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (DROP) {
+          const int col = t * TILE + n * 8 + 2 * tig + (r & 1);
+          const bool keep = dst_bits(rk[r >> 1], col) >= thr;
+          d[n][r] = keep ? d[n][r] * inv_keep : 0.0f;
+          bits |= (uint32_t)keep << ((r >> 1) * 16 + 2 * n + (r & 1));
+        }
+        mx[r >> 1] = fmaxf(mx[r >> 1], s[n][r]);
       }
-    } else {
-      for (int c = lane; c < L; c += 32) dsum += drow[c] * prow[c];
+    if (DROP) sKeep[t * THREADS] = bits;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      float sum = 0.0f, num = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 2 * h; r < 2 * h + 2; ++r) {
+          const float e = expf(s[n][r] - m_new);  // 0 at masked keys
+          sum += e;
+          num += d[n][r] * e;
+        }
+      const float alpha = expf(m[h] - m_new);
+      l[h] = l[h] * alpha + quad_sum(sum);
+      dn[h] = dn[h] * alpha + quad_sum(num);
+      m[h] = m_new;
     }
-    dsum = warp_sum(dsum);
-    bf16* dsrow = sDS + r * ldb;
-    for (int c = lane; c < Lp; c += 32)
-      dsrow[c] = __float2bfloat16(c < L ? (prow[c] * (drow[c] - dsum)) * scale : 0.0f);
-    if (lane == 0 && r < q_rows) row_dsum[(size_t)bh * L + q0 + r] = dsum;
+    __syncthreads();
   }
-  __syncthreads();
+  const float dsum[2] = {dn[0] / l[0], dn[1] / l[1]};
+  const float rl[2] = {1.0f / l[0], 1.0f / l[1]};
 
-  // dQ = dS K: K row-major (Lp, hd); dQ reuses the S region (sized for it)
-  float* sO = sS;
-  const int n_ht = hd / 16;
-  for (int t = warp; t < (TQ / 16) * n_ht; t += WARPS) {
-    const int rt = t / n_ht, nt = t % n_ht;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < Lp / 16; ++kk) {
-      ARow fa;
-      BRow fb;
-      wmma::load_matrix_sync(fa, sDS + rt * 16 * ldb + kk * 16, ldb);
-      wmma::load_matrix_sync(fb, sKV + kk * 16 * ldh + nt * 16, ldh);
-      wmma::mma_sync(acc, fa, fb, acc);
+  // sweep 2 (items nt .. 2 nt - 1): ds = bf16((p (dp - dsum)) scale) in
+  // registers, dq += ds K sixteen keys at a time
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    const int buf = (nt + t) & 1;
+    if (t + 1 < nt) {
+      load_tile(sK + (buf ^ 1) * STEP, LD, k + head, (t + 1) * TILE, L, hd);
+      load_tile(sV + (buf ^ 1) * STEP, LD, v + head, (t + 1) * TILE, L, hd);
     }
-    wmma::store_matrix_sync(sO + rt * 16 * ldo + nt * 16, acc, ldo, wmma::mem_row_major);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t bits = DROP ? sKeep[t * THREADS] : 0u;
+#pragma unroll
+    for (int kc = 0; kc < TILE; kc += 16) {
+      float s[2][4], d[2][4];
+      scores<HDT, 2>(s, qa, sK + buf * STEP, LD, kc, hd, lane);
+      scores<HDT, 2>(d, ga, sV + buf * STEP, LD, kc, hd, lane);
+      scale_bias_mask(s, sBias, t * TILE + kc, L, scale, tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int h = r >> 1;
+          const float p = div_by(expf(s[n][r] - m[h]), l[h], rl[h]);  // 0 at masked keys
+          float dp = d[n][r];
+          if (DROP) dp = (bits >> (h * 16 + 2 * (kc / 8 + n) + (r & 1))) & 1u ? dp * inv_keep : 0.0f;
+          s[n][r] = (p * (dp - dsum[h])) * scale;
+        }
+      uint32_t dsa[4];
+      a_fragment(dsa, s[0], s[1]);
+      accumulate<HDT>(acc, dsa, sK + buf * STEP, LD, kc, hd, lane);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
-  bf16* o = dq + head + (size_t)q0 * hd;
-  for (int i = threadIdx.x; i < q_rows * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    o[(size_t)r * hd + c] = __float2bfloat16(sO[r * ldo + c]);
+  store_rows<HDT>(dq + head, q0 + row0, L, hd, sQ + row0 * LD, LD, acc, lane);
+  if (tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + row0 + gid + 8 * h;
+      if (row < L) {
+        row_max[(size_t)bh * L + row] = m[h];
+        row_sum[(size_t)bh * L + row] = l[h];
+        row_dsum[(size_t)bh * L + row] = dsum[h];
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------- pass (b)
 
-constexpr int TK = 32;   // key rows per block
-constexpr int TQB = 64;  // query rows per step of the block's loop
-
-__host__ __device__ inline size_t dkdv_smem_bytes(int hd) {
-  const size_t ldh = hd + PAD_H;
-  return 2 * (size_t)TK * ldh * 2               // K, V
-         + 2 * (size_t)TQB * ldh * 2            // Q, G
-         + 2 * (size_t)TQB * (TK + PAD_F) * 4   // S, g . v^T
-         + 2 * (size_t)TQB * (TK + PAD_H) * 2   // pd, ds (bf16)
-         + 2 * (size_t)TK * (hd + PAD_F) * 4    // dK, dV accumulators
-         + 4 * (size_t)TQB * 4;                 // max, sum, dsum, row keys
+// the row statistics of query rows [q0, q0 + TILE) into st (m, l, 1 / l,
+// dsum, dropout key; TILE each); rows >= L get m = +inf, so their p is 0
+template <bool DROP>
+__device__ inline void load_stats(float* st, const float* row_max, const float* row_sum,
+                                  const float* row_dsum, int bh, int q0, int L, uint32_t seed) {
+  for (int r = threadIdx.x; r < TILE; r += THREADS) {
+    const int i = q0 + r;
+    const bool ok = i < L;
+    const size_t at = (size_t)bh * L + i;
+    st[r] = ok ? row_max[at] : INFINITY;
+    const float l = ok ? row_sum[at] : 1.0f;
+    st[TILE + r] = l;
+    st[2 * TILE + r] = 1.0f / l;
+    st[3 * TILE + r] = ok ? row_dsum[at] : 0.0f;
+    reinterpret_cast<uint32_t*>(st)[4 * TILE + r] = DROP ? dst_row_key(seed, bh, i) : 0u;
+  }
 }
 
-template <bool DROP>
+template <int HDT, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const float* __restrict__ bias,
                           const bf16* __restrict__ g, const float* __restrict__ row_max,
                           const float* __restrict__ row_sum,
                           const float* __restrict__ row_dsum, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int L, int hd, float scale,
-                          uint32_t seed, uint32_t thr, float inv_keep) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = hd + PAD_H, ldt = TK + PAD_F, ldtb = TK + PAD_H, ldo = hd + PAD_F;
-  bf16* sK = reinterpret_cast<bf16*>(smem);             // (TK, ldh)
-  bf16* sV = sK + TK * ldh;                             // (TK, ldh)
-  bf16* sQ = sV + TK * ldh;                             // (TQB, ldh)
-  bf16* sG = sQ + TQB * ldh;                            // (TQB, ldh)
-  float* sS = reinterpret_cast<float*>(sG + TQB * ldh); // (TQB, ldt)
-  float* sDP = sS + TQB * ldt;                          // (TQB, ldt)
-  bf16* sPD = reinterpret_cast<bf16*>(sDP + TQB * ldt); // (TQB, ldtb)
-  bf16* sDS = sPD + TQB * ldtb;                         // (TQB, ldtb)
-  float* sdK = reinterpret_cast<float*>(sDS + TQB * ldtb);  // (TK, ldo)
-  float* sdV = sdK + TK * ldo;                          // (TK, ldo)
-  float* sM = sdV + TK * ldo;                           // (TQB)
-  float* sL = sM + TQB;
-  float* sDsum = sL + TQB;
-  uint32_t* sRK = reinterpret_cast<uint32_t*>(sDsum + TQB);
+                          bf16* __restrict__ dv, int L, int hd, float scale, uint32_t seed,
+                          uint32_t thr, float inv_keep) {
+  constexpr int LD = HDT + PAD, KT = HDT / 16, NT = HDT / 8, STEP = TILE * LD;
+  // the warp's K and V fragments stay in registers where they leave room
+  // for the two accumulators; at hd = 128 they are reloaded per chunk
+  constexpr bool KV_REGS = HDT <= 64;
+  unsigned char* smem = dynamic_smem();
+  bf16* sK = reinterpret_cast<bf16*>(smem);                // (TILE, LD); dK on the way out
+  bf16* sV = sK + STEP;                                    // (TILE, LD); dV on the way out
+  bf16* sQ = sV + STEP;                                    // 2 x (TILE, LD)
+  bf16* sG = sQ + 2 * STEP;                                // 2 x (TILE, LD)
+  float* sStat = reinterpret_cast<float*>(sG + 2 * STEP);  // 2 x (5, TILE)
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TK;
-  const int bh = b * gridDim.y + h;
-  const size_t head = (size_t)bh * (size_t)L * hd;
-  const float* bb = bias + (size_t)b * L;
-  const int warp = threadIdx.x / 32;
-  const int k_rows = min(TK, L - k0);
+  const int b = blockIdx.z, k0 = blockIdx.x * TILE;
+  const int bh = b * gridDim.y + blockIdx.y;
+  const size_t head = (size_t)bh * L * hd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row0 = warp * 16;  // the warp's keys in the block's tile
+  const int nt = n_tiles(L);
 
-  load_rows(sK, k + head + (size_t)k0 * hd, k_rows, TK, hd, ldh);
-  load_rows(sV, v + head + (size_t)k0 * hd, k_rows, TK, hd, ldh);
-  for (int i = threadIdx.x; i < 2 * TK * ldo; i += THREADS) sdK[i] = 0.0f;  // dK, dV
+  load_tile(sK, LD, k + head, k0, L, hd);
+  load_tile(sV, LD, v + head, k0, L, hd);
+  load_tile(sQ, LD, q + head, 0, L, hd);
+  load_tile(sG, LD, g + head, 0, L, hd);
+  cp_async_commit();
+  load_stats<DROP>(sStat, row_max, row_sum, row_dsum, bh, 0, L, seed);
 
-  const int n_ot = (TK / 16) * (hd / 16);  // output tiles of dK (and of dV)
-  for (int q0 = 0; q0 < L; q0 += TQB) {
-    const int q_rows = min(TQB, L - q0);
-    load_rows(sQ, q + head + (size_t)q0 * hd, q_rows, TQB, hd, ldh);
-    load_rows(sG, g + head + (size_t)q0 * hd, q_rows, TQB, hd, ldh);
-    for (int r = threadIdx.x; r < TQB; r += THREADS) {
-      const bool ok = r < q_rows;
-      const size_t at = (size_t)bh * L + q0 + r;
-      sM[r] = ok ? row_max[at] : 0.0f;
-      sL[r] = ok ? row_sum[at] : 1.0f;
-      sDsum[r] = ok ? row_dsum[at] : 0.0f;
-      if (DROP) sRK[r] = dst_row_key(seed, bh, q0 + r);
+  // the thread's keys are j = k0 + row0 + gid (+ 8): their bias and index
+  int key[2];
+  float kb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    key[h] = k0 + row0 + gid + 8 * h;
+    kb[h] = key[h] < L ? bias[(size_t)b * L + key[h]] : 0.0f;
+  }
+  uint32_t ka[KT][4], va[KT][4];
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dka[n][r] = dva[n][r] = 0.0f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nt) {
+      load_tile(sQ + (buf ^ 1) * STEP, LD, q + head, (t + 1) * TILE, L, hd);
+      load_tile(sG + (buf ^ 1) * STEP, LD, g + head, (t + 1) * TILE, L, hd);
     }
+    cp_async_commit();
+    if (t + 1 < nt)
+      load_stats<DROP>(sStat + (buf ^ 1) * 5 * TILE, row_max, row_sum, row_dsum, bh,
+                       (t + 1) * TILE, L, seed);
+    cp_async_wait<1>();
     __syncthreads();
-
-    // S = Q K^T and g . v^T for this (query tile, key tile)
-    gemm_abt(sS, ldt, sQ, ldh, sK, ldh, TQB, TK, hd, warp);
-    gemm_abt(sDP, ldt, sG, ldh, sV, ldh, TQB, TK, hd, warp);
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < TQB * TK; i += THREADS) {
-      const int r = i / TK, c = i % TK, j = k0 + c;
-      float pd = 0.0f, ds = 0.0f;
-      if (r < q_rows && j < L) {
-        const float p = expf(sS[r * ldt + c] * scale + bb[j] - sM[r]) / sL[r];
-        float dp = sDP[r * ldt + c];
-        pd = p;
-        if (DROP) {
-          const bool keep = dst_bits(sRK[r], j) >= thr;
-          pd = keep ? p * inv_keep : 0.0f;
-          dp = keep ? dp * inv_keep : 0.0f;
+    const bf16* tQ = sQ + buf * STEP;
+    const bf16* tG = sG + buf * STEP;
+    const float* st = sStat + buf * 5 * TILE;
+#pragma unroll
+    for (int qc = 0; qc < TILE; qc += 16) {
+      if (KV_REGS ? t == 0 && qc == 0 : true) {
+        load_a<HDT>(ka, sK, LD, row0, hd, lane);
+        load_a<HDT>(va, sV, LD, row0, hd, lane);
+      }
+      // S^T and dP^T: the warp's 16 keys (rows) x 16 queries (columns)
+      float s[2][4], d[2][4];
+      scores<HDT, 2>(s, ka, tQ, LD, qc, hd, lane);
+      scores<HDT, 2>(d, va, tG, LD, qc, hd, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = qc + n * 8 + 2 * tig;  // the thread's queries c, c + 1 of the tile
+        const float2 qm = *reinterpret_cast<const float2*>(st + c);
+        const float2 ql = *reinterpret_cast<const float2*>(st + TILE + c);
+        const float2 qr = *reinterpret_cast<const float2*>(st + 2 * TILE + c);
+        const float2 qd = *reinterpret_cast<const float2*>(st + 3 * TILE + c);
+        const uint2 qk = *reinterpret_cast<const uint2*>(st + 4 * TILE + c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int h = r >> 1, w = r & 1;
+          const float x = __fadd_rn(__fmul_rn(s[n][r], scale), kb[h]);
+          const float p = div_by(expf(x - (w ? qm.y : qm.x)), w ? ql.y : ql.x, w ? qr.y : qr.x);
+          float pd = p, dp = d[n][r];
+          if (DROP) {
+            const bool keep = dst_bits(w ? qk.y : qk.x, key[h]) >= thr;
+            pd = keep ? p * inv_keep : 0.0f;
+            dp = keep ? dp * inv_keep : 0.0f;
+          }
+          s[n][r] = pd;
+          d[n][r] = (p * (dp - (w ? qd.y : qd.x))) * scale;
         }
-        ds = (p * (dp - sDsum[r])) * scale;
       }
-      sPD[r * ldtb + c] = __float2bfloat16(pd);
-      sDS[r * ldtb + c] = __float2bfloat16(ds);
-    }
-    __syncthreads();
-
-    // dV += pd^T g and dK += ds^T q; pd, ds (TQB, TK) row-major are their
-    // transposes column-major; each accumulator tile stays with one warp
-    for (int t = warp; t < 2 * n_ot; t += WARPS) {
-      const bool is_v = t < n_ot;
-      const int u = is_v ? t : t - n_ot;
-      const int rt = u / (hd / 16), nt = u % (hd / 16);
-      float* C = (is_v ? sdV : sdK) + rt * 16 * ldo + nt * 16;
-      const bf16* A = is_v ? sPD : sDS;
-      const bf16* Bm = is_v ? sG : sQ;
-      Acc acc;
-      wmma::load_matrix_sync(acc, C, ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < TQB / 16; ++kk) {
-        ACol fa;
-        BRow fb;
-        wmma::load_matrix_sync(fa, A + kk * 16 * ldtb + rt * 16, ldtb);
-        wmma::load_matrix_sync(fb, Bm + kk * 16 * ldh + nt * 16, ldh);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(C, acc, ldo, wmma::mem_row_major);
+      uint32_t pa[4], dsa[4];
+      a_fragment(pa, s[0], s[1]);
+      a_fragment(dsa, d[0], d[1]);
+      accumulate<HDT>(dva, pa, tG, LD, qc, hd, lane);
+      accumulate<HDT>(dka, dsa, tQ, LD, qc, hd, lane);
     }
     __syncthreads();
   }
 
-  bf16* odk = dk + head + (size_t)k0 * hd;
-  bf16* odv = dv + head + (size_t)k0 * hd;
-  for (int i = threadIdx.x; i < k_rows * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    odk[(size_t)r * hd + c] = __float2bfloat16(sdK[r * ldo + c]);
-    odv[(size_t)r * hd + c] = __float2bfloat16(sdV[r * ldo + c]);
-  }
+  // the warp read only its own rows of sK and sV
+  store_rows<HDT>(dk + head, k0 + row0, L, hd, sK + row0 * LD, LD, dka, lane);
+  store_rows<HDT>(dv + head, k0 + row0, L, hd, sV + row0 * LD, LD, dva, lane);
 }
 
-template <int TQ, bool DROP>
+template <int HDT, bool DROP>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
-                       const void* g, void* dq, void* dk, void* dv, void* stats, int B,
-                       int nh, int L, int hd, uint32_t seed, uint32_t thr,
-                       float inv_keep, cudaStream_t stream) {
+                       const void* g, void* dq, void* dk, void* dv, void* stats, int B, int nh,
+                       int L, int hd, uint32_t seed, uint32_t thr, float inv_keep,
+                       cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)hd));
   float* row_max = (float*)stats;
   float* row_sum = row_max + (size_t)B * nh * L;
   float* row_dsum = row_sum + (size_t)B * nh * L;
-
-  const size_t smem_a = dq_smem_bytes(TQ, round16(L), hd);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<TQ, DROP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_a);
+  const dim3 grid(n_tiles(L), nh, B);
+  cudaError_t err = launch(attention_bwd_dq_kernel<HDT, DROP>, grid, THREADS,
+                           dq_smem_bytes<HDT>(L), stream, (const bf16*)q, (const bf16*)k,
+                           (const bf16*)v, (const float*)bias, (const bf16*)g, (bf16*)dq,
+                           row_max, row_sum, row_dsum, L, hd, scale, seed, thr, inv_keep);
   if (err != cudaSuccess) return err;
-  attention_bwd_dq_kernel<TQ, DROP><<<dim3((L + TQ - 1) / TQ, nh, B), THREADS, smem_a, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias, (const bf16*)g,
-      (bf16*)dq, row_max, row_sum, row_dsum, L, hd, scale, seed, thr, inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t smem_b = dkdv_smem_bytes(hd);
-  err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<DROP><<<dim3((L + TK - 1) / TK, nh, B), THREADS, smem_b, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias, (const bf16*)g,
-      row_max, row_sum, row_dsum, (bf16*)dk, (bf16*)dv, L, hd, scale, seed, thr, inv_keep);
-  return cudaGetLastError();
+  return launch(attention_bwd_dkdv_kernel<HDT, DROP>, grid, THREADS, dkdv_smem_bytes<HDT>(),
+                stream, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
+                (const bf16*)g, (const float*)row_max, (const float*)row_sum,
+                (const float*)row_dsum, (bf16*)dk, (bf16*)dv, L, hd, scale, seed, thr,
+                inv_keep);
 }
 
+// the narrowest register width that holds hd
 template <bool DROP>
-cudaError_t dispatch_tq(const void* q, const void* k, const void* v, const void* bias,
-                        const void* g, void* dq, void* dk, void* dv, void* stats, int B,
-                        int nh, int L, int hd, uint32_t seed, uint32_t thr,
-                        float inv_keep, cudaStream_t s) {
-  if (dq_smem_bytes(32, round16(L), hd) <= MAX_SMEM)
-    return launch_bwd<32, DROP>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, seed,
-                                thr, inv_keep, s);
-  if (dq_smem_bytes(16, round16(L), hd) <= MAX_SMEM)
-    return launch_bwd<16, DROP>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, seed,
-                                thr, inv_keep, s);
-  return cudaErrorInvalidConfiguration;
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* bias,
+                        const void* g, void* dq, void* dk, void* dv, void* stats, int B, int nh,
+                        int L, int hd, uint32_t seed, uint32_t thr, float inv_keep,
+                        cudaStream_t s) {
+  if (hd <= 32)
+    return launch_bwd<32, DROP>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, seed, thr,
+                                inv_keep, s);
+  if (hd <= 64)
+    return launch_bwd<64, DROP>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, seed, thr,
+                                inv_keep, s);
+  return launch_bwd<128, DROP>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, seed, thr,
+                               inv_keep, s);
 }
 
 }  // namespace
 
 // dq, dk, dv (B, nh, L, hd) bf16 from q, k, v, bias, g; stats is fp32
 // scratch of 3 * B * nh * L floats (softmax max, sum and dsum per query row).
-// Returns a cudaError_t code: 0 when both passes' launches were accepted.
+// Returns a cudaError_t code: 0 when both kernels' launches were accepted.
 extern "C" int dst_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* g, void* dq, void* dk,
                                  void* dv, void* stats, int B, int nh, int L, int hd,
@@ -379,8 +403,19 @@ extern "C" int dst_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(thr == 0u
-                   ? dispatch_tq<false>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd,
-                                        0u, 0u, 1.0f, s)
-                   : dispatch_tq<true>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd,
-                                       seed, thr, inv_keep, s));
+                   ? dispatch_hd<false>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, 0u,
+                                        0u, 1.0f, s)
+                   : dispatch_hd<true>(q, k, v, bias, g, dq, dk, dv, stats, B, nh, L, hd, seed,
+                                       thr, inv_keep, s));
+}
+
+// bytes of dynamic shared memory a block of the dq kernel (pass 0) or of the
+// dk / dv kernel (pass 1) takes at (L, hd), for reports
+extern "C" long long dst_attention_bwd_smem(int L, int hd, int pass) {
+  if (pass == 0)
+    return (long long)(hd <= 32   ? dq_smem_bytes<32>(L)
+                       : hd <= 64 ? dq_smem_bytes<64>(L)
+                                  : dq_smem_bytes<128>(L));
+  return (long long)(hd <= 32 ? dkdv_smem_bytes<32>() : hd <= 64 ? dkdv_smem_bytes<64>()
+                                                                 : dkdv_smem_bytes<128>());
 }

@@ -7,178 +7,181 @@
 //     p   = keep ? p / (1 - rate) : 0                        (rate > 0 only)
 //     out = bf16( bf16(p) . v )
 //
-// with q . k^T accumulated in fp32, an fp32 softmax, the dropout applied to
-// the fp32 probabilities and the result rounded to bf16 before the P . V
-// product, as the TPU kernel does.  Shapes: q, k, v, out (B, nh, L, hd) bf16,
-// contiguous; bias (B, 1, L) fp32 additive key mask (0 keep / -1e9 drop).
-// The keep bits are counter-based (dropout_bits.cuh), so the backward
-// (attention_bwd.cu) regenerates them in its own tiling.
+// with q . k^T accumulated in fp32, an fp32 softmax normalised (e / sum)
+// before the dropout and before the bf16 rounding that feeds P . V, as the
+// TPU kernel does.  Shapes: q, k, v, out (B, nh, L, hd) bf16, contiguous;
+// bias (B, 1, L) fp32 additive key mask (0 keep / -1e9 drop).  The keep bits
+// are counter-based (dropout_bits.cuh), so the backward (attention_bwd.cu)
+// regenerates them in its own tiling.
 //
-// What bounds it on an H100: at BERT shapes (L <= 512, hd = 64) each
-// (sequence, head) is two small GEMMs (L x hd x L), so the kernel is bound by
-// latency and shared memory, not by the tensor cores.  Design: one block per
-// (32-query tile, head, sequence) keeps the whole (32, L) fp32 score tile and
-// its bf16 probabilities in shared memory, so nothing bigger than (L, hd)
-// touches device memory; K and then V share one shared-memory buffer, which
-// keeps L = 512 inside the 227 KB a block may use (with 16-query tiles when
-// 32 rows would not fit, as at L = 512, hd = 128).  Both products run on the
-// tensor cores through wmma (bf16 in, fp32 accumulate).  No TMA/wgmma yet.
-// At rate 0 the dropout branch is compiled out (DROP = false).
+// What bounds it on an H100: at BERT shapes (L <= 512, hd = 64) the work is
+// 4 L^2 hd operations on 8 L hd bytes per head, L / 2 operations a byte,
+// below the card's bf16 ridge (~295): device-memory bytes, if q, k, v and
+// the bias are read once and out written once.  Design (attention_tiles.cuh):
+// one block of 4 warps per (64 query rows, head, sequence), each warp 16
+// rows with their Q fragments in registers.  K and V stream through shared
+// memory in 64-key tiles, two buffers deep (cp.async), so K and V are read
+// once per 64 query rows.  Two sweeps over the key tiles keep the TPU's
+// rounding point without holding a score row: the first computes S = Q K^T
+// (mma.sync) and the rows' max and sum online; the second recomputes S,
+// normalises, drops and rounds p in registers, and feeds the bf16 P
+// fragments straight into O += P V.  O stays in registers until one 16-byte
+// store per vector.  Key columns >= L inside a tile get p = 0 by a mask.
+// The arithmetic of p is the plain version's (expf, the quotient by the sum
+// correctly rounded), so p rounds to bf16 where the plain version's does;
+// their fp32 bits differ only through the order of the sums.  At rate 0 the
+// dropout code is compiled out (DROP = false).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
 #include "dropout_bits.cuh"
 
-using namespace nvcuda;
 using namespace dst_attn;
 
 namespace {
 
-// fp32 floats per row of the score region, which holds S (TQ, Lp + PAD_F)
-// and later O (TQ, hd + PAD_F): wide enough for both, whichever is larger
-__host__ __device__ inline int ld_region(int Lp, int hd) {
-  return (Lp > hd ? Lp : hd) + PAD_F;
+template <int HDT>
+__host__ __device__ inline size_t smem_bytes(int L) {
+  // Q (later O), two K and two V tiles, the key bias
+  return (size_t)5 * TILE * (HDT + PAD) * sizeof(bf16) + (size_t)n_tiles(L) * TILE * sizeof(float);
 }
 
-__host__ __device__ inline size_t smem_bytes(int tq, int Lp, int hd) {
-  const size_t ldh = hd + PAD_H, ldr = ld_region(Lp, hd), ldp = Lp + PAD_H;
-  return tq * ldh * 2 + (size_t)Lp * ldh * 2 + tq * ldr * 4 + tq * ldp * 2;
-}
-
-// TQ query rows per block
-template <int TQ, bool DROP>
+template <int HDT, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
-                     bf16* __restrict__ out, int L, int hd, float scale,
-                     uint32_t seed, uint32_t thr, float inv_keep) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Lp = round16(L);
-  const int ldh = hd + PAD_H, lds = Lp + PAD_F, ldp = Lp + PAD_H, ldo = hd + PAD_F;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);             // (TQ, ldh)
-  bf16* sKV = sQ + TQ * ldh;                            // (Lp, ldh): K, then V
-  float* sS = reinterpret_cast<float*>(sKV + Lp * ldh); // (TQ, lds); later O (TQ, ldo)
-  bf16* sP = reinterpret_cast<bf16*>(sS + TQ * ld_region(Lp, hd));  // (TQ, ldp)
+                     bf16* __restrict__ out, int L, int hd, float scale, uint32_t seed,
+                     uint32_t thr, float inv_keep) {
+  constexpr int LD = HDT + PAD, KT = HDT / 16, NT = HDT / 8, STEP = TILE * LD;
+  unsigned char* smem = dynamic_smem();
+  bf16* sQ = reinterpret_cast<bf16*>(smem);                // (TILE, LD); O on the way out
+  bf16* sK = sQ + STEP;                                    // 2 x (TILE, LD)
+  bf16* sV = sK + 2 * STEP;                                // 2 x (TILE, LD)
+  float* sBias = reinterpret_cast<float*>(sV + 2 * STEP);  // (n_tiles * TILE)
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
-  const int bh = b * gridDim.y + h;
-  const size_t head = (size_t)bh * (size_t)L * hd;
-  const float* bb = bias + (size_t)b * L;
+  const int b = blockIdx.z, q0 = blockIdx.x * TILE;
+  const int bh = b * gridDim.y + blockIdx.y;
+  const size_t head = (size_t)bh * L * hd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q_rows = min(TQ, L - q0);
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row0 = warp * 16;  // the warp's rows in the block's tile
+  const int nt = n_tiles(L);
 
-  load_rows(sQ, q + head + (size_t)q0 * hd, q_rows, TQ, hd, ldh);
-  load_rows(sKV, k + head, L, Lp, hd, ldh);
-  __syncthreads();
+  for (int c = threadIdx.x; c < nt * TILE; c += THREADS)
+    sBias[c] = c < L ? bias[(size_t)b * L + c] : 0.0f;
+  load_tile(sQ, LD, q + head, q0, L, hd);
+  load_tile(sK, LD, k + head, 0, L, hd);
+  cp_async_commit();
 
-  // S = Q K^T: K row-major (Lp, hd) is K^T column-major (hd, Lp)
-  const int n_ct = Lp / 16, n_kt = hd / 16;
-  for (int t = warp; t < (TQ / 16) * n_ct; t += WARPS) {
-    const int rt = t / n_ct, ct = t % n_ct;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < n_kt; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, sQ + rt * 16 * ldh + kk * 16, ldh);
-      wmma::load_matrix_sync(fb, sKV + ct * 16 * ldh + kk * 16, ldh);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(sS + rt * 16 * lds + ct * 16, acc, lds, wmma::mem_row_major);
+  uint32_t rk[2] = {0u, 0u};  // dropout keys of the thread's rows gid, gid + 8
+  if (DROP) {
+    rk[0] = dst_row_key(seed, bh, q0 + row0 + gid);
+    rk[1] = dst_row_key(seed, bh, q0 + row0 + gid + 8);
   }
-  __syncthreads();
+  uint32_t qa[KT][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
-  // V replaces K; the softmax below touches only sS and sP
-  load_rows(sKV, v + head, L, Lp, hd, ldh);
+  // sweep 1 (items 0 .. nt - 1: K tiles): the rows' max m and sum l of
+  // exp(s - m), rescaled online as m grows
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nt) {
+      load_tile(sK + (buf ^ 1) * STEP, LD, k + head, (t + 1) * TILE, L, hd);
+    } else {  // the second sweep's first tile
+      load_tile(sK + (buf ^ 1) * STEP, LD, k + head, 0, L, hd);
+      load_tile(sV + (buf ^ 1) * STEP, LD, v + head, 0, L, hd);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) load_a<HDT>(qa, sQ, LD, row0, hd, lane);
+    float s[8][4];
+    scores<HDT, 8>(s, qa, sK + buf * STEP, LD, 0, hd, lane);
+    scale_bias_mask(s, sBias, t * TILE, L, scale, tig);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      float sum = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) sum += expf(s[n][2 * i] - m_new) + expf(s[n][2 * i + 1] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + quad_sum(sum);
+      m[i] = m_new;
+    }
+    __syncthreads();
+  }
+  const float rl[2] = {1.0f / l[0], 1.0f / l[1]};
 
-  // fp32 softmax over the L real keys, one warp per row; pad keys get p = 0
-  for (int r = warp; r < TQ; r += WARPS) {
-    float* srow = sS + r * lds;
-    float m = -INFINITY;
-    for (int c = lane; c < L; c += 32) {
-      const float s = srow[c] * scale + bb[c];
-      srow[c] = s;
-      m = fmaxf(m, s);
+  // sweep 2 (items nt .. 2 nt - 1: K and V tiles): p = exp(s - m) / l,
+  // dropped and rounded, fed from registers into O += P V
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    const int buf = (nt + t) & 1;
+    if (t + 1 < nt) {
+      load_tile(sK + (buf ^ 1) * STEP, LD, k + head, (t + 1) * TILE, L, hd);
+      load_tile(sV + (buf ^ 1) * STEP, LD, v + head, (t + 1) * TILE, L, hd);
     }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int c = lane; c < L; c += 32) {
-      const float e = expf(srow[c] - m);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    bf16* prow = sP + r * ldp;
-    if (DROP) {
-      const uint32_t rk = dst_row_key(seed, bh, q0 + r);
-      for (int c = lane; c < Lp; c += 32) {
-        float p = 0.0f;
-        if (c < L && dst_bits(rk, c) >= thr) p = (srow[c] / sum) * inv_keep;
-        prow[c] = __float2bfloat16(p);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float s[8][4];
+    scores<HDT, 8>(s, qa, sK + buf * STEP, LD, 0, hd, lane);
+    scale_bias_mask(s, sBias, t * TILE, L, scale, tig);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = r >> 1;
+        float p = div_by(expf(s[n][r] - m[i]), l[i], rl[i]);  // 0 at masked keys: s = -inf
+        if (DROP) {
+          const int col = t * TILE + n * 8 + 2 * tig + (r & 1);
+          p = dst_bits(rk[i], col) >= thr ? p * inv_keep : 0.0f;
+        }
+        s[n][r] = p;
       }
-    } else {
-      for (int c = lane; c < Lp; c += 32)
-        prow[c] = __float2bfloat16(c < L ? srow[c] / sum : 0.0f);
+#pragma unroll
+    for (int kc = 0; kc < TILE / 16; ++kc) {
+      uint32_t pa[4];
+      a_fragment(pa, s[2 * kc], s[2 * kc + 1]);
+      accumulate<HDT>(o, pa, sV + buf * STEP, LD, kc * 16, hd, lane);
     }
+    __syncthreads();
   }
-  __syncthreads();
 
-  // O = P V: V row-major (Lp, hd); O reuses the score region, which is
-  // sized for it, so the stores never reach sP while other warps read it
-  float* sO = sS;
-  const int n_ht = hd / 16, n_lk = Lp / 16;
-  for (int t = warp; t < (TQ / 16) * n_ht; t += WARPS) {
-    const int rt = t / n_ht, nt = t % n_ht;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < n_lk; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, sP + rt * 16 * ldp + kk * 16, ldp);
-      wmma::load_matrix_sync(fb, sKV + kk * 16 * ldh + nt * 16, ldh);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(sO + rt * 16 * ldo + nt * 16, acc, ldo, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  bf16* o = out + head + (size_t)q0 * hd;
-  for (int i = threadIdx.x; i < q_rows * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    o[(size_t)r * hd + c] = __float2bfloat16(sO[r * ldo + c]);
-  }
+  // the warp read only its own rows of sQ, in the first item
+  store_rows<HDT>(out + head, q0 + row0, L, hd, sQ + row0 * LD, LD, o, lane);
 }
 
-template <int TQ, bool DROP>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
-                       void* out, int B, int nh, int L, int hd, uint32_t seed,
-                       uint32_t thr, float inv_keep, cudaStream_t stream) {
-  const size_t smem = smem_bytes(TQ, round16(L), hd);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<TQ, DROP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + TQ - 1) / TQ, nh, B);
-  attention_fwd_kernel<TQ, DROP><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias, (bf16*)out,
-      L, hd, (float)(1.0 / sqrt((double)hd)), seed, thr, inv_keep);
-  return cudaGetLastError();
+template <int HDT, bool DROP>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
+                       int B, int nh, int L, int hd, uint32_t seed, uint32_t thr, float inv_keep,
+                       cudaStream_t stream) {
+  return launch(attention_fwd_kernel<HDT, DROP>, dim3(n_tiles(L), nh, B), THREADS,
+                smem_bytes<HDT>(L), stream, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                (const float*)bias, (bf16*)out, L, hd, (float)(1.0 / sqrt((double)hd)), seed,
+                thr, inv_keep);
 }
 
-// 32-query tiles where they fit in shared memory, else 16
+// the narrowest register width that holds hd
 template <bool DROP>
-cudaError_t dispatch_tq(const void* q, const void* k, const void* v, const void* bias,
-                        void* out, int B, int nh, int L, int hd, uint32_t seed,
-                        uint32_t thr, float inv_keep, cudaStream_t s) {
-  if (smem_bytes(32, round16(L), hd) <= MAX_SMEM)
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* bias, void* out,
+                        int B, int nh, int L, int hd, uint32_t seed, uint32_t thr,
+                        float inv_keep, cudaStream_t s) {
+  if (hd <= 32)
     return launch_fwd<32, DROP>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s);
-  if (smem_bytes(16, round16(L), hd) <= MAX_SMEM)
-    return launch_fwd<16, DROP>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s);
-  return cudaErrorInvalidConfiguration;
+  if (hd <= 64)
+    return launch_fwd<64, DROP>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s);
+  return launch_fwd<128, DROP>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s);
 }
 
 }  // namespace
@@ -194,6 +197,11 @@ extern "C" int dst_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(thr == 0u
-                   ? dispatch_tq<false>(q, k, v, bias, out, B, nh, L, hd, 0u, 0u, 1.0f, s)
-                   : dispatch_tq<true>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s));
+                   ? dispatch_hd<false>(q, k, v, bias, out, B, nh, L, hd, 0u, 0u, 1.0f, s)
+                   : dispatch_hd<true>(q, k, v, bias, out, B, nh, L, hd, seed, thr, inv_keep, s));
+}
+
+// bytes of dynamic shared memory a forward block takes at (L, hd), for reports
+extern "C" long long dst_attention_fwd_smem(int L, int hd) {
+  return (long long)(hd <= 32 ? smem_bytes<32>(L) : hd <= 64 ? smem_bytes<64>(L) : smem_bytes<128>(L));
 }

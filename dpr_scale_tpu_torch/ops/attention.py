@@ -28,7 +28,7 @@ import math
 
 import torch
 
-MAX_LEN = 512  # the kernels keep (rows, L) fp32 score tiles in shared memory
+MAX_LEN = 512  # the kernels' limit (BERT's positions): a block stages the whole key bias row
 
 _M32 = 0xFFFFFFFF
 
@@ -173,8 +173,9 @@ attention_fwd_kernel.dropout_launches = 0  # those of the launches with rate > 0
 
 
 def attention_bwd_kernel(q, k, v, bias, g, seed: int = 0, rate: float = 0.0):
-    """Launch ``csrc/attention_bwd.cu`` (its dq pass, then its dk/dv pass)
-    on the current CUDA stream; returns (dq, dk, dv)."""
+    """Launch ``csrc/attention_bwd.cu`` (its dq kernel, which also writes
+    the rows' softmax statistics into ``stats``, then its dk/dv kernel) on
+    the current CUDA stream; returns (dq, dk, dv)."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     _check_kernel_args(

@@ -2,7 +2,10 @@
 
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
 per source, all started together, and linked into one shared library with a
-plain C interface, loaded with ``ctypes``. The build happens at first use,
+plain C interface, loaded with ``ctypes``. The library links the shared CUDA
+runtime (``libcudart.so``), the one PyTorch loads, so its launches go through
+the runtime that ``torch.profiler`` traces; nvcc's default, a private static
+copy of the runtime, hid the kernels' device time from the profiler. The build happens at first use,
 never at import: this module imports on machines with no CUDA toolkit, where
 only the kernels' plain PyTorch versions run.
 
@@ -14,6 +17,7 @@ processes on one checkout) are serialised by a file lock.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -29,12 +33,16 @@ SOURCES = (
     "attention_fwd.cu", "attention_bwd.cu", "count_groups.cu", "ffn_fwd.cu", "gather_score.cu",
     "int_scan.cu", "mips_scan.cu",
 )
-HEADERS = ("attention_tiles.cuh", "dropout_bits.cuh", "int_tile.cuh", "score_tile.cuh")
+HEADERS = (
+    "attention_ptx.cuh", "attention_tiles.cuh", "dropout_bits.cuh", "int_tile.cuh",
+    "score_tile.cuh",
+)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpr_scale_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared", "-cudart", "shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,7 +65,7 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(SRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -86,7 +94,9 @@ def build() -> str:
             for c in cmds
         ]
         outs = [p.communicate()[0] for p in procs]
-        link = [_nvcc(), "-shared", "-o", tmp, *objs]
+        # the toolkit's runtime where the loader finds none already loaded
+        lib64 = os.path.join(os.path.dirname(os.path.dirname(os.path.realpath(_nvcc()))), "lib64")
+        link = [_nvcc(), *LINK_FLAGS, "-Xlinker", f"-rpath,{lib64}", "-o", tmp, *objs]
         log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
         failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
         if not failed:
@@ -125,6 +135,10 @@ def library() -> ctypes.CDLL:
             lib.dst_attention_fwd.restype = i
             lib.dst_attention_bwd.argtypes = [p] * 9 + [i, i, i, i, u, u, f, p]
             lib.dst_attention_bwd.restype = i
+            lib.dst_attention_fwd_smem.argtypes = [i, i]
+            lib.dst_attention_fwd_smem.restype = ll
+            lib.dst_attention_bwd_smem.argtypes = [i, i, i]
+            lib.dst_attention_bwd_smem.restype = ll
             lib.dst_count_above_groups.argtypes = [p, p, p, p, i, ll, i, ll, i, p]
             lib.dst_count_above_groups.restype = i
             lib.dst_count_above.argtypes = [p, p, p, p, i, ll, i, i, p]
@@ -149,6 +163,50 @@ def library() -> ctypes.CDLL:
             lib.dst_gather_streamed.restype = i
             _lib, _lib_path = lib, path
         return _lib
+
+
+class _TimedLibrary:
+    """The loaded library with each entry point's call bracketed by CUDA
+    events on the caller's current stream; ``calls`` collects
+    (entry point, start event, end event)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        self.calls = []
+
+    def __getattr__(self, name):
+        import torch
+
+        fn = getattr(self._lib, name)
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self.calls.append((name, start, end))
+            return rc
+
+        return timed
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """Within the block every kernel launch through :func:`library` is timed
+    by CUDA events; yields the list of (entry point, start, end) events, to
+    be read after a synchronize. The profiler's own record of the port's
+    kernels is incomplete (ROADMAP C4), so reports take their time from
+    here. Not thread-safe: the block swaps the library for every caller."""
+    global _lib
+    timed = _TimedLibrary(library())
+    with _lock:
+        _lib = timed
+    try:
+        yield timed.calls
+    finally:
+        with _lock:
+            _lib = timed._lib
 
 
 def check(rc: int, what: str) -> None:

@@ -17,11 +17,14 @@ from a seed) it times and profiles
     sequences.
 
 For each it prints the host-clock wall time of one call (median of
-unprofiled calls), the device kernel time of one call (torch.profiler's
-kernel times, summed), their ratio as the device's busy share, and the
-kernel time by class. ``--out`` gets torch.profiler's tables. The override
-``task.model.fused_ffn=true`` profiles the fused-FFN configuration, whose
-kernels form a class of their own.
+unprofiled calls), the device kernel time of one call, their ratio as the
+device's busy share, and the kernel time by class: torch.profiler's kernel
+times for PyTorch's kernels, CUDA events around each launch for the port's
+own (``cuda_lib.timed_launches``; the profiler drops some of those, e.g.
+every 15-ms ``groupmax`` sweep of a lone call: ROADMAP C4). ``--out`` gets
+torch.profiler's tables. The override ``task.model.fused_ffn=true``
+profiles the fused-FFN configuration, whose kernels form a class of their
+own.
 """
 from __future__ import annotations
 
@@ -54,6 +57,18 @@ CLASSES = (
     ("elementwise / copy / reduce", ("elementwise", "reduce", "copy", "cat", "fill",
                                      "index", "scatter", "gather", "where")),
 )
+
+
+# the port's kernel entry points (ops/cuda_lib.py) and their classes above
+PORT_CLASSES = {
+    "dst_attention_fwd": "attention kernels", "dst_attention_bwd": "attention kernels",
+    "dst_ffn_fwd": "FFN kernels", "dst_ffn_ln_fwd": "FFN kernels",
+    "dst_count_above_groups": "count kernel",
+    **dict.fromkeys(("dst_count_above", "dst_groupmax", "dst_tile_max", "dst_int_groupmax",
+                     "dst_int8_tile_max"), "MIPS sweep kernels"),
+    **dict.fromkeys(("dst_gather_serial", "dst_gather_pipelined", "dst_gather_streamed"),
+                    "gather-score kernels"),
+}
 
 
 def _sync(dev):
@@ -92,23 +107,44 @@ def device_profile(fn, dev):
     return prof, kernels
 
 
+def port_kernel_ms(fn, dev):
+    """{class: device ms per call} of the port's kernels over PROFILED_CALLS
+    calls, from CUDA events around each launch."""
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    with cuda_lib.timed_launches() as calls:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        _sync(dev)
+    by_class = {}
+    for entry, start, end in calls:
+        c = PORT_CLASSES[entry]
+        by_class[c] = by_class.get(c, 0.0) + start.elapsed_time(end) / PROFILED_CALLS
+    return by_class
+
+
 def report(name, fn, dev, out):
     wall = wall_ms(fn, dev)
     prof, kernels = device_profile(fn, dev)
-    busy = sum(kernels.values()) / PROFILED_CALLS / 1e3
     by_class = {c: 0.0 for c, _ in CLASSES}
     by_class["other"] = 0.0
+    port = set(PORT_CLASSES.values())
     for key, us in kernels.items():
         low = key.lower()
         c = next((c for c, frags in CLASSES if any(f in low for f in frags)), "other")
-        by_class[c] += us / PROFILED_CALLS / 1e3
+        if c not in port:  # the port's kernels: by CUDA events below
+            by_class[c] += us / PROFILED_CALLS / 1e3
+    if dev.type == "cuda":
+        for c, ms in port_kernel_ms(fn, dev).items():
+            by_class[c] += ms
+    busy = sum(by_class.values())
     print(f"== {name}: wall {wall:.3f} ms/call (host clock), device kernels "
           f"{busy:.3f} ms/call, busy share {busy / wall:.3f}")
     for c, ms in sorted(by_class.items(), key=lambda x: -x[1]):
         if ms > 0:
             print(f"   {c}: {ms:.3f} ms/call ({ms / busy:.1%})")
-    if not kernels:
-        print("   the profiler recorded no device kernel time")
+    if not busy:
+        print("   no device kernel time was recorded")
     if out is not None:
         out.write(f"== {name} ({PROFILED_CALLS} calls)\n")
         out.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))

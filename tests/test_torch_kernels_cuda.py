@@ -24,13 +24,17 @@ def cuda_device():
 @pytest.mark.parametrize(
     "B,nh,L,hd",
     [(4, 12, 40, 64), (2, 12, 256, 64), (2, 4, 512, 64), (3, 2, 33, 16),
-     (8, 12, 16, 64), (8, 12, 32, 64), (4, 2, 1, 128), (4, 2, 48, 128)],
+     (8, 12, 16, 64), (8, 12, 32, 64), (4, 2, 1, 128), (4, 2, 48, 128),
+     (3, 4, 63, 64), (3, 4, 65, 64), (2, 4, 129, 64), (2, 4, 255, 64), (2, 4, 257, 64),
+     (2, 2, 511, 64), (3, 2, 65, 16), (2, 2, 257, 16), (3, 2, 63, 32), (2, 2, 129, 32),
+     (2, 2, 511, 32)],
 )
 def test_attention_kernel_matches_plain(cuda_device, B, nh, L, hd):
     """bf16, ragged key masks: within 1e-2 + 1e-2 |ref| (two bf16 ulps at
     |x| ~ 1; the kernel and the plain version sum in different orders).
     Sequences shorter than head_dim (L = 1 .. 48 here) are the ones whose
-    output tile is wider than their score tile."""
+    output tile is wider than their score tile; lengths one past or short of
+    a 64-key tile (63, 65, 129, 255, 257, 511) exercise the tile tails."""
     g = torch.Generator(device=cuda_device).manual_seed(L)
     q, k, v = (
         torch.randn(B, nh, L, hd, generator=g, device=cuda_device).bfloat16()
@@ -73,12 +77,12 @@ def _attention_inputs(dev, B, nh, L, hd, seed, full_mask_row=False):
     return q, k, v, bias[:, None, :].contiguous(), go
 
 
-_LENGTHS = [1, 16, 32, 48, 256, 512]
+_LENGTHS = [1, 16, 32, 48, 63, 65, 129, 255, 256, 257, 511, 512]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("L", _LENGTHS)
 def test_attention_fwd_dropout_matches_plain(cuda_device, L, hd, rate):
     """The forward at rates 0 and 0.1, the same seed for kernel and plain
@@ -104,7 +108,7 @@ def _assert_grads_close(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("L", _LENGTHS)
 def test_attention_bwd_matches_plain(cuda_device, L, hd, rate):
     B, nh = (2, 2) if L >= 256 else (4, 3)
@@ -114,6 +118,19 @@ def test_attention_bwd_matches_plain(cuda_device, L, hd, rate):
     torch.cuda.synchronize()
     assert attention.attention_bwd_kernel.launches == before + 1
     _assert_grads_close(got, attention.attention_bwd_plain(q, k, v, bias, go, 99, rate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bwd_is_bitwise_repeatable(cuda_device, rate):
+    """No floating-point atomics: two calls on the same inputs give the same
+    dq, dk and dv bits."""
+    q, k, v, bias, go = _attention_inputs(cuda_device, 8, 12, 256, 64, 17)
+    first = attention.attention_bwd_kernel(q, k, v, bias, go, 7, rate)
+    again = attention.attention_bwd_kernel(q, k, v, bias, go, 7, rate)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
