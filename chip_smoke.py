@@ -50,8 +50,13 @@ training (``cli.train``, dropout 0.1). Phases:
      N = 65,536 (the contexts of a training step) and 32,768 (its queries,
      and an encode batch) at rates 0 and 0.1, ``fused_ffn_ln`` at N =
      32,768 at rate 0, both at a ragged N; y, pre (and x1, z) within
-     FFN_REL of max |ref| and the same kept entries; their times, and the
-     unfused FFN half (cuBLAS GEMMs + elementwise) at the same shapes;
+     FFN_REL of max |ref| and the same kept entries; the GEMM kernel's
+     registers, spills and shared memory, and whether its SASS holds HGMMA
+     (wgmma) and UTMALDG (TMA); their times queued behind a GPU sleep and
+     as single calls, split into LN1 / GEMM1 / GEMM2 / LN2 launches, beside
+     the unfused FFN half (cuBLAS GEMMs + elementwise) and the two bare
+     cuBLAS products (the yardstick, ``cublas_pair_ms`` in the JSON) at the
+     same shapes;
   9. phase 4 with ``task.model.fused_ffn=true`` over a 131,072-row index:
      the ``fused_ffn_ln`` and attention counters must rise;
  10. phases 6 and 7 with ``task.model.fused_ffn=true``: the ``fused_ffn``
@@ -304,7 +309,8 @@ def phase_device():
 def kernel_resources(prefix):
     """Registers, stack and spills of each kernel of the build whose name
     starts with ``prefix``, as ptxas printed them (``cuda_lib.build_log()``),
-    one line per template instance ``name<width, dropout>``."""
+    one line per template instance ``name<a, b>`` (the attention kernels'
+    width and dropout, the FFN GEMM's tile width and epilogue)."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     found, name = {}, None
@@ -313,9 +319,10 @@ def kernel_resources(prefix):
         if m:
             # the function's own name: the digit-free run before its template
             # arguments (the anonymous namespace's name holds the file's)
-            t = re.search(r"([A-Za-z_]+_kernel)ILi(\d+)ELb([01])E", m.group(1))
-            name = (f"{t.group(1)}<{t.group(2)}, {t.group(3)}>"
-                    if t and t.group(1).startswith(prefix) else None)
+            t = re.search(r"([A-Za-z_]+_kernel)(?:ILi(\d+)EL[ib](\d+)E)?", m.group(1))
+            name = None
+            if t and t.group(1).startswith(prefix):
+                name = t.group(1) + (f"<{t.group(2)}, {t.group(3)}>" if t.group(2) else "")
         elif name and ("Used" in line or "stack frame" in line):
             found.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return [f"{n}: {'; '.join(v)}" for n, v in sorted(found.items())]
@@ -1018,7 +1025,7 @@ def phase_ffn_kernels():
     32,768, rate 0)."""
     import torch
 
-    from dpr_scale_tpu_torch.ops import ffn
+    from dpr_scale_tpu_torch.ops import cuda_lib, ffn
 
     dev = torch.device("cuda", 0)
     seed, errs = 1234, {"ffn_fwd": 0.0, "ffn_ln_fwd": 0.0}
@@ -1053,23 +1060,38 @@ def phase_ffn_kernels():
         del got, want
     torch.cuda.empty_cache()
 
+    print("\n".join(kernel_resources("ffn_gemm_kernel") + kernel_resources("ln_rows_kernel")))
+    lib = cuda_lib.library()
+    print(f"ffn_gemm_kernel shared memory a block: GEMM1 (F={FFN_F} wide) "
+          f"{lib.dst_ffn_gemm_smem(FFN_F)} bytes, GEMM2 (H={FFN_H}) {lib.dst_ffn_gemm_smem(FFN_H)}")
+    print(ffn_sass_check())
     out = {}
     N = 2 * TRAIN_BATCH * 256
     x, w, lnp = _ffn_inputs(dev, N, SEED + 7)
     for n_rows, rate in ((N, 0.1), (N // 2, 0.1), (N // 2, 0.0)):
         xs = x[:n_rows]
-        ms = cuda_ms(lambda: ffn.ffn_fwd_kernel(xs, *w, seed, rate))
+        fn = lambda: ffn.ffn_fwd_kernel(xs, *w, seed, rate)  # noqa: E731
+        ms, single_ms = device_ms(fn), cuda_ms(fn)
         plain_ms = cuda_ms(lambda: ffn.ffn_fwd_plain(xs, *w, seed, rate))
         unfused_ms = cuda_ms(lambda: _unfused_ffn(xs, *w, rate))
+        pair_ms = device_ms(_cublas_pair(xs, w))
+        split = _ffn_split(xs, w, lnp, seed, rate)
         b = bound(nbytes(xs, *w) + nbytes(xs) + n_rows * FFN_F * 2, 4 * n_rows * FFN_H * FFN_F)
-        print(f"fused_ffn N={n_rows} rate {rate}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"unfused FFN (cuBLAS + elementwise) {unfused_ms:.4f} ms, bound {b[0]:.4f} ms "
-              f"({b[1]}) = {b[0] / ms:.1%} of the kernel's time")
+        gemm_bound = 2 * n_rows * FFN_H * FFN_F / BF16_FLOPS * 1e3  # either GEMM's operations
+        print(f"fused_ffn N={n_rows} rate {rate}: kernel {ms:.4f} ms queued ({single_ms:.4f} ms "
+              f"single call; GEMM1 {split['gemm1']:.4f}, GEMM2 {split['gemm2']:.4f} ms alone), "
+              f"plain {plain_ms:.4f} ms, unfused FFN (cuBLAS + elementwise) {unfused_ms:.4f} ms, "
+              f"the two bare cuBLAS products {pair_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) = "
+              f"{b[0] / ms:.1%} of the kernel's time; GEMM1 / GEMM2 at "
+              f"{gemm_bound / split['gemm1']:.1%} / {gemm_bound / split['gemm2']:.1%} of their "
+              f"{gemm_bound:.4f} ms bound")
         if (n_rows, rate) == (N, 0.1):
             out["ffn_fwd"] = {"max_abs_err": errs["ffn_fwd"], "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                              "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                              "cublas_pair_ms": pair_ms}
     xs = x[: N // 2]
-    ms = cuda_ms(lambda: ffn.ffn_ln_fwd_kernel(xs, *w, *lnp, seed, 0.0))
+    fn = lambda: ffn.ffn_ln_fwd_kernel(xs, *w, *lnp, seed, 0.0)  # noqa: E731
+    ms, single_ms = device_ms(fn), cuda_ms(fn)
     plain_ms = cuda_ms(lambda: ffn.ffn_ln_fwd_plain(xs, *w, *lnp, seed, 0.0))
 
     def unfused_half():
@@ -1077,17 +1099,91 @@ def phase_ffn_kernels():
         return _unfused_ln(x1 + _unfused_ffn(x1, *w, 0.0), *lnp[2:])
 
     unfused_ms = cuda_ms(unfused_half)
+    pair_ms = device_ms(_cublas_pair(xs, w))
+    split = _ffn_split(xs, w, lnp, seed, 0.0)
     # the function's inputs and its outputs (out, and x1, pre, z kept for
     # its backward)
     b = bound(nbytes(xs, *w, *lnp) + 3 * nbytes(xs) + (N // 2) * FFN_F * 2,
               4 * (N // 2) * FFN_H * FFN_F)
-    print(f"fused_ffn_ln N={N // 2} rate 0: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"unfused half-layer (LayerNorms, cuBLAS GEMMs, elementwise) {unfused_ms:.4f} ms, "
-          f"bound {b[0]:.4f} ms ({b[1]}) = {b[0] / ms:.1%} of the kernel's time; no single "
-          f"PyTorch call computes either function")
+    print(f"fused_ffn_ln N={N // 2} rate 0: kernel {ms:.4f} ms queued ({single_ms:.4f} ms single "
+          f"call; LN1 {split['ln1']:.4f}, GEMM1 {split['gemm1']:.4f}, GEMM2 {split['gemm2']:.4f}, "
+          f"LN2 {split['ln2']:.4f} ms alone), plain {plain_ms:.4f} ms, unfused half-layer "
+          f"(LayerNorms, cuBLAS GEMMs, elementwise) {unfused_ms:.4f} ms, the two bare cuBLAS "
+          f"products {pair_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) = {b[0] / ms:.1%} of the "
+          f"kernel's time; no single PyTorch call computes either function")
     out["ffn_ln_fwd"] = {"max_abs_err": errs["ffn_ln_fwd"], "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                         "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                         "cublas_pair_ms": pair_ms}
     return out
+
+
+def _cublas_pair(x, w):
+    """The yardstick beside the FFN kernels: the two bare cuBLAS products at
+    the same shapes (x . w1, then an (N, F) operand . w2; bf16 out, no
+    epilogue)."""
+    import torch
+
+    h = torch.mm(x, w[0])
+    return lambda: (torch.mm(x, w[0]), torch.mm(h, w[2]))
+
+
+def _ffn_split(x, w, lnp, seed, rate, eps=1e-12):
+    """Queued device ms of each launch of the FFN entry points alone
+    (``dst_ffn_gemm`` and ``dst_ffn_ln_rows``): LN1, GEMM1 (bias + GELU),
+    GEMM2 (bias, dropout at ``rate``), LN2 (with the residual)."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import cuda_lib
+    from dpr_scale_tpu_torch.ops.attention import _dropout_args
+
+    lib = cuda_lib.library()
+    N = x.shape[0]
+    pre, h = (torch.empty(N, FFN_F, dtype=x.dtype, device=x.device) for _ in range(2))
+    y, out = torch.empty_like(x), torch.empty_like(x)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    s, thr, inv_keep = _dropout_args(seed, rate)
+
+    def gemm(a, b, bias, out0, out1, n_cols, k, epi, *drop):
+        def run():
+            cuda_lib.check(lib.dst_ffn_gemm(
+                a.data_ptr(), b.data_ptr(), bias.data_ptr(), out0.data_ptr(),
+                out1.data_ptr() if out1 is not None else None, N, n_cols, k, epi,
+                *(drop or (0, 0, 1.0)), stream()), "dst_ffn_gemm")
+        return run
+
+    def ln(a, b, g, beta):
+        def run():
+            cuda_lib.check(lib.dst_ffn_ln_rows(
+                a.data_ptr(), b.data_ptr() if b is not None else None, g.data_ptr(),
+                beta.data_ptr(), out.data_ptr(), N, FFN_H, eps, stream()), "dst_ffn_ln_rows")
+        return run
+
+    gemm2 = (gemm(h, w[2], w[3], y, None, FFN_H, FFN_F, 2, s, thr, inv_keep) if rate
+             else gemm(h, w[2], w[3], y, None, FFN_H, FFN_F, 1))
+    return {"ln1": device_ms(ln(x, None, *lnp[:2])),
+            "gemm1": device_ms(gemm(x, w[0], w[1], pre, h, FFN_F, FFN_H, 0)),
+            "gemm2": device_ms(gemm2), "ln2": device_ms(ln(x, y, *lnp[2:]))}
+
+
+def ffn_sass_check():
+    """Whether ``cuobjdump --dump-sass`` of the kernel library shows HGMMA
+    (wgmma) and UTMALDG (TMA loads) in each FFN GEMM kernel, where the
+    toolkit has cuobjdump."""
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "cuobjdump not found beside nvcc: FFN GEMM SASS not checked"
+    sass = subprocess.run([tool, "--dump-sass", cuda_lib.build()], capture_output=True,
+                          text=True, timeout=600).stdout
+    found = []
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "ffn_gemm_kernel" in name:
+            t = re.search(r"ffn_gemm_kernelILi(\d+)ELi(\d+)E", name)
+            found.append(f"ffn_gemm_kernel<{t.group(1)}, {t.group(2)}>: HGMMA "
+                         f"{fn.count('HGMMA')}, UTMALDG {fn.count('UTMALDG')}" if t else name)
+    return "FFN GEMM SASS (instruction counts): " + ("; ".join(found) or "no ffn_gemm_kernel found")
 
 
 def _gather_bound(vecs, slots, q):

@@ -1,8 +1,8 @@
 // Fused transformer FFN forward, and its LayerNorm-fused half-layer, for Hopper.
 //
 // Replaces the TPU kernels dpr_scale_tpu/ops/ffn.py::_fwd_kernel (the
-// pallas_call in _fwd_impl, fused_ffn) and ::_fwd_ln_kernel (the pallas_call
-// in _fwd_ln_impl, fused_ffn_ln):
+// pallas_call in _fwd_impl, ffn.py:169, fused_ffn) and ::_fwd_ln_kernel (the
+// pallas_call in _fwd_ln_impl, ffn.py:387, fused_ffn_ln):
 //
 //     pre = x . w1 + b1                     (fp32 sums; saved as bf16)
 //     h   = bf16(gelu(pre))                 (from the fp32 pre, exact erf GELU)
@@ -14,182 +14,192 @@
 // in fp32 with the fast variance E[v^2] - E[v]^2 (clamped at 0).  Shapes:
 // x, r, y, z, x1, out (N, H); w1 (H, F); w2 (F, H); pre, h (N, F); all bf16
 // row-major; b1 (F,), b2 (H,) bf16; the LN scales and biases (H,) fp32.
-// The keep bits of entry (i, j) are dst_bits(dst_row_key(seed, 0, i), j)
-// (dropout_bits.cuh), the bits ops/attention.py::dropout_keep_mask gives a
-// (1, 1, N, H) matrix.
+// H and F are multiples of 128, N >= 1.  The keep bits of entry (i, j) are
+// dst_bits(dst_row_key(seed, 0, i), j) (dropout_bits.cuh), the bits
+// ops/attention.py::dropout_keep_mask gives a (1, 1, N, H) matrix.
 //
-// What bounds it on an H100: the two products, 4 N H F operations (618.5
-// GFLOP at N = 65,536, H = 768, F = 3072: 0.63 ms at 989 TFLOP/s bf16),
-// against ~0.6 GB of inputs and outputs (0.18 ms at 3.35 TB/s): compute.
-// The TPU kernel keeps a (512, H) fp32 accumulator in VMEM while it walks F,
-// 1.5 MB at H = 768, which no Hopper block can hold (227 KB of shared
-// memory).  Design: two tiled tensor-core GEMMs with fused epilogues, one
-// template: (1) x . w1 with bias + GELU, writing pre and h; (2) h . w2 with
-// bias + dropout, writing y.  Each block computes a 128 x 128 output tile
-// with 8 warps (wmma 16x16x16, bf16 in, fp32 accumulate), K walked in
-// 32-deep slices through a 3-stage cp.async ring; the fp32 tile then goes
-// through shared memory to the epilogue, which writes 16-byte vectors.  h
-// makes one round trip through device memory (2 N F bytes each way), the
-// price of not holding a (rows, H) fp32 accumulator.  The LayerNorms need
-// whole rows of H, which a 128-column tile does not have, so LN1 and LN2
-// (with the residual add) are row kernels, one warp per row, before and
-// after the GEMMs.  No TMA/wgmma yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What bounds it on an H100: the two products, 4 N H F operations (309.2
+// GFLOP at N = 32,768, H = 768, F = 3072: 0.313 ms at 989 TFLOP/s bf16)
+// against the function's own inputs and outputs (~0.3 GB, 0.09 ms at
+// 3.35 TB/s): compute.  The TPU kernel keeps a (rows, H) fp32 accumulator
+// in VMEM while it walks F; for a 128-row tile at H = 768 that is 384 KB,
+// more than a Hopper block's 227 KB of shared memory, so h makes one round
+// trip through device memory (2 N F bytes each way, 0.2 GB at N = 32,768:
+// 0.12 ms), written by GEMM1 and read by GEMM2.
+//
+// Design: two GEMMs, one template, each with its epilogue in registers.
+// GEMM1 = x . w1 with bias + GELU, writing pre and h; GEMM2 = h . w2 with
+// bias (+ dropout), writing y.  A block of 384 threads computes a
+// 128 x BN output tile (BN = 256 where the output width divides by it,
+// else 128): one producer warp issues TMA loads (2-D boxes, 128-byte
+// swizzle, zero fill past the last row) of the A tile (128 x 64) and of
+// the B tile (64 x BN, as BN / 64 boxes of 64 x 64) into a 4-stage ring,
+// each stage with a full and an empty mbarrier; two consumer warpgroups
+// each run wgmma m64nBNk16 (bf16 in, fp32 accumulate in registers) on 64
+// of the tile's rows, four k-steps a stage, and release a stage once the
+// products that read it have retired (wgmma.wait_group 1 one stage
+// later).  The weights are read as stored, row-major (K, N): B is
+// MN-major, the descriptor's transpose bit set.  Shared memory: 4 x 48 KB
+// at BN = 256, 4 x 32 KB at BN = 128.  After the main loop each thread
+// adds the bias to the accumulators it holds (their row and column follow
+// from the wgmma fragment layout), applies GELU or the dropout, packs to
+// bf16 into the freed ring, and the warpgroup writes its 64 rows as
+// 16-byte vectors, rows >= N masked.  The LayerNorms need whole rows of H,
+// which a BN-column tile does not have, so LN1 and LN2 (with the residual
+// add) stay row kernels, one warp per row, before and after the GEMMs.
+// The instructions' wrappers are in ffn_ptx.cuh.
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "ffn_ptx.cuh"  // first: the emulation defines the CUDA keywords there
 #include "dropout_bits.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
-constexpr int WARPS_M = 2, WARPS_N = 4, THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int FM = BM / WARPS_M / 16, FN = BN / WARPS_N / 16;  // 4 x 2 fragments a warp
-constexpr int LDA = BK + 8;   // bf16 row pitch of the A tile (BM, BK)
-constexpr int LDB = BN + 8;   // bf16 row pitch of the B tile (BK, BN)
-constexpr int LDC = BN + 4;   // fp32 row pitch of the epilogue tile (BM, BN)
-constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
-constexpr size_t PIPE_BYTES = (size_t)STAGES * (A_ELEMS + B_ELEMS) * sizeof(bf16);
-constexpr size_t EPI_BYTES = (size_t)BM * LDC * sizeof(float);
-constexpr size_t SMEM_BYTES = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
+using namespace dst_ffn;
+
+constexpr int BM = 128, BK = 64, STAGES = 4;  // BK * 2 bytes = the 128-byte swizzle span
+constexpr int THREADS = 384;                  // two consumer warpgroups, one producer
+constexpr int CONSUMER_WARPS = 8;
+constexpr int A_BYTES = BM * BK * 2;  // a stage's A tile, 128 rows of 128 bytes
+constexpr int SUB_B = BK * 64 * 2;    // one 64 x 64 box of the B tile
 constexpr int LN_WARPS = 8;
 
+template <int BN>
+constexpr int STAGE_BYTES = A_BYTES + BN / 64 * SUB_B;
+
+// the ring, its 2 x STAGES barriers and the slack to align it to 1024 bytes
+template <int BN>
+constexpr size_t smem_bytes() {
+  return 1024 + STAGES * STAGE_BYTES<BN> + 2 * STAGES * sizeof(uint64_t);
+}
+
 enum Epilogue { BIAS_GELU = 0, BIAS = 1, BIAS_DROPOUT = 2 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float gelu(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// One k-slice of A (rows m0.., columns k0..k0+BK) and of B (rows k0..,
-// columns n0..n0+BN) into a ring stage; A rows >= M are zero-filled.
-__device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* __restrict__ A,
-                                           const bf16* __restrict__ B, int M, int Ncols,
-                                           int K, int m0, int n0, int k0) {
-  constexpr int A_VECS = BM * BK / 8, B_VECS = BK * BN / 8;  // 16-byte vectors
-  for (int i = threadIdx.x; i < A_VECS; i += THREADS) {
-    const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-    const bool valid = m0 + r < M;
-    const bf16* src = A + (size_t)(valid ? m0 + r : 0) * K + k0 + c;
-    cp_async16(sA + r * LDA + c, src, valid);
-  }
-  for (int i = threadIdx.x; i < B_VECS; i += THREADS) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    cp_async16(sB + r * LDB + c, B + (size_t)(k0 + r) * Ncols + n0 + c, true);
-  }
-}
-
-// C = A (M, K) . B (K, Ncols), one (BM, BN) tile per block, and the
+// C = A (M, K) . B (K, Ncols) for the (BM, BN) tile of this block, and the
 // epilogue: BIAS_GELU writes out0 = bf16(C + bias) and out1 =
 // bf16(gelu(C + bias)); BIAS writes out0 = bf16(C + bias); BIAS_DROPOUT
-// writes out0 = bf16(keep ? (C + bias) * inv_keep : 0).
-template <int EPI>
-__global__ void __launch_bounds__(THREADS)
-ffn_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+// writes out0 = bf16(keep ? (C + bias) * inv_keep : 0).  tmA reads A in
+// (BM, BK) boxes, tmB reads B in (BK, 64) boxes.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
                 const bf16* __restrict__ bias, bf16* __restrict__ out0,
                 bf16* __restrict__ out1, int M, int Ncols, int K, uint32_t seed,
                 uint32_t thr, float inv_keep) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* sC = reinterpret_cast<float*>(smem);  // reuses the ring after the main loop
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32, wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int KT = K / BK;
+  constexpr int STAGE = STAGE_BYTES<BN>;
+  unsigned char* smem = dynamic_smem();
+  smem += (1024 - (smem_addr(smem) & 1023)) & 1023;  // the swizzle repeats every 1024 bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, KT = K / BK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) {
-      bf16* st = ring + s * (A_ELEMS + B_ELEMS);
-      load_stage(st, st + A_ELEMS, A, B, M, Ncols, K, m0, n0, s * BK);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    cp_async_commit();
+    fence_barrier_init();
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // slice kt has landed
-    __syncthreads();              // ... for every thread; slice kt-1's stage is free
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) {
-      bf16* st = ring + (nk % STAGES) * (A_ELEMS + B_ELEMS);
-      load_stage(st, st + A_ELEMS, A, B, M, Ncols, K, m0, n0, nk * BK);
-    }
-    cp_async_commit();
-    const bf16* sA = ring + (kt % STAGES) * (A_ELEMS + B_ELEMS);
-    const bf16* sB = sA + A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], sA + (wm * FM * 16 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], sB + kk * LDB + wn * FN * 16 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring before sC overwrites it
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(sC + (wm * FM * 16 + i * 16) * LDC + wn * FN * 16 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
 
-  // epilogue: 8 consecutive columns a thread, written as one 16-byte vector
-  constexpr int VECS = BM * BN / 8;
-  for (int v = threadIdx.x; v < VECS; v += THREADS) {
-    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    const int row = m0 + r;
-    if (row >= M) continue;
-    const float* src = sC + r * LDC + c;
-    __align__(16) bf16 o0[8];
-    __align__(16) bf16 o1[8];
-    uint32_t rk = 0;
-    if (EPI == BIAS_DROPOUT) rk = dst_row_key(seed, 0u, (uint32_t)row);
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring's loads in flight ----
+    setmaxnreg_dec<40>();
+    if (t == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        const uint32_t use = kt / STAGES;
+        mbar_wait(&empty[s], (use & 1) ^ 1);  // the first use of a stage passes at once
+        unsigned char* st = smem + s * STAGE;
+        mbar_arrive_expect_tx(&full[s], STAGE);
+        tma_load(st, &tmA, m0, kt * BK, &full[s]);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float val = src[e] + __bfloat162float(bias[n0 + c + e]);
-      if (EPI == BIAS_GELU) {
-        o0[e] = __float2bfloat16(val);
-        o1[e] = __float2bfloat16(gelu(val));
-      } else {
-        if (EPI == BIAS_DROPOUT) val = dst_bits(rk, (uint32_t)(n0 + c + e)) >= thr ? val * inv_keep : 0.0f;
-        o0[e] = __float2bfloat16(val);
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(st + A_BYTES + j * SUB_B, &tmB, kt * BK, n0 + j * 64, &full[s]);
       }
     }
-    const size_t off = (size_t)row * Ncols + n0 + c;
-    *reinterpret_cast<uint4*>(out0 + off) = *reinterpret_cast<const uint4*>(o0);
-    if (EPI == BIAS_GELU) *reinterpret_cast<uint4*>(out1 + off) = *reinterpret_cast<const uint4*>(o1);
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+    setmaxnreg_inc<232>();
+    const int warp = t / 32, lane = t % 32;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const unsigned char* st = smem + s * STAGE;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart, k-step
+        // 32 bytes; B: MN-major, 64-column boxes SUB_B apart, 8-row groups
+        // (of K) 1024 bytes apart, k-step 16 rows
+        const uint64_t da = smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024);
+        const uint64_t db = smem_desc(st + A_BYTES + kk * 16 * 128, SUB_B, 1024);
+        wgmma_m64k16<BN>(acc, da, db);
+      }
+      wgmma_commit();
+      fence_operands(acc);
+      wgmma_wait<1>();  // the previous stage's products have retired
+      fence_operands(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    named_bar_sync(1, 256);  // both warpgroups are done with the ring
+    fence_proxy_async();
+
+    // ---- epilogue: bias, GELU or dropout, bf16, staged in the ring ----
+    constexpr int PITCH = BN + 8;  // bf16; rows 16 bytes apart in bank terms
+    constexpr int OUTS = EPI == BIAS_GELU ? 2 : 1;
+    bf16* st0 = reinterpret_cast<bf16*>(smem) + wg * OUTS * 64 * PITCH;
+    bf16* st1 = st0 + 64 * PITCH;
+    const int r0 = warp * 16 + lane / 4;  // this thread's rows r0 and r0 + 8 of the 64
+    const int rows = m0 + wg * 64;
+    uint32_t rk[2] = {0u, 0u};
+    if (EPI == BIAS_DROPOUT) {
+      rk[0] = dst_row_key(seed, 0u, (uint32_t)(rows + r0));
+      rk[1] = dst_row_key(seed, 0u, (uint32_t)(rows + r0 + 8));
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      // acc[4 j + 2 h + e] is (row r0 + 8 h, column 8 j + 2 (lane % 4) + e)
+      const int c = 8 * j + 2 * (lane & 3);
+      const float b0 = __bfloat162float(bias[n0 + c]);
+      const float b1 = __bfloat162float(bias[n0 + c + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+        const int off = (r0 + 8 * h) * PITCH + c;
+        if (EPI == BIAS_GELU) {
+          *reinterpret_cast<__nv_bfloat162*>(st1 + off) = __floats2bfloat162_rn(gelu(v0), gelu(v1));
+        } else if (EPI == BIAS_DROPOUT) {
+          v0 = dst_bits(rk[h], (uint32_t)(n0 + c)) >= thr ? v0 * inv_keep : 0.0f;
+          v1 = dst_bits(rk[h], (uint32_t)(n0 + c + 1)) >= thr ? v1 * inv_keep : 0.0f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(st0 + off) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    named_bar_sync(2 + wg, 128);
+    constexpr int VPR = BN / 8;  // 16-byte vectors a row
+    for (int v = t; v < 64 * VPR; v += 128) {
+      const int r = v / VPR, c = (v % VPR) * 8, row = rows + r;
+      if (row >= M) break;  // v only grows
+      const size_t off = (size_t)row * Ncols + n0 + c;
+      *reinterpret_cast<uint4*>(out0 + off) = *reinterpret_cast<const uint4*>(st0 + r * PITCH + c);
+      if (EPI == BIAS_GELU)
+        *reinterpret_cast<uint4*>(out1 + off) = *reinterpret_cast<const uint4*>(st1 + r * PITCH + c);
+    }
   }
 }
 
@@ -244,41 +254,46 @@ ln_rows_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   }
 }
 
-template <int EPI>
+template <int BN, int EPI>
 cudaError_t launch_gemm(const void* A, const void* B, const void* bias, void* out0, void* out1,
                         int M, int Ncols, int K, uint32_t seed, uint32_t thr, float inv_keep,
                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ffn_gemm_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+  CUtensorMap ta, tb;
+  cudaError_t err = make_tmap(&ta, A, M, K, BM, BK);
+  if (err == cudaSuccess) err = make_tmap(&tb, B, K, Ncols, BK, 64);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Ncols / BN, (M + BM - 1) / BM);
-  ffn_gemm_kernel<EPI><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      (const bf16*)A, (const bf16*)B, (const bf16*)bias, (bf16*)out0, (bf16*)out1, M, Ncols,
-      K, seed, thr, inv_keep);
-  return cudaGetLastError();
+  return launch(ffn_gemm_kernel<BN, EPI>, dim3(Ncols / BN, (M + BM - 1) / BM), THREADS,
+                smem_bytes<BN>(), stream, ta, tb, (const bf16*)bias, (bf16*)out0, (bf16*)out1,
+                M, Ncols, K, seed, thr, inv_keep);
+}
+
+// the 256-column tile where the output width divides by it
+template <int EPI>
+cudaError_t gemm(const void* A, const void* B, const void* bias, void* out0, void* out1, int M,
+                 int Ncols, int K, uint32_t seed, uint32_t thr, float inv_keep, cudaStream_t s) {
+  return Ncols % 256 == 0
+             ? launch_gemm<256, EPI>(A, B, bias, out0, out1, M, Ncols, K, seed, thr, inv_keep, s)
+             : launch_gemm<128, EPI>(A, B, bias, out0, out1, M, Ncols, K, seed, thr, inv_keep, s);
 }
 
 cudaError_t ffn(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                 void* y, void* pre, void* h, int N, int H, int F, uint32_t seed, uint32_t thr,
                 float inv_keep, cudaStream_t s) {
-  cudaError_t err = launch_gemm<BIAS_GELU>(x, w1, b1, pre, h, N, F, H, 0u, 0u, 1.0f, s);
+  cudaError_t err = gemm<BIAS_GELU>(x, w1, b1, pre, h, N, F, H, 0u, 0u, 1.0f, s);
   if (err != cudaSuccess) return err;
-  return thr == 0u ? launch_gemm<BIAS>(h, w2, b2, y, nullptr, N, H, F, 0u, 0u, 1.0f, s)
-                   : launch_gemm<BIAS_DROPOUT>(h, w2, b2, y, nullptr, N, H, F, seed, thr,
-                                               inv_keep, s);
+  return thr == 0u ? gemm<BIAS>(h, w2, b2, y, nullptr, N, H, F, 0u, 0u, 1.0f, s)
+                   : gemm<BIAS_DROPOUT>(h, w2, b2, y, nullptr, N, H, F, seed, thr, inv_keep, s);
 }
 
 cudaError_t ln_rows(const void* a, const void* b, const void* g, const void* beta, void* out,
                     int N, int H, float eps, cudaStream_t s) {
-  ln_rows_kernel<<<(N + LN_WARPS - 1) / LN_WARPS, 32 * LN_WARPS, 0, s>>>(
-      (const bf16*)a, (const bf16*)b, (const float*)g, (const float*)beta, (bf16*)out, N, H,
-      eps);
-  return cudaGetLastError();
+  return launch(ln_rows_kernel, dim3((N + LN_WARPS - 1) / LN_WARPS), 32 * LN_WARPS, 0, s,
+                (const bf16*)a, (const bf16*)b, (const float*)g, (const float*)beta, (bf16*)out,
+                N, H, eps);
 }
 
 bool bad_shape(int N, int H, int F) {
-  return N < 1 || H < BN || F < BN || H % BN != 0 || F % BN != 0 ||
+  return N < 1 || H < 128 || F < 128 || H % 128 != 0 || F % 128 != 0 ||
          (N + BM - 1) / BM > 65535;
 }
 
@@ -309,4 +324,32 @@ extern "C" int dst_ffn_ln_fwd(const void* r, const void* w1, const void* b1, con
   if (err == cudaSuccess) err = ffn(x1, w1, b1, w2, b2, z, pre, h, N, H, F, seed, thr, inv_keep, s);
   if (err == cudaSuccess) err = ln_rows(x1, z, g2, be2, out, N, H, eps, s);
   return (int)err;
+}
+
+// The pieces of the two entry points above, one launch each, for timing
+// them apart: one GEMM of the pair (epi 0: bias + GELU, out0 = pre and
+// out1 = h; 1: bias; 2: bias + dropout), C = A (M, K) . B (K, Ncols), and
+// one LayerNorm row pass, out = LN(a + b) (b may be null).
+extern "C" int dst_ffn_gemm(const void* A, const void* B, const void* bias, void* out0,
+                            void* out1, int M, int Ncols, int K, int epi, unsigned int seed,
+                            unsigned int thr, float inv_keep, void* stream) {
+  if (bad_shape(M, K, Ncols) || epi < BIAS_GELU || epi > BIAS_DROPOUT)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (epi == BIAS_GELU)
+    return (int)gemm<BIAS_GELU>(A, B, bias, out0, out1, M, Ncols, K, 0u, 0u, 1.0f, s);
+  if (epi == BIAS)
+    return (int)gemm<BIAS>(A, B, bias, out0, nullptr, M, Ncols, K, 0u, 0u, 1.0f, s);
+  return (int)gemm<BIAS_DROPOUT>(A, B, bias, out0, nullptr, M, Ncols, K, seed, thr, inv_keep, s);
+}
+
+// Dynamic shared memory of a GEMM block whose output is ncols wide.
+extern "C" long long dst_ffn_gemm_smem(int ncols) {
+  return ncols % 256 == 0 ? (long long)smem_bytes<256>() : (long long)smem_bytes<128>();
+}
+
+extern "C" int dst_ffn_ln_rows(const void* a, const void* b, const void* g, const void* beta,
+                               void* out, int N, int H, float eps, void* stream) {
+  if (bad_shape(N, H, 128)) return (int)cudaErrorInvalidValue;
+  return (int)ln_rows(a, b, g, beta, out, N, H, eps, (cudaStream_t)stream);
 }

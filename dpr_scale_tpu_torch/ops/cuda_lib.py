@@ -34,8 +34,8 @@ SOURCES = (
     "int_scan.cu", "mips_scan.cu",
 )
 HEADERS = (
-    "attention_ptx.cuh", "attention_tiles.cuh", "dropout_bits.cuh", "int_tile.cuh",
-    "score_tile.cuh",
+    "attention_ptx.cuh", "attention_tiles.cuh", "dropout_bits.cuh", "ffn_ptx.cuh",
+    "int_tile.cuh", "score_tile.cuh",
 )
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpr_scale_tpu_torch")
 NVCC_FLAGS = (
@@ -155,6 +155,12 @@ def library() -> ctypes.CDLL:
             lib.dst_ffn_fwd.restype = i
             lib.dst_ffn_ln_fwd.argtypes = [p] * 14 + [i, i, i, f, u, u, f, p]
             lib.dst_ffn_ln_fwd.restype = i
+            lib.dst_ffn_gemm.argtypes = [p] * 5 + [i, i, i, i, u, u, f, p]
+            lib.dst_ffn_gemm.restype = i
+            lib.dst_ffn_ln_rows.argtypes = [p] * 5 + [i, i, f, p]
+            lib.dst_ffn_ln_rows.restype = i
+            lib.dst_ffn_gemm_smem.argtypes = [i]
+            lib.dst_ffn_gemm_smem.restype = ll
             lib.dst_gather_serial.argtypes = [p] * 4 + [i, ll, i, i, i, i, p]
             lib.dst_gather_serial.restype = i
             lib.dst_gather_pipelined.argtypes = [p] * 4 + [i, ll, i, i, i, i, i, p]

@@ -6,7 +6,6 @@
 #pragma once
 
 #include <cassert>
-#include <thread>
 
 typedef __nv_bfloat16 bf16;
 
@@ -101,29 +100,11 @@ inline unsigned char* dynamic_smem() { return emu_smem; }
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
                    Args... args) {
-  if (smem > 232448 || threads % 32) return cudaErrorInvalidConfiguration;
-  gridDim = grid;
-  blockDim = dim3(threads);
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = dim3(x, y, z);
-        std::memset(emu_smem, 0xff, smem);  // NaN until written
-        std::vector<EmuWarp> warps(threads / 32);
-        std::barrier<> bar(threads);
-        emu_warps = warps.data();
-        emu_block_bar = &bar;
-        std::vector<std::thread> pool;
-        for (int t = 0; t < threads; ++t)
-          pool.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            emu_groups.clear();
-            emu_pending.clear();
-            kernel(args...);
-          });
-        for (std::thread& th : pool) th.join();
-      }
-  return cudaSuccess;
+  auto start = [] {
+    emu_groups.clear();
+    emu_pending.clear();
+  };
+  return emu_run(start, kernel, grid, threads, smem, args...);
 }
 
 }  // namespace dst_attn

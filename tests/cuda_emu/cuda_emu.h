@@ -1,23 +1,31 @@
-// A host emulation of the CUDA features the attention kernels
-// (dpr_scale_tpu_torch/csrc/attention_*.cu) use, so that their sources run
-// on a CPU under g++: one block at a time, one std::thread per CUDA thread,
-// std::barrier for __syncthreads and for the warp's collective instructions.
-// tests/test_torch_attention_emulated.py builds the kernels with it, beside
-// attention_ptx.cuh here in place of the PTX wrappers.
+// A host emulation of the CUDA features the attention and FFN kernels
+// (dpr_scale_tpu_torch/csrc/attention_*.cu, ffn_fwd.cu) use, so that their
+// sources run on a CPU under g++: one block at a time, one std::thread per
+// CUDA thread, std::barrier for __syncthreads, named barriers and the
+// warp's collective instructions.  tests/test_torch_attention_emulated.py
+// and tests/test_torch_ffn_emulated.py build the kernels with it, beside
+// attention_ptx.cuh / ffn_ptx.cuh here in place of the PTX wrappers.
 #pragma once
 
 #include <algorithm>
+#include <cassert>
 #include <barrier>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <thread>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <vector>
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 #define __restrict__ __restrict
 
 struct dim3 {
@@ -53,6 +61,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 using std::max;
 using std::min;
 
@@ -63,11 +72,19 @@ struct EmuWarp {
   uint32_t a[32][4], b[32][2];
   float f[32];
 };
+// bar.sync id, count: one barrier per id, made by its first caller
+struct EmuNamedBars {
+  std::mutex mu;
+  std::map<int, std::pair<int, std::unique_ptr<std::barrier<>>>> bars;
+};
 extern thread_local dim3 threadIdx;
 extern dim3 blockIdx, gridDim, blockDim;
 extern EmuWarp* emu_warps;
 extern std::barrier<>* emu_block_bar;
+extern EmuNamedBars* emu_named_bars;
+extern std::deque<std::barrier<>>* emu_warpgroup_bars;  // one per 128 threads
 extern unsigned char emu_smem[];
+constexpr size_t EMU_SMEM_BYTES = 232448;  // an H100 block's shared memory
 
 inline int emu_lane() { return threadIdx.x % 32; }
 inline EmuWarp& emu_warp() { return emu_warps[threadIdx.x / 32]; }
@@ -80,4 +97,65 @@ inline float __shfl_xor_sync(unsigned, float x, int mask) {
   const float r = w.f[emu_lane() ^ mask];
   w.bar.arrive_and_wait();
   return r;
+}
+
+inline void emu_bar_sync(int id, int count) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(emu_named_bars->mu);
+    auto& slot = emu_named_bars->bars[id];
+    if (!slot.second) slot = {count, std::make_unique<std::barrier<>>(count)};
+    assert(slot.first == count);
+    bar = slot.second.get();
+  }
+  bar->arrive_and_wait();
+}
+
+// the convergence of a warpgroup-wide .sync.aligned instruction
+inline void emu_warpgroup_sync() { (*emu_warpgroup_bars)[threadIdx.x / 128].arrive_and_wait(); }
+
+// grid x threads blocks of kernel(args...) with smem bytes of shared memory,
+// one block after another, on one std::thread per CUDA thread made once per
+// launch; each thread calls start() (resetting its own emulated state)
+// before each block, and the last thread to finish a block sets up the next
+template <typename Start, typename Kernel, typename... Args>
+cudaError_t emu_run(Start start, Kernel kernel, dim3 grid, int threads, size_t smem,
+                    Args... args) {
+  if (smem > EMU_SMEM_BYTES || threads % 32 || threads > 1024) return cudaErrorInvalidConfiguration;
+  gridDim = grid;
+  blockDim = dim3(threads);
+  const unsigned blocks = grid.x * grid.y * grid.z;
+  std::vector<EmuWarp> warps(threads / 32);
+  std::barrier<> bar(threads);
+  EmuNamedBars named;
+  std::deque<std::barrier<>> groups;
+  for (int g = 0; g < threads; g += 128) groups.emplace_back(std::min(128, threads - g));
+  emu_warps = warps.data();
+  emu_block_bar = &bar;
+  emu_named_bars = &named;
+  emu_warpgroup_bars = &groups;
+  unsigned block = 0;
+  auto enter = [&]() noexcept {  // block's index, fresh named barriers, NaN shared memory
+    blockIdx = dim3(block % grid.x, block / grid.x % grid.y, block / (grid.x * grid.y));
+    named.bars.clear();
+    std::memset(emu_smem, 0xff, smem);
+  };
+  enter();
+  auto next = [&]() noexcept {
+    ++block;
+    if (block < blocks) enter();
+  };
+  std::barrier<decltype(next)> between(threads, next);
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned b = 0; b < blocks; ++b) {
+        start();
+        kernel(args...);
+        between.arrive_and_wait();
+      }
+    });
+  for (std::thread& th : pool) th.join();
+  return cudaSuccess;
 }

@@ -300,7 +300,10 @@ def _assert_rel_close(name, got, want, rel=1e-2):
     assert err <= rel * scale, f"{name}: max err {err} vs max |ref| {scale}"
 
 
-_FFN_SHAPES = [(1, 128, 256), (200, 128, 256), (700, 256, 512), (4133, 768, 3072)]
+# ragged N, N one short of, at and one past the 128-row tile (and two
+# tiles), both tile widths (BN = 128: H = 128; 256 elsewhere) and bert_base
+_FFN_SHAPES = [(1, 128, 256), (200, 128, 256), (700, 256, 512), (4133, 768, 3072)] + [
+    (N, H, F) for H, F in ((256, 512), (768, 3072)) for N in (127, 128, 129, 255, 257)]
 
 
 @pytest.mark.cuda
@@ -341,6 +344,23 @@ def test_ffn_ln_kernel_matches_plain(cuda_device, N, H, F, rate):
         _assert_rel_close(name, a, b)
     if rate:
         assert torch.equal(got[3] != 0, want[3] != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_kernels_are_bitwise_repeatable(cuda_device, rate):
+    """Each output tile's fp32 sums run in one fixed order (no atomics, no
+    split K): two calls on the same inputs give the same bits."""
+    from dpr_scale_tpu_torch.ops import ffn
+
+    x, w1, b1, w2, b2 = _ffn_inputs(cuda_device, 1000, 768, 3072, 5)
+    lnp = [torch.full((768,), m, device=cuda_device) for m in (1.0, 0.0, 1.0, 0.0)]
+    first = ffn.ffn_fwd_kernel(x, w1, b1, w2, b2, 3, rate) + ffn.ffn_ln_fwd_kernel(
+        x, w1, b1, w2, b2, *lnp, 3, rate)
+    second = ffn.ffn_fwd_kernel(x, w1, b1, w2, b2, 3, rate) + ffn.ffn_ln_fwd_kernel(
+        x, w1, b1, w2, b2, *lnp, 3, rate)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
