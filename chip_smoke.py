@@ -98,7 +98,10 @@ training (``cli.train``, dropout 0.1). Phases:
      bracket elsewhere), maxima within MAX_REL of max |ref|, repeated calls
      the same bits; their times beside the plain version, a cuBLAS yardstick
      (fp32-output products over 131,072-row chunks plus the reduction) and
-     the bound;
+     the bound (groupmax also queued behind a GPU sleep, and its share of
+     the bound); groupmax's launches by route, the B = 512 and 64 cases on
+     the wgmma kernel; that kernel's registers, spills, shared memory and
+     HGMMA / UTMALDG counts in its SASS;
  15. the retrieval CLI slice at full width (conf/nq.yaml, bert_base from
      seed 0, the phase-4 vocab): ``cli.generate_embeddings`` encodes 4,096
      passages, fp16 distractors fill a second shard up to 2,097,152 rows
@@ -109,7 +112,8 @@ training (``cli.train``, dropout 0.1). Phases:
      ``fused``, ``approx`` and ``exact_sort`` over one built index; every
      method's DPR JSON equals a brute-force exact top-100 (``check_exact``),
      ``eval.qa_eval`` equals a recount with ``has_answers``, the
-     count_above and groupmax counters must rise; then
+     count_above and groupmax counters must rise, every groupmax launch on
+     the wgmma route; then
      ``MipsIndex.benchmark`` times groupmax, fused, auto and exact_sort at
      B = 512 over the 2,097,152-row block;
  16. the two integer sweep kernels vs their plain versions: int_groupmax
@@ -119,14 +123,17 @@ training (``cli.train``, dropout 0.1). Phases:
      planes, and ragged (B = 7, D = 100); int8_tile_max (the tool's
      pallas_dot) on the int8 and the tool's rows; values and rows exactly
      equal and repeatable; their times beside the plain version, a
-     ``torch._int_mm`` yardstick and the bound;
+     ``torch._int_mm`` yardstick and the bound (int_groupmax also queued,
+     with its share of the bound); int_groupmax's launches by route, the
+     D = 768 cases on the wgmma kernel; that kernel's registers, spills,
+     shared memory and HGMMA / UTMALDG counts in its SASS;
  17. the quantised tiers on phase 15's shards and questions:
      ``cli.run_retrieval`` with ``task.mips_method=int8`` and with ``=int4
      task.rerank_oversample=4``, ``retrieve()`` with int8 at
      ``int8_query_planes=2`` and int4 without rerank; unreranked results
      equal the plain path's dequantised top-100 on the card, reranked
      scores the fp32 q . row of their shard rows; the int_groupmax counter
-     must rise; recall@100 against the exact fp32 top-100, peak memory and
+     must rise, every launch on the wgmma route; recall@100 against the exact fp32 top-100, peak memory and
      ``MipsIndex.benchmark`` of int8, int4 and groupmax at B = 512 over the
      2,097,152-row block.
 
@@ -309,8 +316,9 @@ def phase_device():
 def kernel_resources(prefix):
     """Registers, stack and spills of each kernel of the build whose name
     starts with ``prefix``, as ptxas printed them (``cuda_lib.build_log()``),
-    one line per template instance ``name<a, b>`` (the attention kernels'
-    width and dropout, the FFN GEMM's tile width and epilogue)."""
+    one line per template instance ``name<a, b, ...>`` (the attention
+    kernels' width and dropout, the FFN GEMM's tile width and epilogue, the
+    sweeps' packing, planes, query tile and rows flag)."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     found, name = {}, None
@@ -319,10 +327,11 @@ def kernel_resources(prefix):
         if m:
             # the function's own name: the digit-free run before its template
             # arguments (the anonymous namespace's name holds the file's)
-            t = re.search(r"([A-Za-z_]+_kernel)(?:ILi(\d+)EL[ib](\d+)E)?", m.group(1))
+            t = re.search(r"([A-Za-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
             name = None
             if t and t.group(1).startswith(prefix):
-                name = t.group(1) + (f"<{t.group(2)}, {t.group(3)}>" if t.group(2) else "")
+                args = re.findall(r"L[ib](\d+)E", t.group(2) or "")
+                name = t.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif name and ("Used" in line or "stack frame" in line):
             found.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return [f"{n}: {'; '.join(v)}" for n, v in sorted(found.items())]
@@ -1064,7 +1073,7 @@ def phase_ffn_kernels():
     lib = cuda_lib.library()
     print(f"ffn_gemm_kernel shared memory a block: GEMM1 (F={FFN_F} wide) "
           f"{lib.dst_ffn_gemm_smem(FFN_F)} bytes, GEMM2 (H={FFN_H}) {lib.dst_ffn_gemm_smem(FFN_H)}")
-    print(ffn_sass_check())
+    print(sass_check("ffn_gemm_kernel", "FFN GEMM"))
     out = {}
     N = 2 * TRAIN_BATCH * 256
     x, w, lnp = _ffn_inputs(dev, N, SEED + 7)
@@ -1165,25 +1174,28 @@ def _ffn_split(x, w, lnp, seed, rate, eps=1e-12):
             "gemm2": device_ms(gemm2), "ln2": device_ms(ln(x, y, *lnp[2:]))}
 
 
-def ffn_sass_check():
+def sass_check(prefix, label):
     """Whether ``cuobjdump --dump-sass`` of the kernel library shows HGMMA
-    (wgmma) and UTMALDG (TMA loads) in each FFN GEMM kernel, where the
-    toolkit has cuobjdump."""
+    (wgmma; IGMMA for its integer form) and UTMALDG (TMA loads) in each
+    instance of the kernel named ``prefix``, where the toolkit has
+    cuobjdump; one line."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return "cuobjdump not found beside nvcc: FFN GEMM SASS not checked"
+        return f"cuobjdump not found beside nvcc: {label} SASS not checked"
     sass = subprocess.run([tool, "--dump-sass", cuda_lib.build()], capture_output=True,
                           text=True, timeout=600).stdout
     found = []
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "ffn_gemm_kernel" in name:
-            t = re.search(r"ffn_gemm_kernelILi(\d+)ELi(\d+)E", name)
-            found.append(f"ffn_gemm_kernel<{t.group(1)}, {t.group(2)}>: HGMMA "
-                         f"{fn.count('HGMMA')}, UTMALDG {fn.count('UTMALDG')}" if t else name)
-    return "FFN GEMM SASS (instruction counts): " + ("; ".join(found) or "no ffn_gemm_kernel found")
+        t = re.search(r"(?<![A-Za-z_])" + prefix + r"I((?:L[ib]\d+E)+)E", name)
+        if t:
+            args = ", ".join(re.findall(r"L[ib](\d+)E", t.group(1)))
+            igmma = f"IGMMA {fn.count('IGMMA')}, " if "IGMMA" in fn else ""  # s8 wgmma
+            found.append(f"{prefix}<{args}>: HGMMA {fn.count('HGMMA')}, {igmma}UTMALDG "
+                         f"{fn.count('UTMALDG')}")
+    return f"{label} SASS (instruction counts): " + ("; ".join(found) or f"no {prefix} found")
 
 
 def _gather_bound(vecs, slots, q):
@@ -1745,10 +1757,16 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
         args = {"count_above": (q, corpus, tau), "groupmax": (q, corpus),
                 "tile_max_scores": (q, corpus, tile)}
         for name, (kernel, plain, yard) in kernels.items():
+            routes = dict(getattr(kernel, "launches_by_route", {}))
             got, again = kernel(*args[name]), kernel(*args[name])
             want = plain(*args[name])
             if dev.type == "cuda":
                 torch.cuda.synchronize()
+            if routes:  # groupmax: the route each shape takes
+                routes = {r: n - routes[r] for r, n in kernel.launches_by_route.items()}
+                print(f"{name} ({what}): launches by route {routes}")
+                if dtype_name == "bfloat16" and D == MIPS_DIM and routes["wgmma"] != 2:
+                    raise AssertionError(f"{name} ({what}) did not run the wgmma kernel")
             got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name} ({what}): repeated calls give other bits")
@@ -1780,16 +1798,36 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
                 ms = cuda_ms(lambda: kernel(*args[name]))
                 plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, warmup=1)
                 yard_ms = cuda_ms(lambda: yard(*args[name]), reps=5, warmup=1)
+                timing = {"ms": ms}
+                if name == "groupmax":  # redesigned: queued calls too, as the FFN's
+                    timing = {"ms": device_ms(lambda: kernel(*args[name]), calls=10),
+                              "single_ms": ms}
+                    print(f"{name} ({what}): kernel {timing['ms']:.4f} ms queued, "
+                          f"{b_ms / timing['ms']:.1%} of its bound")
                 print(f"{name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
                       f"yardstick {yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = "
                       f"{b_ms / ms:.1%} of the kernel's time; no single PyTorch call computes it")
-                if "ms" not in entries[name]:
-                    entries[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                         library_ms=None)
+                if "plain_ms" not in entries[name]:
+                    entries[name].update(**timing, plain_ms=plain_ms, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=None)
         del corpus, q, tau
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        print(sweep_build_report("groupmax_wgmma_kernel", "groupmax wgmma",
+                                 lambda lib: {f"B={B}": lib.dst_groupmax_smem(B) for B in (512, 64)}))
     return entries
+
+
+def sweep_build_report(prefix, label, smem):
+    """The registers / spills of each instance of a wgmma sweep kernel as
+    ptxas printed them, its blocks' dynamic shared memory (``smem(lib)``:
+    {case: bytes}) and the HGMMA / UTMALDG counts of its SASS."""
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    return "\n".join(kernel_resources(prefix) + [
+        f"{prefix} dynamic shared memory a block: {smem(cuda_lib.library())}",
+        sass_check(prefix, label)])
 
 
 def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
@@ -1843,6 +1881,7 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
         raise AssertionError(f"query_reps.pkl: {q_emb.shape}, finite={np.isfinite(q_emb).all()}")
 
     mips_kernels.count_above_kernel.launches = mips_kernels.groupmax_kernel.launches = 0
+    mips_kernels.groupmax_kernel.launches_by_route = dict.fromkeys(mips_kernels.ROUTES, 0)
     outputs = {}
     for method in ("groupmax", "auto"):
         outputs[method] = os.path.join(work, f"{method}.json")
@@ -1869,6 +1908,7 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
               f"wall (search, JSON write); repairs of the last batch {index.last_repair}")
     launches = {"count_above": mips_kernels.count_above_kernel.launches,
                 "groupmax": mips_kernels.groupmax_kernel.launches}
+    routes = dict(getattr(mips_kernels.groupmax_kernel, "launches_by_route", {}))
 
     q = torch.from_numpy(q_emb).to(dev)
     for method in ("groupmax", "auto"):  # the CLI's own index is gone: one batch again
@@ -1896,6 +1936,9 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     print(f"retrieval-path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the retrieval path never launched: {launches}")
+    print(f"groupmax launches by route: {routes}")
+    if routes["wgmma"] != launches["groupmax"]:
+        raise AssertionError(f"the groupmax runs did not take the wgmma kernel: {routes}")
 
     # ---- benchmark(): the methods over the 2,097,152-row block ----
     blk, n_valid, _off = max(index._blocks, key=lambda b: b[0].shape[0])
@@ -2013,11 +2056,16 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
         ms = cuda_ms(run)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         yard_ms = library_ms(yard)
+        timing = {"ms": ms}
+        if name == "int_groupmax":  # redesigned: queued calls too, as the FFN's
+            timing = {"ms": device_ms(run, calls=10), "single_ms": ms}
+            print(f"{name} ({what}): kernel {timing['ms']:.4f} ms queued, "
+                  f"{b_ms / timing['ms']:.1%} of its bound")
         print(f"{name} ({what}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
               f"yardstick {yard_ms} ms, bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of the "
               "kernel's time; no single PyTorch call computes it")
-        if "ms" not in entries[name]:
-            entries[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        if "plain_ms" not in entries[name]:
+            entries[name].update(**timing, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=None, yardstick_ms=yard_ms)
 
     for B, N, D, packed, planes, timed in cases:
@@ -2029,8 +2077,14 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
         what = f"B={B} N={N} D={D} {'int4' if packed else 'int8'} planes={planes}"
         args = (q8, corpus, sc, qsc)
         kw = {"packed": packed, "planes": planes}
+        routes = dict(getattr(ik.int_groupmax_kernel, "launches_by_route", {}))
         got, again = ik.int_groupmax_kernel(*args, **kw), ik.int_groupmax_kernel(*args, **kw)
         want = ik.int_groupmax_plain(*args, **kw)
+        if routes:  # the route each shape takes
+            routes = {r: n - routes[r] for r, n in ik.int_groupmax_kernel.launches_by_route.items()}
+            print(f"int_groupmax ({what}): launches by route {routes}")
+            if D == MIPS_DIM and routes["wgmma"] != 2:
+                raise AssertionError(f"int_groupmax ({what}) did not run the wgmma kernel")
         out_bytes = 2 * 4 * (N // 8) * B
         record("int_groupmax", what, got, again, want, timed,
                lambda: ik.int_groupmax_kernel(*args, **kw),
@@ -2039,11 +2093,14 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
                nbytes(*args) + out_bytes, 2 * planes * B * N * D)
         del got, again, want
         if timed:  # the search's form: no argmax stored
-            ms = cuda_ms(lambda: ik.int_groupmax_kernel(*args, **kw, want_rows=False))
+            bare = lambda: ik.int_groupmax_kernel(*args, **kw, want_rows=False)  # noqa: E731
+            ms = cuda_ms(bare)
             b_ms, b_by = bound(nbytes(*args) + out_bytes // 2, 2 * planes * B * N * D,
                                peak=INT8_OPS)
+            queued = device_ms(bare, calls=10) if dev.type == "cuda" else ms
             print(f"int_groupmax ({what}) without rows, as the search calls it: kernel {ms:.4f} "
-                  f"ms, bound {b_ms:.4f} ms ({b_by})")
+                  f"ms ({queued:.4f} ms queued, {b_ms / queued:.1%} of its bound), bound "
+                  f"{b_ms:.4f} ms ({b_by})")
         if planes == 1 and (tool or not packed):
             x8 = torch.cat([ik.unpack_int4(corpus[lo : lo + YARD_CHUNK])  # int32 temporaries
                             for lo in range(0, N, YARD_CHUNK)]) if packed else corpus
@@ -2059,6 +2116,12 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
         del q8, corpus, sc, qsc, args
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        print(sweep_build_report(
+            "int_groupmax_wgmma_kernel", "int_groupmax wgmma",
+            lambda lib: {f"{'int4' if p else 'int8'} planes={n} B={B}":
+                         lib.dst_int_groupmax_smem(B, p, n)
+                         for p in (0, 1) for n in (1, 2) for B in (512, 64)}))
     return entries
 
 
@@ -2135,6 +2198,7 @@ def phase_int_retrieval(work, dev, n_queries=RETRIEVAL_QUERIES, extra=(), bench_
         torch.cuda.reset_peak_memory_stats(dev)
 
     int_kernels.int_groupmax_kernel.launches = int_kernels.int8_tile_max_kernel.launches = 0
+    int_kernels.int_groupmax_kernel.launches_by_route = dict.fromkeys(int_kernels.ROUTES, 0)
     outputs = {}
     for tag, opts in (("int8", ["task.mips_method=int8"]),
                       ("int4_rerank4", ["task.mips_method=int4", "task.rerank_oversample=4"])):
@@ -2158,6 +2222,7 @@ def phase_int_retrieval(work, dev, n_queries=RETRIEVAL_QUERIES, extra=(), bench_
               f"wall (search, JSON write); repairs of the last batch {indexes[tag].last_repair}")
     launches = {"int_groupmax": int_kernels.int_groupmax_kernel.launches,
                 "int8_tile_max": int_kernels.int8_tile_max_kernel.launches}
+    routes = dict(int_kernels.int_groupmax_kernel.launches_by_route)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
 
     # ---- checks: the plain path's dequantised top-k; the rerank's fp32 rescores
@@ -2217,6 +2282,9 @@ def phase_int_retrieval(work, dev, n_queries=RETRIEVAL_QUERIES, extra=(), bench_
     print(f"quantised-retrieval launches: {launches}")
     if launches["int_groupmax"] < 1:
         raise AssertionError(f"a kernel of the quantised path never launched: {launches}")
+    print(f"int_groupmax launches by route: {routes}")
+    if routes["wgmma"] != launches["int_groupmax"]:
+        raise AssertionError(f"an int_groupmax run did not take the wgmma kernel: {routes}")
     return launches
 
 

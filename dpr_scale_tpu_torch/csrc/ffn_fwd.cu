@@ -47,18 +47,18 @@
 // 16-byte vectors, rows >= N masked.  The LayerNorms need whole rows of H,
 // which a BN-column tile does not have, so LN1 and LN2 (with the residual
 // add) stay row kernels, one warp per row, before and after the GEMMs.
-// The instructions' wrappers are in ffn_ptx.cuh.
+// The instructions' wrappers are in hopper_ptx.cuh.
 #include <math.h>
 #include <stdint.h>
 
-#include "ffn_ptx.cuh"  // first: the emulation defines the CUDA keywords there
+#include "hopper_ptx.cuh"  // first: the emulation defines the CUDA keywords there
 #include "dropout_bits.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-using namespace dst_ffn;
+using namespace dst_hopper;
 
 constexpr int BM = 128, BK = 64, STAGES = 4;  // BK * 2 bytes = the 128-byte swizzle span
 constexpr int THREADS = 384;                  // two consumer warpgroups, one producer

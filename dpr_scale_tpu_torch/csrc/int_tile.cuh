@@ -5,7 +5,8 @@
 // (B, N) scores never reach device memory.  The integer counterpart of
 // score_tile.cuh, kept apart so that the float kernels keep their bits.
 //
-// int8 x int8 -> int32 on the tensor cores with mma.sync m16n8k32: exact, so
+// int8 x int8 -> int32 on the tensor cores with mma.sync m16n8k32 (the
+// wrapper is in hopper_ptx.cuh): exact, so
 // the tile equals any other order of the same integer sums.  The corpus is
 // int8 (N, D) or, PACKED, int4 nibbles (N, D / 2) in the column-block layout
 // (byte j holds dim j in its low nibble, dim j + D / 2 in its high one).  A
@@ -16,6 +17,8 @@
 // PLANES query planes (two accumulator sets), so the planes of a query meet
 // in one epilogue.  No cp.async/TMA pipelining yet: loads and MMAs alternate.
 #pragma once
+
+#include "hopper_ptx.cuh"  // mma.sync m16n8k32 s8; first under the emulation
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,14 +131,6 @@ __device__ inline void stage_unpack(int8_t* lo, int8_t* hi, const int8_t* src, i
   }
 }
 
-__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ inline uint32_t ld32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 // sm.s <- the integer dots of corpus rows [rbase, rbase + r_valid) with
@@ -173,7 +168,8 @@ __device__ inline void score_tile(const Smem<PACKED, PLANES>& sm, const Operands
         for (int p = 0; p < PLANES; ++p) {
           const int8_t* b_base = sm.q + (p * NSUB + s) * QT * LD + g * LD + t * 4 + kk;
           for (int j = 0; j < NT; ++j)
-            mma_s8(acc[p][j], a, ld32(b_base + j * 8 * LD), ld32(b_base + j * 8 * LD + 16));
+            dst_hopper::mma_s8_m16n8k32(acc[p][j], a, ld32(b_base + j * 8 * LD),
+                                        ld32(b_base + j * 8 * LD + 16));
         }
       }
     }

@@ -34,8 +34,8 @@ SOURCES = (
     "int_scan.cu", "mips_scan.cu",
 )
 HEADERS = (
-    "attention_ptx.cuh", "attention_tiles.cuh", "dropout_bits.cuh", "ffn_ptx.cuh",
-    "int_tile.cuh", "score_tile.cuh",
+    "attention_ptx.cuh", "attention_tiles.cuh", "dropout_bits.cuh", "gmax_sweep.cuh",
+    "hopper_ptx.cuh", "int_tile.cuh", "score_tile.cuh",
 )
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dpr_scale_tpu_torch")
 NVCC_FLAGS = (
@@ -145,10 +145,18 @@ def library() -> ctypes.CDLL:
             lib.dst_count_above.restype = i
             lib.dst_groupmax.argtypes = [p, p, p, p, i, ll, i, i, p]
             lib.dst_groupmax.restype = i
+            lib.dst_groupmax_route.argtypes = [p, p, ll, i, i]
+            lib.dst_groupmax_route.restype = i
+            lib.dst_groupmax_smem.argtypes = [i]
+            lib.dst_groupmax_smem.restype = ll
             lib.dst_tile_max.argtypes = [p, p, p, i, ll, i, ll, i, p]
             lib.dst_tile_max.restype = i
             lib.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
             lib.dst_int_groupmax.restype = i
+            lib.dst_int_groupmax_route.argtypes = [p, p, i, i]
+            lib.dst_int_groupmax_route.restype = i
+            lib.dst_int_groupmax_smem.argtypes = [i, i, i]
+            lib.dst_int_groupmax_smem.restype = ll
             lib.dst_int8_tile_max.argtypes = [p, p, p, i, ll, i, ll, p]
             lib.dst_int8_tile_max.restype = i
             lib.dst_ffn_fwd.argtypes = [p] * 8 + [i, i, i, u, u, f, p]
@@ -172,8 +180,8 @@ def library() -> ctypes.CDLL:
 
 
 class _TimedLibrary:
-    """The loaded library with each entry point's call bracketed by CUDA
-    events on the caller's current stream; ``calls`` collects
+    """The loaded library with each launching entry point's call bracketed
+    by CUDA events on the caller's current stream; ``calls`` collects
     (entry point, start event, end event)."""
 
     def __init__(self, lib: ctypes.CDLL):
@@ -184,6 +192,8 @@ class _TimedLibrary:
         import torch
 
         fn = getattr(self._lib, name)
+        if name.endswith(("_route", "_smem")):  # queries of the host side: no launch
+            return fn
 
         def timed(*args):
             start = torch.cuda.Event(enable_timing=True)

@@ -14,7 +14,9 @@ holds dim j in its low nibble and dim j + D/2 in its high nibble):
   one plane it is ``i4_groupmax`` (``:160``); the dequantised score is the
   JAX search's ``float32(int32 dot) * row_scale * q_scale`` in that order,
   with two planes ``(s_hi + s_lo * float32(1/127)) * row_scale * q_scale``.
-  ``want_rows=False`` skips the argmax (the search rescores whole groups);
+  ``want_rows=False`` skips the argmax (the search rescores whole groups).
+  Widths TMA can address take the wgmma kernel, the rest the older int8
+  tile (``int_groupmax_kernel.launches_by_route`` counts each);
 * :func:`int8_tile_max` ``(N // tile, B)`` int32 — the max integer dot of
   each ``tile``-row tile, N % tile == 0: ``pallas_dot`` (``:111``), the
   tool's int8 baseline (no caller in either package).
@@ -161,7 +163,10 @@ def int_groupmax_kernel(q8, corpus, row_scales, q_scales, *, packed: bool, plane
     vals = torch.empty((N // GMAX_ROWS, B), dtype=torch.float32, device=corpus.device)
     rows = torch.empty_like(vals, dtype=torch.int32) if want_rows else None
     with torch.cuda.device(corpus.device):
-        rc = cuda_lib.library().dst_int_groupmax(
+        lib = cuda_lib.library()
+        route = ROUTES[lib.dst_int_groupmax_route(q8.data_ptr(), corpus.data_ptr(), D,
+                                                  int(packed))]
+        rc = lib.dst_int_groupmax(
             q8.data_ptr(), corpus.data_ptr(), row_scales.data_ptr(), q_scales.data_ptr(),
             vals.data_ptr(), rows.data_ptr() if want_rows else None,
             B, N, D, int(packed), planes, INV127,
@@ -169,10 +174,13 @@ def int_groupmax_kernel(q8, corpus, row_scales, q_scales, *, packed: bool, plane
         )
     cuda_lib.check(rc, "int_groupmax")
     int_groupmax_kernel.launches += 1
+    int_groupmax_kernel.launches_by_route[route] += 1
     return vals, rows
 
 
+ROUTES = ("int_tile", "wgmma")  # dst_int_groupmax_route's 0 and 1
 int_groupmax_kernel.launches = 0
+int_groupmax_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def int_groupmax(q8, corpus, row_scales, q_scales, *, packed: bool, planes: int = 1,

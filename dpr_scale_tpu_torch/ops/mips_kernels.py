@@ -12,7 +12,10 @@ dtype, sums the products in fp32 and returns the JAX function's layout:
   (``csrc/mips_scan.cu``);
 * :func:`groupmax` ``(t1 (N // 8, B), t2 (N // 128, B))`` fp32 — the max of
   every ``GMAX_ROWS``-row group and of every ``GMAX_TIER2`` such groups,
-  N % 128 == 0: the sweep of ``method="groupmax"`` (``csrc/mips_scan.cu``);
+  N % 128 == 0: the sweep of ``method="groupmax"`` (``csrc/mips_scan.cu``:
+  a bf16 corpus whose rows TMA can address takes the wgmma kernel, the rest
+  the older score-tile kernel; ``groupmax_kernel.launches_by_route`` counts
+  each);
 * :func:`tile_max_scores` ``(B, N // tile)`` fp32 — the max score of each
   ``tile``-row corpus tile, N % tile == 0 (``csrc/mips_scan.cu``; no caller
   in either package).
@@ -204,17 +207,23 @@ def groupmax_kernel(queries, corpus):
     B, N, D = queries.shape[0], corpus.shape[0], corpus.shape[1]
     t1 = torch.empty((N // GMAX_ROWS, B), dtype=torch.float32, device=corpus.device)
     t2 = torch.empty((N // _GMAX_SPAN, B), dtype=torch.float32, device=corpus.device)
+    dtype = _KERNEL_DTYPES[corpus.dtype]
     with torch.cuda.device(corpus.device):
-        rc = cuda_lib.library().dst_groupmax(
+        lib = cuda_lib.library()
+        route = ROUTES[lib.dst_groupmax_route(q.data_ptr(), corpus.data_ptr(), N, D, dtype)]
+        rc = lib.dst_groupmax(
             q.data_ptr(), corpus.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-            B, N, D, _KERNEL_DTYPES[corpus.dtype], torch.cuda.current_stream().cuda_stream,
+            B, N, D, dtype, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(rc, "groupmax")
     groupmax_kernel.launches += 1
+    groupmax_kernel.launches_by_route[route] += 1
     return t1, t2
 
 
+ROUTES = ("score_tile", "wgmma")  # dst_groupmax_route's 0 and 1
 groupmax_kernel.launches = 0
+groupmax_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def groupmax(queries, corpus):

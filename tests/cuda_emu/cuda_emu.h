@@ -1,13 +1,15 @@
-// A host emulation of the CUDA features the attention and FFN kernels
-// (dpr_scale_tpu_torch/csrc/attention_*.cu, ffn_fwd.cu) use, so that their
-// sources run on a CPU under g++: one block at a time, one std::thread per
-// CUDA thread, std::barrier for __syncthreads, named barriers and the
-// warp's collective instructions.  tests/test_torch_attention_emulated.py
-// and tests/test_torch_ffn_emulated.py build the kernels with it, beside
-// attention_ptx.cuh / ffn_ptx.cuh here in place of the PTX wrappers.
+// A host emulation of the CUDA features the attention, FFN and group-max
+// sweep kernels (dpr_scale_tpu_torch/csrc/attention_*.cu, ffn_fwd.cu,
+// mips_scan.cu, int_scan.cu) use, so that their sources run on a CPU under
+// g++: one block at a time, one std::thread per CUDA thread, std::barrier
+// for __syncthreads, named barriers, the warp's collective instructions and
+// the few intrinsics they call.  tests/test_torch_{attention,ffn,mips}_
+// emulated.py build the kernels with it, beside attention_ptx.cuh /
+// hopper_ptx.cuh / mma.h here in place of the PTX wrappers and wmma.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <cassert>
 #include <barrier>
 #include <map>
@@ -18,6 +20,7 @@
 #include <cstdint>
 #include <cstring>
 #include <deque>
+#include <type_traits>
 #include <vector>
 
 #define __global__
@@ -62,6 +65,21 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
+// four byte lanes, each a - b modulo 256
+inline unsigned __vsub4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int k = 0; k < 32; k += 8) r |= (((a >> k) - (b >> k)) & 0xffu) << k;
+  return r;
+}
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 using std::max;
 using std::min;
 
@@ -71,6 +89,7 @@ struct EmuWarp {
   const void* ptr[32];
   uint32_t a[32][4], b[32][2];
   float f[32];
+  int i[32];
 };
 // bar.sync id, count: one barrier per id, made by its first caller
 struct EmuNamedBars {
@@ -95,6 +114,15 @@ inline float __shfl_xor_sync(unsigned, float x, int mask) {
   w.f[emu_lane()] = x;
   w.bar.arrive_and_wait();
   const float r = w.f[emu_lane() ^ mask];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+inline int __shfl_xor_sync(unsigned, int x, int mask) {
+  EmuWarp& w = emu_warp();
+  w.i[emu_lane()] = x;
+  w.bar.arrive_and_wait();
+  const int r = w.i[emu_lane() ^ mask];
   w.bar.arrive_and_wait();
   return r;
 }

@@ -1,10 +1,11 @@
-// The functions of dpr_scale_tpu_torch/csrc/ffn_ptx.cuh on the host
+// The functions of dpr_scale_tpu_torch/csrc/hopper_ptx.cuh on the host
 // (cuda_emu.h), by the PTX ISA's definitions:
 //
-// * a tensor map is (base, rows, cols, box); a TMA load copies its box into
-//   shared memory with the 128-byte swizzle (the 16-byte chunk bits [4, 7)
-//   of each shared-memory address XOR its bits [7, 10)), zero-fills the
-//   part past the matrix and completes its bytes on the mbarrier;
+// * a tensor map is (base, element size, rows, cols, box); a TMA load copies
+//   its box into shared memory with the 128-byte swizzle (the 16-byte chunk
+//   bits [4, 7) of each shared-memory address XOR its bits [7, 10)),
+//   zero-fills the part past the matrix and completes its bytes on the
+//   mbarrier;
 // * an mbarrier counts pending arrivals and transaction bytes and flips its
 //   phase when both reach zero; try_wait.parity(P) is true once the phase of
 //   parity P has completed;
@@ -12,12 +13,16 @@
 //   their .sync.aligned asks; wgmma.mma_async is recorded, and runs when
 //   wgmma.wait_group retires its group (every thread of the warpgroup has
 //   run its share before any leaves the wait), reading shared memory
-//   through the descriptors then: A K-major
-//   (row r, column k at start + (r / 8) SBO + (r % 8) 128 + 2 k), B
-//   MN-major (row k, column n at start + (n / 64) LBO + 2 (n % 64) +
-//   (k / 8) SBO + (k % 8) 128), each address swizzled; thread t of the
-//   warpgroup holds D[4 j + 2 h + e] = (row 16 (t / 32) + (t % 32) / 4 + 8 h,
-//   column 8 j + 2 (t % 4) + e);
+//   through the descriptors then: A K-major (row r, byte b of its K slice
+//   at start + (r / 8) SBO + (r % 8) 128 + b); B MN-major (bf16 row k,
+//   column n at start + (n / 64) LBO + 2 (n % 64) + (k / 8) SBO + (k % 8)
+//   128) or K-major (column n, byte b at start + (n / 8) SBO + (n % 8) 128
+//   + b), each address swizzled; bf16 products sum in fp32 over k16, s8
+//   products exactly in int32 over k32; thread t of the warpgroup holds
+//   D[4 j + 2 h + e] = (row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 j +
+//   2 (t % 4) + e);
+// * mma.sync m16n8k32 s8 exchanges the warp's fragments through shared
+//   state (the layout of hopper_ptx.cuh's comment);
 // * fence.proxy.async, the barrier-init fence and setmaxnreg do nothing;
 //   bar.sync is emu_bar_sync.
 #pragma once
@@ -30,18 +35,30 @@
 #define __grid_constant__
 
 struct CUtensorMap {
-  const __nv_bfloat16* base;
-  int rows, cols, box_rows, box_cols;
+  const unsigned char* base;
+  int elem;  // bytes an element
+  long long rows, cols;
+  int box_rows, box_cols;
 };
 
-namespace dst_ffn {
+namespace dst_hopper {
 
-inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int rows, int cols,
-                             int box_rows, int box_cols) {
-  if (box_cols * 2 != 128 || box_rows > 256 || (uintptr_t)base % 16 || cols % 8)
+inline cudaError_t emu_make_tmap(CUtensorMap* map, const void* base, int elem, long long rows,
+                                 long long cols, int box_rows, int box_cols) {
+  if (box_cols * elem != 128 || box_rows > 256 || (uintptr_t)base % 16 || (cols * elem) % 16)
     return cudaErrorInvalidValue;
-  *map = {static_cast<const __nv_bfloat16*>(base), rows, cols, box_rows, box_cols};
+  *map = {static_cast<const unsigned char*>(base), elem, rows, cols, box_rows, box_cols};
   return cudaSuccess;
+}
+
+inline cudaError_t make_tmap(CUtensorMap* map, const void* base, long long rows, long long cols,
+                             int box_rows, int box_cols) {
+  return emu_make_tmap(map, base, 2, rows, cols, box_rows, box_cols);
+}
+
+inline cudaError_t make_tmap_bytes(CUtensorMap* map, const void* base, long long rows,
+                                   long long cols, int box_rows) {
+  return emu_make_tmap(map, base, 1, rows, cols, box_rows, 128);
 }
 
 inline uint32_t smem_addr(const void* p) {
@@ -126,15 +143,18 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 inline void tma_load(void* dst, const CUtensorMap* map, int row, int col, uint64_t* bar) {
   const uint32_t d = smem_addr(dst);
   assert(d % 1024 == 0);
+  const int e = map->elem;
   for (int r = 0; r < map->box_rows; ++r)
     for (int c = 0; c < map->box_cols; ++c) {
-      const int gr = row + r, gc = col + c;
+      const long long gr = (long long)row + r, gc = (long long)col + c;
       const bool in = gr >= 0 && gr < map->rows && gc >= 0 && gc < map->cols;
-      const __nv_bfloat16 v = in ? map->base[(size_t)gr * map->cols + gc] : __nv_bfloat16{0};
-      const uint32_t a = swizzle128(d + (uint32_t)(r * map->box_cols + c) * 2);
-      std::memcpy(emu_smem + a, &v, 2);
+      const uint32_t a = swizzle128(d + (uint32_t)(r * map->box_cols + c) * e);
+      if (in)
+        std::memcpy(emu_smem + a, map->base + (gr * map->cols + gc) * e, e);
+      else
+        std::memset(emu_smem + a, 0, e);
     }
-  emu_complete_tx(bar, (uint32_t)(map->box_rows * map->box_cols * 2));
+  emu_complete_tx(bar, (uint32_t)(map->box_rows * map->box_cols * e));
 }
 
 // ---- warpgroups ----
@@ -159,10 +179,13 @@ inline uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+enum EmuWgmmaKind { EMU_BF16_MN, EMU_BF16_K, EMU_S8 };
+
 struct EmuWgmma {
   uint64_t da, db;
-  float* d;
+  void* d;
   int n;
+  EmuWgmmaKind kind;
 };
 inline thread_local std::vector<EmuWgmma> emu_wgmma_pending;
 inline thread_local std::vector<std::vector<EmuWgmma>> emu_wgmma_groups;
@@ -173,6 +196,8 @@ inline float emu_smem_bf16(uint32_t addr) {
   return __bfloat162float(v);
 }
 
+inline int emu_smem_s8(uint32_t addr) { return (int)(int8_t)emu_smem[swizzle128(addr)]; }
+
 // the descriptor's fields: start address, leading and stride byte offsets
 struct EmuDesc {
   uint32_t start, lbo, sbo;
@@ -182,6 +207,8 @@ struct EmuDesc {
         sbo((uint32_t)((desc >> 32) & 0x3FFF) << 4) {
     assert(desc >> 62 == 1);  // the 128-byte swizzle
   }
+  // byte b of the K slice of K-major row r
+  uint32_t kmajor(int r, int b) const { return start + (r / 8) * sbo + (r % 8) * 128 + b; }
 };
 
 inline void emu_wgmma_run(const EmuWgmma& op) {
@@ -190,14 +217,23 @@ inline void emu_wgmma_run(const EmuWgmma& op) {
   for (int j = 0; j < op.n / 8; ++j)
     for (int i = 0; i < 4; ++i) {
       const int row = 16 * w + lane / 4 + 8 * (i >> 1), col = 8 * j + 2 * (lane % 4) + (i & 1);
+      if (op.kind == EMU_S8) {
+        int64_t acc = 0;
+        for (int k = 0; k < 32; ++k)
+          acc += (int64_t)emu_smem_s8(a.kmajor(row, k)) * emu_smem_s8(b.kmajor(col, k));
+        static_cast<int*>(op.d)[4 * j + i] += (int)acc;
+        continue;
+      }
       double acc = 0.0;  // bf16 products are exact; the sum's order is the card's own
       for (int k = 0; k < 16; ++k) {
-        const float av = emu_smem_bf16(a.start + (row / 8) * a.sbo + (row % 8) * 128 + 2 * k);
-        const float bv = emu_smem_bf16(b.start + (col / 64) * b.lbo + 2 * (col % 64) +
-                                       (k / 8) * b.sbo + (k % 8) * 128);
+        const float av = emu_smem_bf16(a.kmajor(row, 2 * k));
+        const float bv = op.kind == EMU_BF16_K
+                             ? emu_smem_bf16(b.kmajor(col, 2 * k))
+                             : emu_smem_bf16(b.start + (col / 64) * b.lbo + 2 * (col % 64) +
+                                             (k / 8) * b.sbo + (k % 8) * 128);
         acc += (double)av * bv;
       }
-      op.d[4 * j + i] += (float)acc;
+      static_cast<float*>(op.d)[4 * j + i] += (float)acc;
     }
 }
 
@@ -221,10 +257,57 @@ inline void wgmma_wait() {
 template <int R>
 inline void fence_operands(float (&)[R]) {}
 
+template <int R>
+inline void fence_operands(int (&)[R]) {}
+
 template <int N>
 inline void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uint64_t db) {
   static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma's widths");
-  emu_wgmma_pending.push_back({da, db, d, N});
+  emu_wgmma_pending.push_back({da, db, d, N, EMU_BF16_MN});
+}
+
+template <int N>
+inline void wgmma_tn_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma's widths");
+  emu_wgmma_pending.push_back({da, db, d, N, EMU_BF16_K});
+}
+
+template <int N>
+inline void wgmma_tn_s8(int (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma's widths");
+  emu_wgmma_pending.push_back({da, db, d, N, EMU_S8});
+}
+
+// ---- warps ----
+
+inline void mma_s8_m16n8k32(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  EmuWarp& w = emu_warp();
+  const int lane = emu_lane();
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  w.bar.arrive_and_wait();
+  auto byte = [](uint32_t x, int k) { return (int)(int8_t)(x >> (8 * k)); };
+  int A[16][32], B[32][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    for (int k = 0; k < 4; ++k) {
+      A[g][4 * t + k] = byte(w.a[l][0], k);
+      A[g + 8][4 * t + k] = byte(w.a[l][1], k);
+      A[g][16 + 4 * t + k] = byte(w.a[l][2], k);
+      A[g + 8][16 + 4 * t + k] = byte(w.a[l][3], k);
+      B[4 * t + k][g] = byte(w.b[l][0], k);
+      B[16 + 4 * t + k][g] = byte(w.b[l][1], k);
+    }
+  }
+  w.bar.arrive_and_wait();
+  const int gid = lane >> 2, tig = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = gid + (i >= 2 ? 8 : 0), col = 2 * tig + (i & 1);
+    int acc = 0;
+    for (int k = 0; k < 32; ++k) acc += A[row][k] * B[k][col];
+    c[i] += acc;
+  }
 }
 
 inline unsigned char* dynamic_smem() { return emu_smem; }
@@ -239,4 +322,4 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
   return emu_run(start, kernel, grid, threads, smem, args...);
 }
 
-}  // namespace dst_ffn
+}  // namespace dst_hopper

@@ -5,7 +5,7 @@ same source against ``tests/cuda_emu``, which defines the CUDA features it
 uses on the host (one std::thread per CUDA thread, barriers, named barriers)
 and puts the PTX ISA's definitions of TMA loads with the 128-byte swizzle,
 mbarriers, wgmma from shared-memory descriptors and setmaxnreg in place of
-``csrc/ffn_ptx.cuh``. The entry points ``dst_ffn_fwd`` / ``dst_ffn_ln_fwd``
+``csrc/hopper_ptx.cuh``. The entry points ``dst_ffn_fwd`` / ``dst_ffn_ln_fwd``
 then run on CPU tensors and are held against ``ffn_fwd_plain`` /
 ``ffn_ln_fwd_plain`` with the card's tolerance (``chip_smoke.FFN_REL``):
 the kernel's ring, descriptors, fragment layout, row masks, both tile
@@ -41,7 +41,7 @@ def emulated(tmp_path_factory):
     src = tmp_path_factory.mktemp("ffn_emulated")
     for name in ("ffn_fwd.cu", "dropout_bits.cuh"):
         shutil.copy(os.path.join(CSRC, name), src / name)
-    shutil.copy(os.path.join(EMU, "ffn_ptx.cuh"), src / "ffn_ptx.cuh")
+    shutil.copy(os.path.join(EMU, "hopper_ptx.cuh"), src / "hopper_ptx.cuh")
     lib = src / "libffn_emulated.so"
     subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}", "-x", "c++",

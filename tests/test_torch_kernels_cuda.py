@@ -260,6 +260,40 @@ def test_groupmax_kernel_matches_plain(cuda_device, B, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [256, 512])
+def test_groupmax_wgmma_route_over_full_spans(cuda_device, B):
+    """D = 768 bf16 over 5 spans of 2,048 rows + 640 (the last span ragged,
+    its last 256-row tile half filled), at the CLI's batch sizes: the wgmma
+    route, within 2e-5 of max |ref|, the same bits again."""
+    q, c = _scan_inputs(cuda_device, B, 5 * 2048 + 640, 768, torch.bfloat16, B)
+    before = dict(mips_kernels.groupmax_kernel.launches_by_route)
+    t1, t2 = mips_kernels.groupmax(q, c)
+    again = mips_kernels.groupmax(q, c)
+    torch.cuda.synchronize()
+    assert mips_kernels.groupmax_kernel.launches_by_route["wgmma"] == before["wgmma"] + 2
+    r1, r2 = mips_kernels.groupmax_plain(q, c)
+    _assert_max_close("t1", t1, r1)
+    _assert_max_close("t2", t2, r2)
+    assert torch.equal(t1, again[0]) and torch.equal(t2, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype,route", [(768, torch.bfloat16, "wgmma"),
+                                           (100, torch.bfloat16, "score_tile"),
+                                           (768, torch.float32, "score_tile")])
+def test_groupmax_route_follows_the_shape(cuda_device, D, dtype, route):
+    """TMA-addressable bf16 rows take the wgmma kernel, D = 100 and fp32 the
+    score-tile kernel; each route counts its own launches."""
+    q, c = _scan_inputs(cuda_device, 64, 256, D, dtype, D)
+    before = dict(mips_kernels.groupmax_kernel.launches_by_route)
+    mips_kernels.groupmax(q, c)
+    torch.cuda.synchronize()
+    after = mips_kernels.groupmax_kernel.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in mips_kernels.ROUTES}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tile,n_tiles", [(4096, 3), (300, 5)])
 @pytest.mark.parametrize("B,D,dtype", _SCAN_CASES, ids=_SCAN_IDS)
 def test_tile_max_kernel_matches_plain(cuda_device, B, D, dtype, tile, n_tiles):
@@ -531,6 +565,65 @@ def test_int_groupmax_kernel_equals_plain(cuda_device, B, D, packed, planes):
     want_v, want_r = ik.int_groupmax_plain(q8, c, sc, qsc, packed=packed, planes=planes)
     assert torch.equal(vals, want_v) and torch.equal(rows, want_r)
     assert torch.equal(vals, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("B", [256, 512])
+def test_int_groupmax_wgmma_route_over_full_spans(cuda_device, B, packed, planes):
+    """D = 768 over 3 spans of 2,048 rows + 384 (the last span ragged): the
+    wgmma route, values and rows exactly equal to plain, without rows the
+    same values."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, sc, qsc = _int_inputs(cuda_device, B, 3 * 2048 + 384, 768, packed, planes, B + planes)
+    before = ik.int_groupmax_kernel.launches_by_route["wgmma"]
+    vals, rows = ik.int_groupmax(q8, c, sc, qsc, packed=packed, planes=planes)
+    bare, _none = ik.int_groupmax(q8, c, sc, qsc, packed=packed, planes=planes, want_rows=False)
+    torch.cuda.synchronize()
+    assert ik.int_groupmax_kernel.launches_by_route["wgmma"] == before + 2
+    want_v, want_r = ik.int_groupmax_plain(q8, c, sc, qsc, packed=packed, planes=planes)
+    assert torch.equal(vals, want_v) and torch.equal(rows, want_r)
+    assert torch.equal(bare, want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("B,D", [(9, 768), (130, 768), (9, 100)])
+def test_int_groupmax_ties_go_to_the_first_row(cuda_device, B, D, packed, planes):
+    """Every 8-row group repeats three of its rows (bytes and scale), so its
+    maximum is held by two or three rows: both routes return the first, as
+    jnp.argmax and the plain version do."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, sc, qsc = _int_inputs(cuda_device, B, 2048 + 640, D, packed, planes, B + D)
+    r = torch.arange(c.shape[0], device=cuda_device)
+    src = r // 8 * 8 + r % 8 % 3
+    c, sc = c[src].contiguous(), sc[src].contiguous()
+    vals, rows = ik.int_groupmax(q8, c, sc, qsc, packed=packed, planes=planes)
+    torch.cuda.synchronize()
+    want_v, want_r = ik.int_groupmax_plain(q8, c, sc, qsc, packed=packed, planes=planes)
+    assert torch.equal(vals, want_v) and torch.equal(rows, want_r)
+    assert (rows % 8 < 3).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,packed,route", [(768, False, "wgmma"), (768, True, "wgmma"),
+                                            (100, False, "int_tile"), (48, True, "int_tile")])
+def test_int_groupmax_route_follows_the_shape(cuda_device, D, packed, route):
+    """Rows and queries TMA can address take the wgmma kernel; D = 100, and
+    packed rows of 24 bytes, the int8-tile kernel; each route counts its own
+    launches."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, sc, qsc = _int_inputs(cuda_device, 64, 256, D, packed, 1, D)
+    before = dict(ik.int_groupmax_kernel.launches_by_route)
+    ik.int_groupmax(q8, c, sc, qsc, packed=packed)
+    torch.cuda.synchronize()
+    after = ik.int_groupmax_kernel.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in ik.ROUTES}
 
 
 @pytest.mark.cuda

@@ -1,0 +1,203 @@
+"""The group-max sweep kernels' CUDA sources, run on the CPU under an emulation.
+
+``dpr_scale_tpu_torch/csrc/mips_scan.cu`` and ``int_scan.cu`` need the card;
+here g++ builds the same sources against ``tests/cuda_emu``, which defines
+the CUDA features they use on the host and puts the PTX ISA's definitions of
+TMA (bf16 and byte tensor maps, the 128-byte swizzle, zero fill), mbarriers,
+wgmma from K-major descriptors (bf16 and s8), mma.sync m16n8k32 and wmma in
+place of ``csrc/hopper_ptx.cuh`` and ``<mma.h>``. The entry points
+``dst_groupmax`` / ``dst_int_groupmax`` then run on CPU tensors and are held
+against ``groupmax_plain`` (within MAX_REL of max |ref|, the card's
+tolerance) and ``int_groupmax_plain`` (values and rows exactly equal): both
+block layouts (64 and 128 queries), ragged spans and query tiles, one and
+two planes, int8 and packed int4, ties between duplicate rows, and the
+shape-routed older kernels. Lone K-major wgmmas are held against
+``torch.mm`` and an exact integer product first, so that a slip in the
+emulation itself fails on its own. Skips where no g++ is found.
+"""
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from dpr_scale_tpu_torch.ops import int_kernels as ik
+from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "dpr_scale_tpu_torch", "csrc")
+EMU = os.path.join(ROOT, "tests", "cuda_emu")
+SOURCES = ("mips_scan.cu", "int_scan.cu", "score_tile.cuh", "int_tile.cuh", "gmax_sweep.cuh")
+MAX_REL = 2e-5  # chip_smoke.MAX_REL: fp32 sums of the same products in another order
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernels' C entry points and the wgmma self-tests, built against
+    the emulation."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels' sources for the host")
+    src = tmp_path_factory.mktemp("mips_emulated")
+    for name in SOURCES:
+        shutil.copy(os.path.join(CSRC, name), src / name)
+    shutil.copy(os.path.join(EMU, "hopper_ptx.cuh"), src / "hopper_ptx.cuh")
+    lib = src / "libmips_emulated.so"
+    subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}", "-x", "c++",
+         str(src / "mips_scan.cu"), str(src / "int_scan.cu"),
+         os.path.join(EMU, "wgmma_selftest.cpp"), os.path.join(EMU, "emu.cpp"), "-o", str(lib)],
+        check=True, capture_output=True, text=True,
+    )
+    dll = ctypes.CDLL(str(lib))
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    dll.dst_groupmax.argtypes = [p, p, p, p, i, ll, i, i, p]
+    dll.dst_groupmax.restype = i
+    dll.dst_groupmax_route.argtypes = [p, p, ll, i, i]
+    dll.dst_groupmax_route.restype = i
+    dll.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
+    dll.dst_int_groupmax.restype = i
+    dll.dst_int_groupmax_route.argtypes = [p, p, i, i]
+    dll.dst_int_groupmax_route.restype = i
+    dll.emu_wgmma_tn_selftest.argtypes = [p, p, p, i, i, i]
+    dll.emu_wgmma_tn_selftest.restype = i
+    return dll
+
+
+@pytest.mark.parametrize("by_tma", [False, True])
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("kind", ["bf16", "s8"])
+def test_emulated_kmajor_wgmma_matches_mm(emulated, kind, n, by_tma):
+    """Four k-steps of wgmma with both operands K-major from swizzled shared
+    memory (laid out by hand, or by the emulated TMA): bf16 against torch.mm
+    in fp32, s8 exactly against an int64 product."""
+    rng = np.random.default_rng(n + by_tma + (kind == "s8"))
+    if kind == "bf16":
+        a = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).bfloat16()
+        b = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32)).bfloat16()
+        d = torch.full((64, n), float("nan"))
+        want = a.float() @ b.float().T
+    else:
+        a = torch.from_numpy(rng.integers(-128, 128, (64, 128), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-128, 128, (n, 128), dtype=np.int8))
+        d = torch.full((64, n), -1, dtype=torch.int32)
+        want = (a.long() @ b.long().T).int()
+    rc = emulated.emu_wgmma_tn_selftest(a.data_ptr(), b.data_ptr(), d.data_ptr(), n,
+                                        int(kind == "s8"), by_tma)
+    assert rc == 0
+    if kind == "bf16":
+        torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-4)
+    else:
+        assert torch.equal(d, want)
+
+
+def _groupmax(emulated, q, c):
+    B, N, D = q.shape[0], c.shape[0], c.shape[1]
+    t1 = torch.full((N // 8, B), float("nan"))
+    t2 = torch.full((N // 128, B), float("nan"))
+    dtype = {torch.bfloat16: 0, torch.float32: 1}[c.dtype]
+    assert emulated.dst_groupmax(q.data_ptr(), c.data_ptr(), t1.data_ptr(), t2.data_ptr(), B, N,
+                                 D, dtype, None) == 0
+    route = emulated.dst_groupmax_route(q.data_ptr(), c.data_ptr(), N, D, dtype)
+    return t1, t2, route
+
+
+# (B, N, D, dtype, route): 64-query blocks with a ragged last span (2,048 +
+# 384 rows: its last 256-row tile half filled), two k-slices, one query, and
+# 128-query blocks whose second query tile is ragged over a D that ends
+# mid-slice; then the older kernel at D = 100 (bf16) and for fp32
+GROUPMAX_CASES = [
+    (7, 2432, 64, torch.bfloat16, 1),
+    (64, 640, 128, torch.bfloat16, 1),
+    (1, 384, 16, torch.bfloat16, 1),
+    (130, 2432, 48, torch.bfloat16, 1),
+    (7, 384, 100, torch.bfloat16, 0),
+    (5, 256, 64, torch.float32, 0),
+]
+
+
+@pytest.mark.parametrize("B,N,D,dtype,route", GROUPMAX_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-{str(c[3])[6:]}" for c in GROUPMAX_CASES])
+def test_emulated_groupmax_matches_plain(emulated, B, N, D, dtype, route):
+    """dst_groupmax: t1 and t2 within MAX_REL of max |ref|, every entry
+    written, on the route its shape selects."""
+    rng = np.random.default_rng(B * N + D)
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dtype)
+    c = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(dtype)
+    t1, t2, got_route = _groupmax(emulated, q, c)
+    assert got_route == route
+    for got, want in zip((t1, t2), mk.groupmax_plain(q, c)):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= MAX_REL * want.abs().max().item()
+
+
+def _int_inputs(B, N, D, packed, planes, seed, dup=False):
+    """Random query planes and corpus bytes (every nibble), row scales
+    U(0.5, 1.5), query scales U(0.01, 0.1); with ``dup`` every 8-row group
+    repeats three of its rows (bytes and scale), so the maxima tie."""
+    rng = np.random.default_rng(seed)
+    W = D // 2 if packed else D
+    q8 = rng.integers(-127, 128, size=(planes * B, D), dtype=np.int8)
+    c = rng.integers(-128, 128, size=(N, W), dtype=np.int8)
+    sc = rng.uniform(0.5, 1.5, size=N).astype(np.float32)
+    if dup:
+        src = (np.arange(N) // 8) * 8 + np.arange(N) % 8 % 3
+        c, sc = c[src], sc[src]
+    qsc = rng.uniform(0.01, 0.1, size=B).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in (q8, c, sc, qsc))
+
+
+def _int_groupmax(emulated, q8, c, sc, qsc, packed, planes, want_rows):
+    B, N, D = qsc.shape[0], c.shape[0], q8.shape[1]
+    vals = torch.full((N // 8, B), float("nan"))
+    rows = torch.full((N // 8, B), -1, dtype=torch.int32) if want_rows else None
+    assert emulated.dst_int_groupmax(
+        q8.data_ptr(), c.data_ptr(), sc.data_ptr(), qsc.data_ptr(), vals.data_ptr(),
+        rows.data_ptr() if want_rows else None, B, N, D, int(packed), planes, ik.INV127,
+        None) == 0
+    return vals, rows, emulated.dst_int_groupmax_route(q8.data_ptr(), c.data_ptr(), D,
+                                                       int(packed))
+
+
+# (B, N, D, packed, planes, dup, route): int8 on 64-query blocks over a
+# ragged span, on 128-query blocks with two query tiles, two planes over two
+# k-slices; packed on one query, over a ragged span, two planes over three
+# query tiles; duplicate rows in each form; then the older kernel (int8 at
+# D = 100, packed at D / 2 = 24)
+INT_CASES = [
+    (7, 2432, 128, False, 1, False, 1),
+    (130, 640, 128, False, 1, False, 1),
+    (64, 640, 256, False, 2, False, 1),
+    (1, 384, 64, True, 1, False, 1),
+    (7, 2432, 256, True, 1, False, 1),
+    (130, 384, 512, True, 2, False, 1),
+    (9, 640, 128, False, 1, True, 1),
+    (70, 384, 128, False, 1, True, 1),
+    (9, 640, 128, True, 2, True, 1),
+    (7, 384, 100, False, 1, False, 0),
+    (7, 384, 48, True, 2, True, 0),
+]
+
+
+@pytest.mark.parametrize(
+    "B,N,D,packed,planes,dup,route", INT_CASES,
+    ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-{'int4' if c[3] else 'int8'}-p{c[4]}{'-dup' if c[5] else ''}"
+         for c in INT_CASES])
+def test_emulated_int_groupmax_equals_plain(emulated, B, N, D, packed, planes, dup, route):
+    """dst_int_groupmax: values and rows exactly equal to int_groupmax_plain
+    (ties to the first row), and without rows the same values, on the route
+    its shape selects."""
+    q8, c, sc, qsc = _int_inputs(B, N, D, packed, planes, B + N + D + planes, dup)
+    vals, rows, got_route = _int_groupmax(emulated, q8, c, sc, qsc, packed, planes, True)
+    assert got_route == route
+    want_v, want_r = ik.int_groupmax_plain(q8, c, sc, qsc, packed=packed, planes=planes)
+    assert torch.equal(vals, want_v)
+    assert torch.equal(rows, want_r)
+    if dup:
+        assert (want_r % 8 < 3).all()  # the ties were there, and went to the first row
+    bare, _none, _route = _int_groupmax(emulated, q8, c, sc, qsc, packed, planes, False)
+    assert torch.equal(bare, want_v)
