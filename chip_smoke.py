@@ -16,8 +16,15 @@ training (``cli.train``, dropout 0.1). Phases:
      its times beside scaled_dot_product_attention's and the share of its
      bound; torch.profiler's device time of the kernel within 10% of CUDA
      events (ROADMAP C4);
-  3. group-count kernel vs its plain version at B=64, N=1,048,576, D=768
-     bf16, thresholds at each query's 99.99th score percentile;
+  3. group-count kernel vs its plain version at B=64 over N=1,048,576 rows
+     (phase 4's index) and at B=512 over 2,097,152 rows (phase 15's block,
+     the fused search's pass 2), D=768 bf16, thresholds at each query's
+     99.99th score percentile: counts within the COUNT_MARGIN_REL band;
+     its launches by route (the wgmma kernel); its times, queued and single,
+     beside the plain version, a cuBLAS yardstick (fp32-output products
+     over 131,072-row chunks, the compare and the per-group sum) and the
+     bound; the wgmma kernel's registers, spills, shared memory and HGMMA /
+     UTMALDG counts in its SASS;
   4. the serving slice: a synthetic 30,522-entry WordPiece vocab and
      1,048,576-row passages TSV; bert_base (random weights from a seed)
      encodes the first 4,096 passages; 1,044,480 distractor rows join as a
@@ -98,10 +105,11 @@ training (``cli.train``, dropout 0.1). Phases:
      bracket elsewhere), maxima within MAX_REL of max |ref|, repeated calls
      the same bits; their times beside the plain version, a cuBLAS yardstick
      (fp32-output products over 131,072-row chunks plus the reduction) and
-     the bound (groupmax also queued behind a GPU sleep, and its share of
-     the bound); groupmax's launches by route, the B = 512 and 64 cases on
-     the wgmma kernel; that kernel's registers, spills, shared memory and
-     HGMMA / UTMALDG counts in its SASS;
+     the bound (groupmax and count_above also queued behind a GPU sleep,
+     and their share of the bound); groupmax's and count_above's launches
+     by route, the B = 512 and 64 cases on the wgmma kernels; those
+     kernels' registers, spills, shared memory and HGMMA / UTMALDG counts
+     in their SASS;
  15. the retrieval CLI slice at full width (conf/nq.yaml, bert_base from
      seed 0, the phase-4 vocab): ``cli.generate_embeddings`` encodes 4,096
      passages, fp16 distractors fill a second shard up to 2,097,152 rows
@@ -112,10 +120,10 @@ training (``cli.train``, dropout 0.1). Phases:
      ``fused``, ``approx`` and ``exact_sort`` over one built index; every
      method's DPR JSON equals a brute-force exact top-100 (``check_exact``),
      ``eval.qa_eval`` equals a recount with ``has_answers``, the
-     count_above and groupmax counters must rise, every groupmax launch on
-     the wgmma route; then
+     count_above, count_above_groups and groupmax counters must rise; then
      ``MipsIndex.benchmark`` times groupmax, fused, auto and exact_sort at
-     B = 512 over the 2,097,152-row block;
+     B = 512 over the 2,097,152-row block; every launch of the three
+     sweeps in the phase on the wgmma route;
  16. the two integer sweep kernels vs their plain versions: int_groupmax
      (the tool's i4_groupmax) at the tool's geometry (4,194,304 x 768 int4,
      B = 256, random packed bytes, row scales U(0.5, 1.5)), at B = 512 and
@@ -407,42 +415,101 @@ def phase_attention():
     return entry
 
 
-def phase_count():
+# phase 3: (B, N, D) of the group counts: a serving batch over phase 4's
+# 1,048,576 rows, and the retrieval CLI's batch over phase 15's largest
+# block (the fused search's pass 2)
+COUNT_CASES = ((64, 1 << 20, MIPS_DIM), (QUERY_BATCH, MIPS_ROWS, MIPS_DIM))
+
+
+def _yard_scores(q, corpus):
+    """cuBLAS products with fp32 output over YARD_CHUNK-row chunks."""
     import torch
 
-    from dpr_scale_tpu_torch.ops import mips_kernels
+    q = q.to(corpus.dtype)
+    for lo in range(0, corpus.shape[0], YARD_CHUNK):
+        yield lo, torch.mm(q, corpus[lo : lo + YARD_CHUNK].T, out_dtype=torch.float32)
 
-    dev = torch.device("cuda", 0)
+
+def _yard_count_groups(q, corpus, tau, group):
+    """count_above_groups' yardstick: the chunked products, the compare and
+    the per-group sum in PyTorch."""
+    import torch
+
+    B = q.shape[0]
+    out = torch.empty((B, corpus.shape[0] // group), dtype=torch.int32, device=corpus.device)
+    for lo, s in _yard_scores(q, corpus):
+        out[:, lo // group : (lo + s.shape[1]) // group] = (
+            (s > tau[:, None]).view(B, -1, group).sum(dim=2, dtype=torch.int32))
+    return out
+
+
+def phase_count(dev, cases=COUNT_CASES, group=256):
+    """Phase 3: count_above_groups against its plain version on ``dev`` for
+    each (B, N, D) of ``cases`` (bf16, thresholds at each query's 99.99th
+    score percentile), within the COUNT_MARGIN_REL band; on the card also
+    its times, yardstick and bound. Returns the JSON entry of the last case
+    (times absent off the card), max |err| over all cases."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    B, N, D = 64, 1 << 20, 768
-    q = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
-    corpus = torch.randn(N, D, generator=g, device=dev).to(torch.bfloat16)
-    scores = torch.cat([
-        q.float() @ corpus[lo : lo + 131072].float().T for lo in range(0, N, 131072)
-    ], dim=1)
-    tau = torch.topk(scores, N // 10000 + 1, dim=1).values[:, -1].contiguous()  # p99.99
-    del scores
-    out = mips_kernels.count_above_groups_kernel(q, corpus, tau)
-    torch.cuda.synchronize()
-    plain = mips_kernels.count_above_groups_plain(q, corpus, tau)
-    m = COUNT_MARGIN_REL * tau.abs()
-    lo = mips_kernels.count_above_groups_plain(q, corpus, tau + m)
-    hi = mips_kernels.count_above_groups_plain(q, corpus, tau - m)
-    diff = (out - plain).abs().max().item()
-    out_of_band = ((out < lo) | (out > hi)).sum().item()
-    ms = cuda_ms(lambda: mips_kernels.count_above_groups_kernel(q, corpus, tau))
-    plain_ms = cuda_ms(lambda: mips_kernels.count_above_groups_plain(q, corpus, tau))
-    bound_ms, bound_by = bound(nbytes(q, corpus, tau, out), 2 * B * N * D)
-    print(
-        f"count_above_groups (B={B} N={N} D={D} bf16, tau p99.99): "
-        f"{(out != plain).sum().item()} counts differ (max {diff}), {out_of_band} outside "
-        f"the {COUNT_MARGIN_REL} relative margin of tau; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call counts scores per group"
-    )
-    if out_of_band or out.shape != (B, N // 256):
-        raise AssertionError("count kernel disagrees with its plain version")
-    return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    entry = {"max_abs_err": 0.0}
+    for B, N, D in cases:
+        kernel = mk.count_above_groups_kernel  # looked up now: a rehearsal patches it
+        q = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
+        corpus = torch.randn(N, D, generator=g, device=dev).to(torch.bfloat16)
+        tau = _top_scores(q, corpus, N // 10000 + 1)[:, -1].contiguous()  # p99.99
+        what = f"B={B} N={N} D={D} bf16, tau p99.99"
+        routes = dict(getattr(kernel, "launches_by_route", {}))
+        out = kernel(q, corpus, tau, group)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if routes:
+            routes = {r: n - routes[r] for r, n in kernel.launches_by_route.items()}
+            print(f"count_above_groups ({what}): launches by route {routes}")
+            if D == MIPS_DIM and routes["wgmma"] != 1:
+                raise AssertionError(f"count_above_groups ({what}) did not run the wgmma kernel")
+        plain = mk.count_above_groups_plain(q, corpus, tau, group)
+        m = COUNT_MARGIN_REL * tau.abs()
+        lo = mk.count_above_groups_plain(q, corpus, tau + m, group)
+        hi = mk.count_above_groups_plain(q, corpus, tau - m, group)
+        diff = (out - plain).abs().max().item()
+        out_of_band = ((out < lo) | (out > hi)).sum().item()
+        print(f"count_above_groups ({what}): {(out != plain).sum().item()} counts differ (max "
+              f"{diff}), {out_of_band} outside the {COUNT_MARGIN_REL} relative margin of tau")
+        if out_of_band or out.shape != (B, N // group):
+            raise AssertionError("count kernel disagrees with its plain version")
+        entry["max_abs_err"] = max(entry["max_abs_err"], float(diff))
+        del out, plain, lo, hi
+        if dev.type == "cuda":
+            fn = lambda: kernel(q, corpus, tau, group)
+            ms, single_ms = device_ms(fn, calls=10), cuda_ms(fn)
+            plain_ms = cuda_ms(lambda: mk.count_above_groups_plain(q, corpus, tau, group),
+                               reps=5, warmup=1)
+            yard_ms = cuda_ms(lambda: _yard_count_groups(q, corpus, tau, group), reps=5, warmup=1)
+            bound_ms, bound_by = bound(nbytes(q, corpus, tau) + 4 * B * (N // group), 2 * B * N * D)
+            print(f"count_above_groups ({what}): kernel {ms:.4f} ms queued ({single_ms:.4f} ms "
+                  f"single call), plain {plain_ms:.4f} ms, cuBLAS yardstick {yard_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) = {bound_ms / ms:.1%} of the kernel's "
+                  "time; no single PyTorch call counts scores per group")
+            entry.update(ms=ms, single_ms=single_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+            # what the counts' atomics cost: none at tau = +inf, one per
+            # (query, group) at -inf (the fused search's thresholds add ~k)
+            inf = torch.full_like(tau, float("inf"))
+            none_ms = device_ms(lambda: kernel(q, corpus, inf, group), calls=10)
+            all_ms = device_ms(lambda: kernel(q, corpus, -inf, group), calls=10)
+            print(f"count_above_groups ({what[:what.index(', tau')]}): {none_ms:.4f} ms queued at "
+                  f"tau = +inf (no atomic), {all_ms:.4f} ms at tau = -inf ({B * (N // group)} "
+                  "atomics)")
+        del q, corpus, tau
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        print(sweep_build_report("count_groups_wgmma_kernel", "count_above_groups wgmma",
+                                 lambda lib: {f"B={B}": lib.dst_bf16_sweep_smem(B) for B in (512, 64)}))
+    return entry
 
 
 def write_tokenizer(path, vocab):
@@ -1682,25 +1749,19 @@ def _mips_kernels():
 
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
-    def yard_scores(q, corpus):
-        """cuBLAS products with fp32 output over YARD_CHUNK-row chunks."""
-        q = q.to(corpus.dtype)
-        for lo in range(0, corpus.shape[0], YARD_CHUNK):
-            yield lo, torch.mm(q, corpus[lo : lo + YARD_CHUNK].T, out_dtype=torch.float32)
-
     def yard_count(q, corpus, tau):
         return sum((s > tau[:, None]).sum(dim=1, dtype=torch.int32) for _lo, s in
-                   yard_scores(q, corpus))
+                   _yard_scores(q, corpus))
 
     def yard_groupmax(q, corpus):
         t1 = torch.empty((corpus.shape[0] // 8, q.shape[0]), device=corpus.device)
-        for lo, s in yard_scores(q, corpus):
+        for lo, s in _yard_scores(q, corpus):
             t1[lo // 8 : lo // 8 + s.shape[1] // 8] = s.view(q.shape[0], -1, 8).amax(dim=2).T
         return t1, t1.view(-1, 16, q.shape[0]).amax(dim=1)
 
     def yard_tile_max(q, corpus, tile):
         return torch.cat([s.view(q.shape[0], -1, tile).amax(dim=2)
-                          for _lo, s in yard_scores(q, corpus)], dim=1)
+                          for _lo, s in _yard_scores(q, corpus)], dim=1)
 
     return {
         "count_above": (mk.count_above_kernel, mk.count_above_plain, yard_count),
@@ -1762,7 +1823,7 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
             want = plain(*args[name])
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            if routes:  # groupmax: the route each shape takes
+            if routes:  # groupmax, count_above: the route each shape takes
                 routes = {r: n - routes[r] for r, n in kernel.launches_by_route.items()}
                 print(f"{name} ({what}): launches by route {routes}")
                 if dtype_name == "bfloat16" and D == MIPS_DIM and routes["wgmma"] != 2:
@@ -1799,7 +1860,7 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
                 plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, warmup=1)
                 yard_ms = cuda_ms(lambda: yard(*args[name]), reps=5, warmup=1)
                 timing = {"ms": ms}
-                if name == "groupmax":  # redesigned: queued calls too, as the FFN's
+                if name in ("groupmax", "count_above"):  # redesigned: queued calls too
                     timing = {"ms": device_ms(lambda: kernel(*args[name]), calls=10),
                               "single_ms": ms}
                     print(f"{name} ({what}): kernel {timing['ms']:.4f} ms queued, "
@@ -1814,8 +1875,10 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     if dev.type == "cuda":
-        print(sweep_build_report("groupmax_wgmma_kernel", "groupmax wgmma",
-                                 lambda lib: {f"B={B}": lib.dst_groupmax_smem(B) for B in (512, 64)}))
+        for prefix in ("groupmax_wgmma_kernel", "count_above_wgmma_kernel"):
+            print(sweep_build_report(prefix, prefix.replace("_kernel", "").replace("_", " "),
+                                     lambda lib: {f"B={B}": lib.dst_bf16_sweep_smem(B)
+                                                  for B in (512, 64)}))
     return entries
 
 
@@ -1880,8 +1943,12 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     if q_emb.shape != (n_queries, emb.shape[1]) or not np.isfinite(q_emb).all():
         raise AssertionError(f"query_reps.pkl: {q_emb.shape}, finite={np.isfinite(q_emb).all()}")
 
-    mips_kernels.count_above_kernel.launches = mips_kernels.groupmax_kernel.launches = 0
-    mips_kernels.groupmax_kernel.launches_by_route = dict.fromkeys(mips_kernels.ROUTES, 0)
+    sweeps = {"count_above": mips_kernels.count_above_kernel,
+              "count_above_groups": mips_kernels.count_above_groups_kernel,
+              "groupmax": mips_kernels.groupmax_kernel}
+    for kernel in sweeps.values():
+        kernel.launches = 0
+        kernel.launches_by_route = dict.fromkeys(mips_kernels.ROUTES, 0)
     outputs = {}
     for method in ("groupmax", "auto"):
         outputs[method] = os.path.join(work, f"{method}.json")
@@ -1906,9 +1973,7 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
                  query_batch=QUERY_BATCH, output_json_path=outputs[method])
         print(f"retrieve method={method}: {n_queries} queries in {time.perf_counter() - t0:.2f} s "
               f"wall (search, JSON write); repairs of the last batch {index.last_repair}")
-    launches = {"count_above": mips_kernels.count_above_kernel.launches,
-                "groupmax": mips_kernels.groupmax_kernel.launches}
-    routes = dict(getattr(mips_kernels.groupmax_kernel, "launches_by_route", {}))
+    launches = {name: kernel.launches for name, kernel in sweeps.items()}
 
     q = torch.from_numpy(q_emb).to(dev)
     for method in ("groupmax", "auto"):  # the CLI's own index is gone: one batch again
@@ -1936,9 +2001,6 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     print(f"retrieval-path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the retrieval path never launched: {launches}")
-    print(f"groupmax launches by route: {routes}")
-    if routes["wgmma"] != launches["groupmax"]:
-        raise AssertionError(f"the groupmax runs did not take the wgmma kernel: {routes}")
 
     # ---- benchmark(): the methods over the 2,097,152-row block ----
     blk, n_valid, _off = max(index._blocks, key=lambda b: b[0].shape[0])
@@ -1977,6 +2039,10 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
         profile_serve.report(f"{method} search B={QUERY_BATCH} k={RETRIEVAL_K} over "
                              f"{bench._blocks[0][0].shape[0]} rows",
                              lambda: bench.search(q0, RETRIEVAL_K), dev, None)
+    routes = {name: kernel.launches_by_route for name, kernel in sweeps.items()}
+    print(f"launches by route over the phase (CLI runs, retrieve(), benchmark, profile): {routes}")
+    if any(r["score_tile"] or not r["wgmma"] for r in routes.values()):
+        raise AssertionError(f"a sweep of the retrieval path did not take the wgmma kernel: {routes}")
     return launches
 
 
@@ -2304,7 +2370,7 @@ def main():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s:")
     print("\n".join(l for l in cuda_lib.build_log().splitlines() if "Used" in l))
     attn = phase_attention()
-    count = phase_count()
+    count = phase_count(torch.device("cuda", 0))
     torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
@@ -2384,7 +2450,8 @@ def main():
          "launches": train_launches["attention_bwd"], **train_kernels["attention_bwd"]},
         {"name": "count_above_groups", "route": "cuda", "source": source + "count_groups.cu",
          "replaces": "dpr_scale_tpu/ops/mips_kernels.py:134",
-         "launches": launches["count_above_groups"], **count},
+         "launches": launches["count_above_groups"] + retrieval_launches["count_above_groups"],
+         **count},
         {"name": "ffn_fwd", "route": "cuda", "source": source + "ffn_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/ffn.py:169",
          "launches": ffn_train_launches["ffn_fwd"], **ffn_kernels["ffn_fwd"]},

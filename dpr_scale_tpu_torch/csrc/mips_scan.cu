@@ -1,7 +1,9 @@
 // Three one-sweep reductions of the inner-product scores of queries q (B, D)
-// against corpus rows c (N, D), each an epilogue on the score tiles of
-// score_tile.cuh (bf16 on the tensor cores or fp32 on the CUDA cores, fp32
-// sums either way).  The (B, N) scores never reach device memory.
+// against corpus rows c (N, D), each an epilogue on the wgmma accumulators
+// of gmax_sweep.cuh's frame (bf16 rows TMA can address) or on the score
+// tiles of score_tile.cuh (bf16 on the tensor cores or fp32 on the CUDA
+// cores), fp32 sums either way.  The (B, N) scores never reach device
+// memory.
 //
 // Replaces three TPU kernels of dpr_scale_tpu/ops/mips_kernels.py:
 //   * count_above_kernel (_count_kernel): out[b] = #{ r : q[b] . c[r] > tau[b] },
@@ -19,39 +21,41 @@
 // carried the reduction in its output block; here blocks run in parallel.
 // A block owns (queries, a span of rows): count_above and groupmax take
 // SPAN-row spans, tile_max one whole tile, so its running max is written
-// once.  count_above reduces its span's counts in shared memory and makes one
-// integer atomicAdd per query (exact and order-free, so the result is
-// deterministic).  The query tiles of one span are neighbouring block
-// indices, so they run together and read the span's corpus rows from L2.
+// once.  count_above adds its counts into the output with integer atomics,
+// one per query and block (and warpgroup in the 64-query layout below):
+// exact and order-free, so the result is deterministic.  The query tiles
+// of one span are neighbouring block indices, so they run together and
+// read the span's corpus rows from L2.
 //
-// groupmax on a bf16 corpus whose rows TMA can address (D % 8 == 0, 16-byte
-// aligned bases) runs groupmax_wgmma_kernel, on gmax_sweep.cuh's frame: a
-// ring of TMA loads (4 stages of a 256-row corpus slice and the block's
-// query slice, 64 columns each) feeding two consumer warpgroups on wgmma
-// m64nNk16 (queries on M, corpus rows on N, both K-major, fp32 sums in
-// registers); per tile each thread takes the max of its two columns of
-// every n8 slice, the quad's lanes reduce-scatter the 8-row group maxima
-// with shuffles, a 128-row tier-2 maximum is the max of 16 of them and two
-// more shuffles, and t1 / t2 are stored from registers, coalesced along the
-// query axis of the (groups, B) layout.  B > 64 takes 128-query blocks
-// (m64n256 a warpgroup); B <= 64 64-query blocks (m64n128, the warpgroups
-// on the two halves of a tile), so the corpus is read once.  Every other
-// case (fp32, D % 8 != 0, unaligned) and count_above / tile_max run on
-// score_tile.cuh's tile (wmma, synchronous staging): groupmax_kernel
-// writes 16 tier-1 maxima and one tier-2 maximum per query and 128-row
-// tile through shared memory.  dst_groupmax_route says which one a call
-// takes.
+// groupmax and count_above on a bf16 corpus whose rows TMA can address
+// (D % 8 == 0, 16-byte aligned bases) run groupmax_wgmma_kernel and
+// count_above_wgmma_kernel, on gmax_sweep.cuh's frame: a ring of TMA loads
+// (4 stages of a 256-row corpus slice and the block's query slice, 64
+// columns each) feeding two consumer warpgroups on wgmma m64nNk16 (queries
+// on M, corpus rows on N, both K-major, fp32 sums in registers).  groupmax:
+// per tile each thread takes the max of its two columns of every n8 slice,
+// the quad's lanes reduce-scatter the 8-row group maxima with shuffles, a
+// 128-row tier-2 maximum is the max of 16 of them and two more shuffles,
+// and t1 / t2 are stored from registers, coalesced along the query axis of
+// the (groups, B) layout.  count_above: each thread counts its scores above
+// its two queries' thresholds in registers over the whole span (rows past
+// N masked), then two shuffles sum the quad and one atomicAdd a query adds
+// it (gmax_sweep.cuh's count_sweep, one group of all N rows).  B > 64
+// takes 128-query blocks (m64n256 a warpgroup); B <= 64 64-query blocks
+// (m64n128, the warpgroups on the two halves of a tile), so the corpus is
+// read once.  Every other case (fp32, D % 8 != 0, unaligned) and tile_max
+// run on score_tile.cuh's tile (wmma, synchronous staging; a 128 x 64 fp32
+// score tile in shared memory, reduced by strided columns).
+// dst_groupmax_route / dst_count_above_route say which kernel a call takes.
 #include "gmax_sweep.cuh"  // first: the emulation defines the CUDA keywords there
 #include "score_tile.cuh"
-
-#include <limits.h>
 
 using namespace mips_tile;
 namespace gs = gmax_sweep;
 
 namespace {
 
-constexpr int SPAN = 2048;       // corpus rows per block of count_above / groupmax
+constexpr int SPAN = gs::SPAN;   // corpus rows per block of count_above / groupmax
 constexpr int GMAX_ROWS = 8;     // rows per tier-1 group
 constexpr int GMAX_TIER2 = 16;   // tier-1 groups per tier-2 group
 constexpr int T1_PER_TILE = ROWS / GMAX_ROWS;
@@ -153,68 +157,9 @@ groupmax_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
                       const __grid_constant__ CUtensorMap tmC, float* __restrict__ t1,
                       float* __restrict__ t2, int B, int D, long long N, int nqt) {
   using L = gs::Layout<QM>;
-  constexpr int STAGE = gs::C_BYTES + L::Q_BYTES;
-  constexpr int STAGES = gs::RING_STAGES<STAGE, 0>;
-  unsigned char* smem = gs::aligned_smem();
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
-  uint64_t* empty = full + STAGES;
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
-  const int q0 = (int)(blockIdx.x % nqt) * QM;
-  const long long row0 = (long long)(blockIdx.x / nqt) * gs::SPAN;
-  const int tiles = gs::span_tiles(row0, N), KT = (D + 63) / 64;
-  gs::ring_init(full, empty, STAGES);
-
-  if (wg == 2) {
-    // ---- producer: one thread keeps the ring's loads in flight ----
-    dst_hopper::setmaxnreg_dec<40>();
-    if (t == 0) {
-      for (int it = 0; it < tiles * KT; ++it) {
-        const int s = it % STAGES, tile = it / KT, col = (it % KT) * 64;
-        dst_hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // first use passes
-        unsigned char* st = smem + s * STAGE;
-        dst_hopper::mbar_arrive_expect_tx(&full[s], STAGE);
-        dst_hopper::tma_load(st, &tmC, (int)(row0 + tile * gs::TILE), col, &full[s]);
-        dst_hopper::tma_load(st + gs::C_BYTES, &tmQ, q0, col, &full[s]);
-      }
-    }
-    return;
-  }
-  // ---- consumers: warpgroup wg's queries against its rows of each tile ----
-  dst_hopper::setmaxnreg_inc<232>();
-  const int warp = t / 32, lane = t % 32;
-  const int qa = q0 + L::q_off(wg) + 16 * warp + lane / 4;  // this thread's rows qa, qa + 8
-  float acc[L::N / 2];
-  int it = 0;
-  for (int tile = 0; tile < tiles; ++tile) {
-#pragma unroll
-    for (int i = 0; i < L::N / 2; ++i) acc[i] = 0.0f;
-    for (int kt = 0; kt < KT; ++kt, ++it) {
-      const int s = it % STAGES;
-      dst_hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-      const unsigned char* st = smem + s * STAGE;
-      dst_hopper::fence_operands(acc);
-      dst_hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        // both K-major: 128-byte rows, 8-row groups 1024 bytes apart, a
-        // k-step of 16 columns 32 bytes on
-        const uint64_t da =
-            dst_hopper::smem_desc(st + gs::C_BYTES + L::q_off(wg) * gs::SLICE + kk * 32, 16, 1024);
-        const uint64_t db = dst_hopper::smem_desc(st + L::r_off(wg) * gs::SLICE + kk * 32, 16, 1024);
-        dst_hopper::wgmma_tn_bf16<L::N>(acc, da, db);
-      }
-      dst_hopper::wgmma_commit();
-      dst_hopper::fence_operands(acc);
-      dst_hopper::wgmma_wait<1>();  // the previous stage's products have retired
-      dst_hopper::fence_operands(acc);
-      if (kt > 0 && lane == 0) dst_hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
-    }
-    dst_hopper::wgmma_wait<0>();
-    dst_hopper::fence_operands(acc);
-    if (lane == 0) dst_hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
-
+  const int lane = threadIdx.x % 32, qa = gs::query_row<QM>(nqt);  // rows qa, qa + 8
+  gs::bf16_sweep<QM>(tmQ, tmC, D, N, nqt, [&](const float (&acc)[L::N / 2], long long rbase) {
     // ---- epilogue: group maxima in registers, stored from them ----
-    const long long rbase = row0 + (long long)tile * gs::TILE + L::r_off(wg);
     float m[L::NJ][2], r[L::NJ / 4][2];
 #pragma unroll
     for (int j = 0; j < L::NJ; ++j)
@@ -234,14 +179,25 @@ groupmax_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
     for (int H = 0; H < L::N / ROWS; ++H) {  // the 128-row tier-2 groups: k in [4 H, 4 H + 4)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float x = fmaxf(fmaxf(r[4 * H][h], r[4 * H + 1][h]), fmaxf(r[4 * H + 2][h], r[4 * H + 3][h]));
+        float x = fmaxf(fmaxf(r[4 * H][h], r[4 * H + 1][h]),
+                        fmaxf(r[4 * H + 2][h], r[4 * H + 3][h]));
         x = fmaxf(x, __shfl_xor_sync(gs::FULL_MASK, x, 1));
         x = fmaxf(x, __shfl_xor_sync(gs::FULL_MASK, x, 2));
         const long long g2 = rbase / ROWS + H;
         if ((lane & 3) == h && g2 * ROWS < N && qa + 8 * h < B) t2[g2 * B + qa + 8 * h] = x;
       }
     }
-  }
+  });
+}
+
+// count_above over a TMA-addressable bf16 corpus: gmax_sweep.cuh's count
+// epilogue with one group of all N rows (any N; out (B,) zeroed)
+template <int QM>
+__global__ void __launch_bounds__(gs::THREADS, 1)
+count_above_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                         const __grid_constant__ CUtensorMap tmC, const float* __restrict__ tau,
+                         int* __restrict__ out, int B, int D, long long N, int nqt) {
+  gs::count_sweep<QM>(tmQ, tmC, tau, out, B, D, N, nqt, N, 1);
 }
 
 template <typename T>
@@ -268,34 +224,6 @@ int launch_groupmax(const void* q, const void* corpus, void* t1, void* t2, int B
                                  nqt, vectorizable<T>(q, corpus, D));
 }
 
-template <int QM>
-constexpr size_t wgmma_smem() {
-  constexpr int STAGE = gs::C_BYTES + gs::Layout<QM>::Q_BYTES;
-  return gs::smem_bytes(gs::RING_STAGES<STAGE, 0>, STAGE, 0);
-}
-
-template <int QM>
-int launch_groupmax_wgmma(const void* q, const void* corpus, void* t1, void* t2, int B,
-                          long long N, int D, cudaStream_t stream) {
-  const int nqt = (B + QM - 1) / QM;
-  const long long blocks = (N + gs::SPAN - 1) / gs::SPAN * nqt;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tc;
-  cudaError_t err = dst_hopper::make_tmap(&tq, q, B, D, QM, 64);
-  if (err == cudaSuccess) err = dst_hopper::make_tmap(&tc, corpus, N, D, gs::TILE, 64);
-  if (err != cudaSuccess) return (int)err;
-  return (int)dst_hopper::launch(groupmax_wgmma_kernel<QM>, dim3((unsigned)blocks), gs::THREADS,
-                                 wgmma_smem<QM>(), stream, tq, tc, (float*)t1, (float*)t2, B, D,
-                                 N, nqt);
-}
-
-// 1 where dst_groupmax runs groupmax_wgmma_kernel: a bf16 corpus whose row
-// stride TMA can address; 0 for groupmax_kernel (score_tile.cuh)
-int wgmma_route(const void* q, const void* corpus, long long N, int D, int dtype) {
-  return dtype == 0 && D % 8 == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)corpus % 16 == 0 &&
-         N <= INT_MAX;
-}
-
 template <typename T>
 int launch_tile_max(const void* q, const void* corpus, void* out, int B, long long N, int D,
                     long long tile, cudaStream_t stream) {
@@ -314,11 +242,18 @@ int launch_tile_max(const void* q, const void* corpus, void* out, int B, long lo
 // cudaError_t code: 0 on a launch that was accepted.
 
 // out (B,) int32 must hold zeros: the blocks add their counts into it.
+// The route is chosen by shape alone (dst_count_above_route).
 extern "C" int dst_count_above(const void* q, const void* corpus, const void* tau, void* out,
                                int B, long long N, int D, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_count<bf16>(q, corpus, tau, out, B, N, D, (cudaStream_t)stream);
-  if (dtype == 1) return launch_count<float>(q, corpus, tau, out, B, N, D, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gs::bf16_route(q, corpus, N, D, dtype))
+    return B > 64 ? gs::launch_bf16_sweep<128>(count_above_wgmma_kernel<128>, q, corpus, B, N, D,
+                                               s, (const float*)tau, (int*)out)
+                  : gs::launch_bf16_sweep<64>(count_above_wgmma_kernel<64>, q, corpus, B, N, D,
+                                              s, (const float*)tau, (int*)out);
+  if (dtype == 0) return launch_count<bf16>(q, corpus, tau, out, B, N, D, s);
+  if (dtype == 1) return launch_count<float>(q, corpus, tau, out, B, N, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -327,23 +262,33 @@ extern "C" int dst_count_above(const void* q, const void* corpus, const void* ta
 extern "C" int dst_groupmax(const void* q, const void* corpus, void* t1, void* t2, int B,
                             long long N, int D, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1 || N % ROWS != 0) return (int)cudaErrorInvalidValue;
-  if (wgmma_route(q, corpus, N, D, dtype))
-    return B > 64 ? launch_groupmax_wgmma<128>(q, corpus, t1, t2, B, N, D, (cudaStream_t)stream)
-                  : launch_groupmax_wgmma<64>(q, corpus, t1, t2, B, N, D, (cudaStream_t)stream);
-  if (dtype == 0) return launch_groupmax<bf16>(q, corpus, t1, t2, B, N, D, (cudaStream_t)stream);
-  if (dtype == 1) return launch_groupmax<float>(q, corpus, t1, t2, B, N, D, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gs::bf16_route(q, corpus, N, D, dtype))
+    return B > 64 ? gs::launch_bf16_sweep<128>(groupmax_wgmma_kernel<128>, q, corpus, B, N, D, s,
+                                               (float*)t1, (float*)t2)
+                  : gs::launch_bf16_sweep<64>(groupmax_wgmma_kernel<64>, q, corpus, B, N, D, s,
+                                              (float*)t1, (float*)t2);
+  if (dtype == 0) return launch_groupmax<bf16>(q, corpus, t1, t2, B, N, D, s);
+  if (dtype == 1) return launch_groupmax<float>(q, corpus, t1, t2, B, N, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// 1: dst_count_above takes the wgmma kernel on these arguments; 0: score_tile.
+extern "C" int dst_count_above_route(const void* q, const void* corpus, long long N, int D,
+                                     int dtype) {
+  return gs::bf16_route(q, corpus, N, D, dtype);
 }
 
 // 1: dst_groupmax takes the wgmma kernel on these arguments; 0: score_tile.
 extern "C" int dst_groupmax_route(const void* q, const void* corpus, long long N, int D,
                                   int dtype) {
-  return wgmma_route(q, corpus, N, D, dtype);
+  return gs::bf16_route(q, corpus, N, D, dtype);
 }
 
-// Dynamic shared memory of a wgmma groupmax block at batch B.
-extern "C" long long dst_groupmax_smem(int B) {
-  return (long long)(B > 64 ? wgmma_smem<128>() : wgmma_smem<64>());
+// Dynamic shared memory of a block of the bf16 wgmma sweeps (groupmax,
+// count_above, count_above_groups: one frame) at batch B.
+extern "C" long long dst_bf16_sweep_smem(int B) {
+  return (long long)(B > 64 ? gs::bf16_smem<128>() : gs::bf16_smem<64>());
 }
 
 // out (B, N / tile) fp32.

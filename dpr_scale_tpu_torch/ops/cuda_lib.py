@@ -141,14 +141,18 @@ def library() -> ctypes.CDLL:
             lib.dst_attention_bwd_smem.restype = ll
             lib.dst_count_above_groups.argtypes = [p, p, p, p, i, ll, i, ll, i, p]
             lib.dst_count_above_groups.restype = i
+            lib.dst_count_above_groups_route.argtypes = [p, p, ll, i, ll, i]
+            lib.dst_count_above_groups_route.restype = i
             lib.dst_count_above.argtypes = [p, p, p, p, i, ll, i, i, p]
             lib.dst_count_above.restype = i
+            lib.dst_count_above_route.argtypes = [p, p, ll, i, i]
+            lib.dst_count_above_route.restype = i
             lib.dst_groupmax.argtypes = [p, p, p, p, i, ll, i, i, p]
             lib.dst_groupmax.restype = i
             lib.dst_groupmax_route.argtypes = [p, p, ll, i, i]
             lib.dst_groupmax_route.restype = i
-            lib.dst_groupmax_smem.argtypes = [i]
-            lib.dst_groupmax_smem.restype = ll
+            lib.dst_bf16_sweep_smem.argtypes = [i]
+            lib.dst_bf16_sweep_smem.restype = ll
             lib.dst_tile_max.argtypes = [p, p, p, i, ll, i, ll, i, p]
             lib.dst_tile_max.restype = i
             lib.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]

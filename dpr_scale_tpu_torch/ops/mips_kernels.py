@@ -12,10 +12,7 @@ dtype, sums the products in fp32 and returns the JAX function's layout:
   (``csrc/mips_scan.cu``);
 * :func:`groupmax` ``(t1 (N // 8, B), t2 (N // 128, B))`` fp32 — the max of
   every ``GMAX_ROWS``-row group and of every ``GMAX_TIER2`` such groups,
-  N % 128 == 0: the sweep of ``method="groupmax"`` (``csrc/mips_scan.cu``:
-  a bf16 corpus whose rows TMA can address takes the wgmma kernel, the rest
-  the older score-tile kernel; ``groupmax_kernel.launches_by_route`` counts
-  each);
+  N % 128 == 0: the sweep of ``method="groupmax"`` (``csrc/mips_scan.cu``);
 * :func:`tile_max_scores` ``(B, N // tile)`` fp32 — the max score of each
   ``tile``-row corpus tile, N % tile == 0 (``csrc/mips_scan.cu``; no caller
   in either package).
@@ -24,7 +21,11 @@ Each comes as ``<name>_plain`` (plain PyTorch: the CPU path and the oracle,
 scores materialise chunk by chunk), ``<name>_kernel`` (the hand-written CUDA
 kernel, bf16 or fp32, scores never reach memory; ``.launches`` counts its
 launches) and ``<name>`` (dispatch: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises).
+CUDA tensor launches the kernel or raises). The first three kernels run a
+wgmma kernel fed by TMA on a bf16 corpus whose rows TMA can address (and,
+for the group counts, groups of a multiple of 128 rows), the older
+score-tile kernel on every other shape, chosen by shape in the C entry
+point; their ``.launches_by_route`` counts each route (:data:`ROUTES`).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ TILE_ROWS = 4096  # corpus rows per tile_max_scores tile
 PLAIN_CHUNK_ROWS = 131072  # rows of fp32 scores the plain versions hold at once
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+ROUTES = ("score_tile", "wgmma")  # the dst_*_route entry points' 0 and 1
 
 
 def _check_pair(what, queries, corpus, *, divisor=1):
@@ -117,18 +119,23 @@ def count_above_groups_kernel(queries, corpus, thresholds, group: int = GROUP_RO
     B, N, D = queries.shape[0], corpus.shape[0], corpus.shape[1]
     tau = thresholds.to(torch.float32).contiguous()
     out = torch.empty((B, N // group), dtype=torch.int32, device=corpus.device)
+    dtype = _KERNEL_DTYPES[corpus.dtype]
     with torch.cuda.device(corpus.device):
-        rc = cuda_lib.library().dst_count_above_groups(
+        lib = cuda_lib.library()
+        route = ROUTES[lib.dst_count_above_groups_route(
+            q.data_ptr(), corpus.data_ptr(), N, D, group, dtype)]
+        rc = lib.dst_count_above_groups(
             q.data_ptr(), corpus.data_ptr(), tau.data_ptr(), out.data_ptr(),
-            B, N, D, group, _KERNEL_DTYPES[corpus.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            B, N, D, group, dtype, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(rc, "count_above_groups")
     count_above_groups_kernel.launches += 1
+    count_above_groups_kernel.launches_by_route[route] += 1
     return out
 
 
 count_above_groups_kernel.launches = 0
+count_above_groups_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def count_above_groups(queries, corpus, thresholds, group: int = GROUP_ROWS):
@@ -162,17 +169,22 @@ def count_above_kernel(queries, corpus, thresholds):
     B, N, D = queries.shape[0], corpus.shape[0], corpus.shape[1]
     tau = thresholds.to(torch.float32).contiguous()
     out = torch.zeros((B,), dtype=torch.int32, device=corpus.device)  # blocks add into it
+    dtype = _KERNEL_DTYPES[corpus.dtype]
     with torch.cuda.device(corpus.device):
-        rc = cuda_lib.library().dst_count_above(
+        lib = cuda_lib.library()
+        route = ROUTES[lib.dst_count_above_route(q.data_ptr(), corpus.data_ptr(), N, D, dtype)]
+        rc = lib.dst_count_above(
             q.data_ptr(), corpus.data_ptr(), tau.data_ptr(), out.data_ptr(),
-            B, N, D, _KERNEL_DTYPES[corpus.dtype], torch.cuda.current_stream().cuda_stream,
+            B, N, D, dtype, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(rc, "count_above")
     count_above_kernel.launches += 1
+    count_above_kernel.launches_by_route[route] += 1
     return out
 
 
 count_above_kernel.launches = 0
+count_above_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def count_above(queries, corpus, thresholds):
@@ -221,7 +233,6 @@ def groupmax_kernel(queries, corpus):
     return t1, t2
 
 
-ROUTES = ("score_tile", "wgmma")  # dst_groupmax_route's 0 and 1
 groupmax_kernel.launches = 0
 groupmax_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 

@@ -47,9 +47,9 @@ PROFILED_CALLS = 3
 CLASSES = (
     ("attention kernels", ("attention_fwd_kernel", "attention_bwd_")),
     ("FFN kernels", ("ffn_gemm_kernel", "ln_rows_kernel")),  # task.model.fused_ffn=true
-    ("count kernel", ("count_groups_kernel",)),
-    ("MIPS sweep kernels", ("count_above_kernel", "groupmax_kernel", "groupmax_wgmma_kernel",
-                            "tile_max_kernel")),
+    ("count kernel", ("count_groups_kernel", "count_groups_wgmma_kernel")),
+    ("MIPS sweep kernels", ("count_above_kernel", "count_above_wgmma_kernel", "groupmax_kernel",
+                            "groupmax_wgmma_kernel", "tile_max_kernel")),
     ("gather-score kernels", ("gather_serial_kernel", "gather_pipelined_kernel",
                               "gather_streamed_kernel")),  # the CITADEL device search
     ("optimizer (multi-tensor)", ("multi_tensor",)),

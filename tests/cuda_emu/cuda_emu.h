@@ -1,6 +1,6 @@
-// A host emulation of the CUDA features the attention, FFN and group-max
-// sweep kernels (dpr_scale_tpu_torch/csrc/attention_*.cu, ffn_fwd.cu,
-// mips_scan.cu, int_scan.cu) use, so that their sources run on a CPU under
+// A host emulation of the CUDA features the attention, FFN and MIPS sweep
+// kernels (dpr_scale_tpu_torch/csrc/attention_*.cu, ffn_fwd.cu,
+// mips_scan.cu, count_groups.cu, int_scan.cu) use, so that their sources run on a CPU under
 // g++: one block at a time, one std::thread per CUDA thread, std::barrier
 // for __syncthreads, named barriers, the warp's collective instructions and
 // the few intrinsics they call.  tests/test_torch_{attention,ffn,mips}_
@@ -80,6 +80,10 @@ inline unsigned __vsub4(unsigned a, unsigned b) {
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 using std::max;
 using std::min;
 

@@ -147,6 +147,23 @@ def test_mips_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):
         chip_smoke.phase_mips_kernels(torch.device("cpu"), cases[:1])
 
 
+def test_count_phase_checks_run_on_cpu(monkeypatch, capsys):
+    """Phase 3's comparison at a tiny size, the kernel replaced by its plain
+    version (the kernels have no CPU mode): the check passes, and a wrong
+    kernel is caught."""
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    monkeypatch.setattr(mk, "count_above_groups_kernel", mk.count_above_groups_plain)
+    cases = ((16, 8192, 32), (5, 2048, 24))
+    assert chip_smoke.phase_count(torch.device("cpu"), cases) == {"max_abs_err": 0.0}
+    out = capsys.readouterr().out
+    assert out.count("0 counts differ (max 0), 0 outside the") == 2
+    monkeypatch.setattr(mk, "count_above_groups_kernel",
+                        lambda *a: mk.count_above_groups_plain(*a) + 1)
+    with pytest.raises(AssertionError, match="count kernel disagrees"):
+        chip_smoke.phase_count(torch.device("cpu"), cases[:1])
+
+
 @pytest.fixture(scope="module")
 def retrieval_work(tmp_path_factory):
     """Phase 15 at a tiny width, run once up to its launch check: (work dir
@@ -164,12 +181,14 @@ def retrieval_work(tmp_path_factory):
 def test_retrieval_cli_phase_runs_on_cpu_until_the_launch_check(retrieval_work):
     """Phase 15 at a tiny width: both CLIs, retrieve() with the other three
     methods, every method's JSON equal to the brute-force top-100, qa_eval
-    equal to the recount; the count_above and groupmax counters must rise."""
+    equal to the recount; the count_above, count_above_groups and groupmax
+    counters must rise."""
     _work, out, _extra = retrieval_work
     for method in ("groupmax", "auto", "fused", "approx", "exact_sort"):
         assert f"{method}: 16 queries, each top-100 equals the brute-force exact top-100" in out
     assert "equal to a recount with has_answers" in out
-    assert "retrieval-path launches: {'count_above': 0, 'groupmax': 0}" in out
+    assert ("retrieval-path launches: {'count_above': 0, 'count_above_groups': 0, "
+            "'groupmax': 0}") in out
 
 
 def test_int_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):

@@ -172,11 +172,12 @@ def test_attention_dropout_seed_repeats_and_varies(cuda_device):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-def _midpoint_tau(s):
+def _midpoint_tau(s, lo=0.5, hi=0.95):
     """Per row of sorted scores, the midpoint of the widest gap between the
-    50th and 95th percentile ranks: no score lies near tau."""
+    ranks lo * N and hi * N (by default the 50th and 95th percentiles): no
+    score lies near tau."""
     N = s.shape[1]
-    a, b = N // 2, int(0.95 * N)
+    a, b = int(lo * N), int(hi * N)
     j = a + (s[:, a + 1 : b + 1] - s[:, a:b]).argmax(1)
     r = np.arange(s.shape[0])
     return (s[r, j] + s[r, j + 1]) / 2
@@ -231,6 +232,75 @@ def test_count_above_kernel_matches_plain(cuda_device, B, D, dtype):
     torch.cuda.synchronize()
     assert mips_kernels.count_above_kernel.launches == before + 1
     torch.testing.assert_close(out, mips_kernels.count_above_plain(q, c, tau), atol=0, rtol=0)
+
+
+def _sorted_scores(q, c):
+    return torch.sort(q.double() @ c.double().T, dim=1).values.cpu().numpy()
+
+
+# (B, N, lo, hi, group): D = 768 bf16 at the CLI's batch sizes over five
+# 2,048-row spans (count_above: + 77 rows, a ragged last tile), a serving
+# batch over three spans and a ragged one (count_above_groups: + 768 rows),
+# thresholds between the 10th and 40th percentiles (negative: the rows past
+# N, which score 0, would count) over a ragged span and query tile, and
+# 1,152-row groups across tiles and spans
+_WGMMA_COUNT_CASES = [(256, 5 * 2048, 0.5, 0.95, 256), (512, 5 * 2048, 0.5, 0.95, 256),
+                      (64, 3 * 2048 + 768, 0.5, 0.95, 256), (130, 2048 + 768, 0.1, 0.4, 256),
+                      (70, 4 * 1152, 0.5, 0.95, 1152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,lo,hi,group", _WGMMA_COUNT_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-p{int(100 * c[2])}-g{c[4]}"
+                              for c in _WGMMA_COUNT_CASES])
+@pytest.mark.parametrize("name", ["count_above_groups", "count_above"])
+def test_count_wgmma_route_equals_plain(cuda_device, name, B, N, lo, hi, group):
+    """D = 768 bf16, thresholds at midpoints of the scores: the wgmma route,
+    every count exactly equal to plain, the same bits again."""
+    if name == "count_above":
+        N = N // 256 * 256 + 77  # any N: a ragged last tile
+    q, c = _scan_inputs(cuda_device, B, N, 768, torch.bfloat16, B + N)
+    tau = torch.from_numpy(_midpoint_tau(_sorted_scores(q, c), lo, hi).astype(np.float32))
+    tau = tau.to(cuda_device)
+    if lo < 0.5:
+        assert (tau < 0).all()
+    kernel, plain = (getattr(mips_kernels, f"{name}_{kind}") for kind in ("kernel", "plain"))
+    args = (q, c, tau) + ((group,) if name == "count_above_groups" else ())
+    before = kernel.launches_by_route["wgmma"]
+    out, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_route["wgmma"] == before + 2
+    torch.testing.assert_close(out, plain(*args), atol=0, rtol=0)
+    assert torch.equal(out, again)
+
+
+# (kernel, D, dtype, group, route); count_above has no groups (None)
+_COUNT_ROUTES = [(name, D, dtype, None if name == "count_above" else 256, route)
+                 for name in ("count_above_groups", "count_above")
+                 for D, dtype, route in ((768, torch.bfloat16, "wgmma"),
+                                         (100, torch.bfloat16, "score_tile"),
+                                         (768, torch.float32, "score_tile"))] + [
+    ("count_above_groups", 768, torch.bfloat16, 128, "wgmma"),
+    ("count_above_groups", 768, torch.bfloat16, 1152, "wgmma"),
+    ("count_above_groups", 768, torch.bfloat16, 192, "score_tile")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,D,dtype,group,route", _COUNT_ROUTES,
+                         ids=[f"{c[0]}-D{c[1]}-{str(c[2])[6:]}-g{c[3]}" for c in _COUNT_ROUTES])
+def test_count_route_follows_the_shape(cuda_device, name, D, dtype, group, route):
+    """TMA-addressable bf16 rows in groups of a multiple of 128 rows take
+    the wgmma kernel; D = 100, fp32 and other groups the score-tile kernel
+    (count_above has no groups); each route counts its own launches."""
+    q, c = _scan_inputs(cuda_device, 64, 2304, D, dtype, D + (group or 0))
+    args = (q, c, torch.zeros(64, device=cuda_device)) + ((group,) if group else ())
+    kernel = getattr(mips_kernels, f"{name}_kernel")
+    before = dict(kernel.launches_by_route)
+    kernel(*args)
+    torch.cuda.synchronize()
+    after = kernel.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in mips_kernels.ROUTES}
 
 
 def _assert_max_close(name, got, want):

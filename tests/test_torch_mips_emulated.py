@@ -1,19 +1,25 @@
-"""The group-max sweep kernels' CUDA sources, run on the CPU under an emulation.
+"""The MIPS sweep kernels' CUDA sources, run on the CPU under an emulation.
 
-``dpr_scale_tpu_torch/csrc/mips_scan.cu`` and ``int_scan.cu`` need the card;
-here g++ builds the same sources against ``tests/cuda_emu``, which defines
-the CUDA features they use on the host and puts the PTX ISA's definitions of
-TMA (bf16 and byte tensor maps, the 128-byte swizzle, zero fill), mbarriers,
-wgmma from K-major descriptors (bf16 and s8), mma.sync m16n8k32 and wmma in
-place of ``csrc/hopper_ptx.cuh`` and ``<mma.h>``. The entry points
-``dst_groupmax`` / ``dst_int_groupmax`` then run on CPU tensors and are held
-against ``groupmax_plain`` (within MAX_REL of max |ref|, the card's
-tolerance) and ``int_groupmax_plain`` (values and rows exactly equal): both
-block layouts (64 and 128 queries), ragged spans and query tiles, one and
-two planes, int8 and packed int4, ties between duplicate rows, and the
-shape-routed older kernels. Lone K-major wgmmas are held against
-``torch.mm`` and an exact integer product first, so that a slip in the
-emulation itself fails on its own. Skips where no g++ is found.
+``dpr_scale_tpu_torch/csrc/mips_scan.cu``, ``count_groups.cu`` and
+``int_scan.cu`` need the card; here g++ builds the same sources against
+``tests/cuda_emu``, which defines the CUDA features they use on the host and
+puts the PTX ISA's definitions of TMA (bf16 and byte tensor maps, the
+128-byte swizzle, zero fill), mbarriers, wgmma from K-major descriptors
+(bf16 and s8), mma.sync m16n8k32 and wmma in place of
+``csrc/hopper_ptx.cuh`` and ``<mma.h>``. The entry points then run on CPU
+tensors: ``dst_groupmax`` / ``dst_int_groupmax`` are held against
+``groupmax_plain`` (within MAX_REL of max |ref|, the card's tolerance) and
+``int_groupmax_plain`` (values and rows exactly equal): both block layouts
+(64 and 128 queries), ragged spans and query tiles, one and two planes, int8
+and packed int4, ties between duplicate rows, and the shape-routed older
+kernels. ``dst_count_above_groups`` / ``dst_count_above`` are held exactly
+equal to ``count_above_groups_plain`` / ``count_above_plain`` on
+integer-valued inputs (every summation order gives the same fp32 score),
+with thresholds equal to some scores (the comparison is strict), negative
+thresholds where rows past N would score 0, both layouts, ragged spans,
+tiles and query tiles, group widths on both routes. Lone K-major wgmmas
+are held against ``torch.mm`` and an exact integer product first, so that a
+slip in the emulation itself fails on its own. Skips where no g++ is found.
 """
 import ctypes
 import os
@@ -30,7 +36,8 @@ from dpr_scale_tpu_torch.ops import mips_kernels as mk
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "dpr_scale_tpu_torch", "csrc")
 EMU = os.path.join(ROOT, "tests", "cuda_emu")
-SOURCES = ("mips_scan.cu", "int_scan.cu", "score_tile.cuh", "int_tile.cuh", "gmax_sweep.cuh")
+SOURCES = ("mips_scan.cu", "count_groups.cu", "int_scan.cu", "score_tile.cuh", "int_tile.cuh",
+           "gmax_sweep.cuh")
 MAX_REL = 2e-5  # chip_smoke.MAX_REL: fp32 sums of the same products in another order
 
 
@@ -48,12 +55,20 @@ def emulated(tmp_path_factory):
     lib = src / "libmips_emulated.so"
     subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}", "-x", "c++",
-         str(src / "mips_scan.cu"), str(src / "int_scan.cu"),
+         str(src / "mips_scan.cu"), str(src / "count_groups.cu"), str(src / "int_scan.cu"),
          os.path.join(EMU, "wgmma_selftest.cpp"), os.path.join(EMU, "emu.cpp"), "-o", str(lib)],
         check=True, capture_output=True, text=True,
     )
     dll = ctypes.CDLL(str(lib))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    dll.dst_count_above_groups.argtypes = [p, p, p, p, i, ll, i, ll, i, p]
+    dll.dst_count_above_groups.restype = i
+    dll.dst_count_above_groups_route.argtypes = [p, p, ll, i, ll, i]
+    dll.dst_count_above_groups_route.restype = i
+    dll.dst_count_above.argtypes = [p, p, p, p, i, ll, i, i, p]
+    dll.dst_count_above.restype = i
+    dll.dst_count_above_route.argtypes = [p, p, ll, i, i]
+    dll.dst_count_above_route.restype = i
     dll.dst_groupmax.argtypes = [p, p, p, p, i, ll, i, i, p]
     dll.dst_groupmax.restype = i
     dll.dst_groupmax_route.argtypes = [p, p, ll, i, i]
@@ -133,6 +148,102 @@ def test_emulated_groupmax_matches_plain(emulated, B, N, D, dtype, route):
         assert torch.isfinite(got).all()
         err = (got - want).abs().max().item()
         assert err <= MAX_REL * want.abs().max().item()
+
+
+def _count_inputs(B, N, D, dtype, negative, seed):
+    """Queries and rows of small integers (exact in bf16; every product and
+    every sum of them exact in fp32, in any order) and, per query, a
+    threshold equal to the score of one of its rows: a negative score where
+    ``negative`` (so the rows past N, which score 0, lie above it), else one
+    near the top. Returns q, c, tau and the exact scores."""
+    rng = np.random.default_rng(seed)
+    q, c = (torch.from_numpy(rng.integers(-3, 4, size=shape).astype(np.float32))
+            for shape in ((B, D), (N, D)))
+    s = q.double() @ c.double().T
+    ranked = torch.sort(s, dim=1).values
+    pick = int(0.25 * N) if negative else int(0.97 * N)
+    tau = ranked[:, pick].float()
+    return q.to(dtype), c.to(dtype), tau.contiguous(), s
+
+
+def _assert_count_inputs_test_the_traps(s, tau, negative):
+    assert (s == tau[:, None].double()).any(1).all()  # rows at tau: > is strict
+    if negative:
+        assert (tau < 0).all()  # a zero-filled row past N would count
+
+
+def _dtype_code(dtype):
+    return {torch.bfloat16: 0, torch.float32: 1}[dtype]
+
+
+# (B, N, D, dtype, group, negative tau, route): 64-query blocks over a ragged
+# span of 128-row groups whose last 256-row tile is half past N; over a
+# ragged span of 256-row groups (two warpgroups' halves a group); 128-query
+# blocks with queries past B, two k-slices; four query tiles, 512-row
+# groups over a D that ends mid-slice; 384-row groups across tiles and
+# spans; then the older kernel: one 1,152-row group at D = 100, fp32, and a
+# 192-row group
+COUNT_GROUPS_CASES = [
+    (1, 2432, 64, torch.bfloat16, 128, True, 1),
+    (64, 2816, 64, torch.bfloat16, 256, False, 1),
+    (70, 2048, 128, torch.bfloat16, 256, True, 1),
+    (512, 2048, 32, torch.bfloat16, 512, False, 1),
+    (70, 4608, 64, torch.bfloat16, 384, True, 1),
+    (5, 1152, 100, torch.bfloat16, 1152, True, 0),
+    (5, 512, 64, torch.float32, 256, False, 0),
+    (7, 768, 64, torch.bfloat16, 192, True, 0),
+]
+
+
+@pytest.mark.parametrize(
+    "B,N,D,dtype,group,negative,route", COUNT_GROUPS_CASES,
+    ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-{str(c[3])[6:]}-g{c[4]}{'-neg' if c[5] else ''}"
+         for c in COUNT_GROUPS_CASES])
+def test_emulated_count_above_groups_equals_plain(emulated, B, N, D, dtype, group, negative,
+                                                  route):
+    """dst_count_above_groups: every count exactly equal to
+    count_above_groups_plain (every entry written over a garbage-filled
+    output), on the route its shape selects."""
+    q, c, tau, s = _count_inputs(B, N, D, dtype, negative, B + N + D + group)
+    _assert_count_inputs_test_the_traps(s, tau, negative)
+    out = torch.full((B, N // group), -7, dtype=torch.int32)
+    code = _dtype_code(dtype)
+    assert emulated.dst_count_above_groups(q.data_ptr(), c.data_ptr(), tau.data_ptr(),
+                                           out.data_ptr(), B, N, D, group, code, None) == 0
+    assert emulated.dst_count_above_groups_route(q.data_ptr(), c.data_ptr(), N, D, group,
+                                                 code) == route
+    assert torch.equal(out, mk.count_above_groups_plain(q, c, tau, group))
+
+
+# (B, N, D, dtype, negative tau, route): one span + 77 rows (a ragged last
+# tile, half of its first unit past N) on 64-query blocks; two spans + 77 on
+# 128-query blocks with queries past B; four query tiles over 16 columns;
+# then the older kernel at D = 100 and for fp32
+COUNT_ABOVE_CASES = [
+    (1, 2048 + 77, 64, torch.bfloat16, True, 1),
+    (64, 2048 + 77, 64, torch.bfloat16, False, 1),
+    (70, 2 * 2048 + 77, 128, torch.bfloat16, True, 1),
+    (512, 2048 + 77, 16, torch.bfloat16, False, 1),
+    (7, 2048 + 77, 100, torch.bfloat16, True, 0),
+    (5, 2048 + 77, 64, torch.float32, True, 0),
+]
+
+
+@pytest.mark.parametrize(
+    "B,N,D,dtype,negative,route", COUNT_ABOVE_CASES,
+    ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-{str(c[3])[6:]}{'-neg' if c[4] else ''}"
+         for c in COUNT_ABOVE_CASES])
+def test_emulated_count_above_equals_plain(emulated, B, N, D, dtype, negative, route):
+    """dst_count_above: every count exactly equal to count_above_plain, on
+    the route its shape selects."""
+    q, c, tau, s = _count_inputs(B, N, D, dtype, negative, B + N + D)
+    _assert_count_inputs_test_the_traps(s, tau, negative)
+    out = torch.zeros(B, dtype=torch.int32)  # the entry point's contract: blocks add into it
+    code = _dtype_code(dtype)
+    assert emulated.dst_count_above(q.data_ptr(), c.data_ptr(), tau.data_ptr(), out.data_ptr(),
+                                    B, N, D, code, None) == 0
+    assert emulated.dst_count_above_route(q.data_ptr(), c.data_ptr(), N, D, code) == route
+    assert torch.equal(out, mk.count_above_plain(q, c, tau))
 
 
 def _int_inputs(B, N, D, packed, planes, seed, dup=False):

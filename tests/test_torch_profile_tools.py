@@ -1,10 +1,12 @@
 """The port's profilers (tools.profile_serve, tools.profile_train) run on the
 CPU at a tiny width, and ``task.model.fused_ffn=true`` reaches the model
-they profile (the fused FFN's plain versions run)."""
+they profile (the fused FFN's plain versions run); tools.bench_sweeps, which
+only times the card, refuses to run without one."""
 import pytest
+import torch
 
 from dpr_scale_tpu_torch.ops import ffn
-from dpr_scale_tpu_torch.tools import profile_serve, profile_train
+from dpr_scale_tpu_torch.tools import bench_sweeps, profile_serve, profile_train
 
 _TINY = ["task.model.arch=tiny", "task.model.vocab_size=30522", "task.transform.max_seq_len=32"]
 
@@ -39,3 +41,9 @@ def test_profile_train_runs_on_cpu(fused_ffn, monkeypatch, capsys):
     assert "== train step, 4 queries + 8 contexts, L=32" in capsys.readouterr().out
     assert (calls[ffn.FusedFFN] > 0) == (fused_ffn == "true")
     assert calls[ffn.FusedFFNLN] == 0  # training forwards
+
+
+def test_bench_sweeps_fails_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_sweeps.main() == 1
+    assert "no CUDA device" in capsys.readouterr().err
