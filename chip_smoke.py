@@ -75,8 +75,11 @@ training (``cli.train``, dropout 0.1). Phases:
      vs their plain version at bucket sizes 512 .. 131,072, D = 32 and 128
      bf16 (and fp32 once), ragged entry counts, entries spread over the
      experts, all on one expert and with pad slots: max |err| within
-     GATHER_REL of max |ref|; repeatability; their times beside the gather
-     + bmm yardstick and the bound;
+     GATHER_REL of max |ref|, the pipelined kernel's scores the serial
+     kernel's bits and every pipelined launch on its bulk-copy route;
+     repeatability; their times (queued) beside the gather + bmm
+     yardstick and the bound; the bulk-copy kernel's registers, shared
+     memory and bulk-copy (UBLKCP) / mbarrier (SYNCS) instructions;
  12. the CITADEL CLI slice at full width (conf/citadel.yaml, bert_base from
      seed 0, the phase-4 vocab): ``cli.generate_multivec_embeddings``
      encodes 4,096 passages at L = 128 into expert shards, then
@@ -85,7 +88,8 @@ training (``cli.train``, dropout 0.1). Phases:
      bucket streamed (``STREAM_MODE="on"``) and the bf16 device index with
      ``DPR_GATHER_KERNEL=pipelined``; fp32 runs equal the host run within
      CITADEL_TOL, bf16 within CITADEL_BF16_REL, pipelined equals serial;
-     the serial, streamed and pipelined counters must rise;
+     the serial, streamed and pipelined counters must rise, every
+     pipelined launch on the bulk-copy route;
  13. the device search at the size its users run: the MS MARCO-like layout
      of tools/bench_citadel_device.py (8.8M docs, 21.1M padded postings in
      five buckets, D = 32 bf16, a 128-dim bf16 CLS plane) built on the
@@ -95,7 +99,8 @@ training (``cli.train``, dropout 0.1). Phases:
      time by kernel class; the kernel path equals the plain-scorer path on
      the card and a numpy oracle on 4 queries; the tiled top-k equals
      ``torch.topk`` on a (128, 8.8M) accumulator (both timed); the
-     kernels' JSON times are taken on that search's buckets;
+     kernels' JSON times are taken on that search's buckets, where the
+     pipelined kernel must give the serial kernel's bits;
  14. the three MIPS sweep kernels (count_above, groupmax, tile_max_scores)
      vs their plain versions over 2,097,152 x 768 bf16 rows (the JAX
      bench.py geometry) at B = 512 (the retrieval CLI's query batch) and
@@ -105,11 +110,10 @@ training (``cli.train``, dropout 0.1). Phases:
      bracket elsewhere), maxima within MAX_REL of max |ref|, repeated calls
      the same bits; their times beside the plain version, a cuBLAS yardstick
      (fp32-output products over 131,072-row chunks plus the reduction) and
-     the bound (groupmax and count_above also queued behind a GPU sleep,
-     and their share of the bound); groupmax's and count_above's launches
-     by route, the B = 512 and 64 cases on the wgmma kernels; those
-     kernels' registers, spills, shared memory and HGMMA / UTMALDG counts
-     in their SASS;
+     the bound (all three also queued behind a GPU sleep, with their share
+     of the bound); their launches by route, the B = 512 and 64 cases on
+     the wgmma kernels; those kernels' registers, spills, shared memory and
+     HGMMA / UTMALDG counts in their SASS;
  15. the retrieval CLI slice at full width (conf/nq.yaml, bert_base from
      seed 0, the phase-4 vocab): ``cli.generate_embeddings`` encodes 4,096
      passages, fp16 distractors fill a second shard up to 2,097,152 rows
@@ -321,6 +325,17 @@ def phase_device():
     return smi
 
 
+# a mangled template argument of the port's kernels: an int or bool, bf16, fp32
+TEMPLATE_ARG = r"L[ib]\d+E|13__nv_bfloat16|f"
+
+
+def template_args(mangled):
+    """The template arguments of a mangled kernel name, readable: ints as
+    they are, the element types as bf16 / fp32."""
+    return [x or {"13__nv_bfloat16": "bf16", "f": "fp32"}[y]
+            for x, y in re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|f)", mangled or "")]
+
+
 def kernel_resources(prefix):
     """Registers, stack and spills of each kernel of the build whose name
     starts with ``prefix``, as ptxas printed them (``cuda_lib.build_log()``),
@@ -335,10 +350,10 @@ def kernel_resources(prefix):
         if m:
             # the function's own name: the digit-free run before its template
             # arguments (the anonymous namespace's name holds the file's)
-            t = re.search(r"([A-Za-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+            t = re.search(r"([A-Za-z_]+_kernel)(?:I((?:" + TEMPLATE_ARG + r")+)E)?", m.group(1))
             name = None
             if t and t.group(1).startswith(prefix):
-                args = re.findall(r"L[ib](\d+)E", t.group(2) or "")
+                args = template_args(t.group(2))
                 name = t.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif name and ("Used" in line or "stack frame" in line):
             found.setdefault(name, []).append(line.split(":", 1)[-1].strip())
@@ -1241,11 +1256,12 @@ def _ffn_split(x, w, lnp, seed, rate, eps=1e-12):
             "gemm2": device_ms(gemm2), "ln2": device_ms(ln(x, y, *lnp[2:]))}
 
 
-def sass_check(prefix, label):
+def sass_check(prefix, label, ops=None):
     """Whether ``cuobjdump --dump-sass`` of the kernel library shows HGMMA
-    (wgmma; IGMMA for its integer form) and UTMALDG (TMA loads) in each
-    instance of the kernel named ``prefix``, where the toolkit has
-    cuobjdump; one line."""
+    (wgmma; IGMMA for its integer form) and UTMALDG (TMA loads), or the
+    instructions ``ops`` (name prefixes) where given, in each instance of
+    the kernel named ``prefix``, where the toolkit has cuobjdump; one
+    line."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
@@ -1256,12 +1272,15 @@ def sass_check(prefix, label):
     found = []
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
-        t = re.search(r"(?<![A-Za-z_])" + prefix + r"I((?:L[ib]\d+E)+)E", name)
+        t = re.search(r"(?<![A-Za-z_])" + prefix + r"I((?:" + TEMPLATE_ARG + r")+)E", name)
         if t:
-            args = ", ".join(re.findall(r"L[ib](\d+)E", t.group(1)))
-            igmma = f"IGMMA {fn.count('IGMMA')}, " if "IGMMA" in fn else ""  # s8 wgmma
-            found.append(f"{prefix}<{args}>: HGMMA {fn.count('HGMMA')}, {igmma}UTMALDG "
-                         f"{fn.count('UTMALDG')}")
+            args = ", ".join(template_args(t.group(1)))
+            if ops:
+                counts = ", ".join(f"{op} {fn.count(op)}" for op in ops)
+            else:
+                igmma = f"IGMMA {fn.count('IGMMA')}, " if "IGMMA" in fn else ""  # s8 wgmma
+                counts = f"HGMMA {fn.count('HGMMA')}, {igmma}UTMALDG {fn.count('UTMALDG')}"
+            found.append(f"{prefix}<{args}>: {counts}")
     return f"{label} SASS (instruction counts): " + ("; ".join(found) or f"no {prefix} found")
 
 
@@ -1319,15 +1338,20 @@ def phase_gather_kernels():
     """Phase 11: each gather-score kernel against the plain version at
     every bucket size the index uses, D = 32 (conf/citadel.yaml) and 128
     (tools/bench_citadel_device.py's default), bf16, plus fp32 once; three
-    routings each, E ragged; repeatability; times of the spread routing.
-    Returns each kernel's max |err|."""
+    routings each, E ragged; the pipelined kernel's scores the serial
+    kernel's bits, every launch on its bulk-copy route; repeatability; times
+    of the spread routing (queued); the bulk-copy kernel's registers,
+    shared memory and bulk-copy / mbarrier instructions. Returns each
+    kernel's max |err|."""
     import torch
 
+    from dpr_scale_tpu_torch.ops import cuda_lib
     from dpr_scale_tpu_torch.ops import gather_score as gs
 
     dev = torch.device("cuda", 0)
     kernels = _gather_kernels()
     errs = dict.fromkeys(kernels, 0.0)
+    routes = dict(gs.gather_score_pipelined_kernel.launches_by_route)
     shapes = [(D, L, torch.bfloat16) for D in (32, 128) for L in GATHER_BUCKETS]
     shapes.append((32, 2048, torch.float32))
     for i, (D, L, dtype) in enumerate(shapes):
@@ -1336,17 +1360,20 @@ def phase_gather_kernels():
             vecs, slots, q = _gather_inputs(dev, n_exp, L, D, E, dtype, case, SEED + 9 + i)
             want = gs.gather_score_plain(vecs, slots, q)
             scale = want.abs().max().item()
-            line = []
+            line, got = [], {}
             for name, fn in kernels.items():
-                got = fn(vecs, slots, q)
+                got[name] = fn(vecs, slots, q)
                 torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
+                err = (got[name] - want).abs().max().item()
                 line.append(f"{name[13:]} {err:.3g}")
-                if not torch.isfinite(got).all() or err > GATHER_REL * scale:
+                if not torch.isfinite(got[name]).all() or err > GATHER_REL * scale:
                     raise AssertionError(f"{name} (L={L} D={D} {dtype} {case}): max_abs_err "
                                          f"{err} of max |ref| {scale}")
                 errs[name] = max(errs[name], err)
-                del got
+            if not torch.equal(got["gather_score_pipelined"], got["gather_score_serial"]):
+                raise AssertionError(f"pipelined (L={L} D={D} {dtype} {case}): not the serial "
+                                     "kernel's bits")
+            del got
             times = ""
             if case == "spread":
                 pieces = torch.from_numpy(gs.stream_pieces(slots.cpu().numpy())).to(dev)
@@ -1358,7 +1385,8 @@ def phase_gather_kernels():
                          + f", plain {plain_ms:.4f} ms, gather+bmm {yard_ms:.4f} ms, bound "
                          f"{b[0]:.4f} ms ({b[1]}) = {b[0] / ms['gather_score_serial']:.1%} of serial")
             print(f"gather L={L} D={D} {str(dtype)[6:]} n_exp={n_exp} E={E} {case}: max_abs_err "
-                  + ", ".join(line) + f" of max |ref| {scale:.3g}" + times)
+                  + ", ".join(line) + f" of max |ref| {scale:.3g}; pipelined == serial bits"
+                  + times)
             del vecs, slots, q, want
         torch.cuda.empty_cache()
     # repeatability: inputs made again from the same seed, the same bits
@@ -1370,6 +1398,15 @@ def phase_gather_kernels():
         if not torch.equal(a, b) or torch.equal(a, c):
             raise AssertionError(f"{name}: a repeated seed gives other scores, or another the same")
     print("gather kernels: repeated inputs give the same bits")
+    routes = {r: n - routes[r] for r, n in gs.gather_score_pipelined_kernel.launches_by_route.items()}
+    print(f"gather_score_pipelined launches by route over the phase: {routes}")
+    if routes["element_copy"]:  # every row here is a multiple of 16 bytes
+        raise AssertionError("the pipelined kernel left its bulk-copy route")
+    tile = gs.pipelined_tiling("bulk_copy", 64, 1 << 20, 1)[0]
+    print("\n".join(kernel_resources("gather_bulk_kernel") + [
+        f"gather_bulk_kernel dynamic shared memory a block (D=32 bf16, {tile}-row stages): "
+        f"{cuda_lib.library().dst_gather_pipelined_smem(tile, 32, 0)}",
+        sass_check("gather_bulk_kernel", "gather bulk", ops=("UBLKCP", "SYNCS"))]))
     return errs
 
 
@@ -1435,6 +1472,7 @@ def phase_citadel_cli(work, dev, n_passages=CITADEL_PASSAGES, n_queries=CITADEL_
                gs.gather_score_pipelined_kernel)
     for k in kernels:
         k.launches = 0
+    bulk = gs.gather_score_pipelined_kernel.launches_by_route["bulk_copy"]
     t0 = time.perf_counter()
     stats = generate_multivec_embeddings.main(base + ["task.shard=0", "task.num_shards=1",
                                                       "datamodule.encode_batch_size=64"])
@@ -1495,6 +1533,10 @@ def phase_citadel_cli(work, dev, n_passages=CITADEL_PASSAGES, n_queries=CITADEL_
     print(f"citadel-path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the CITADEL path never launched: {launches}")
+    bulk = gs.gather_score_pipelined_kernel.launches_by_route["bulk_copy"] - bulk
+    print(f"pipelined launches on the bulk-copy route: {bulk} of {launches['gather_score_pipelined']}")
+    if bulk != launches["gather_score_pipelined"]:
+        raise AssertionError("a pipelined launch of the CITADEL path left the bulk-copy route")
     return launches
 
 
@@ -1712,6 +1754,9 @@ def citadel_kernel_entries(captured):
         pieces = torch.from_numpy(gs.stream_pieces(s_sorted.cpu().numpy())).to(v.device)
         want = gs.gather_score_plain(v, s, q)
         plain_ms = device_ms(lambda: gs.gather_score_plain(v, s, q), calls=5)
+        if not torch.equal(kernels["gather_score_pipelined"](v, s, q),
+                           kernels["gather_score_serial"](v, s, q)):
+            raise AssertionError(f"bucket L={v.shape[1]}: pipelined gives other bits than serial")
         line = []
         for name, fn in kernels.items():
             if name == "gather_score_streamed":
@@ -1730,7 +1775,8 @@ def citadel_kernel_entries(captured):
         yard += y
         bb = bound(*b, FP32_FLOPS)
         print(f"bucket L={v.shape[1]} ({v.shape[0]} experts) E={s.shape[0]}: " + ", ".join(line)
-              + f", plain {plain_ms:.4f} ms, gather+bmm {y:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+              + f", plain {plain_ms:.4f} ms, gather+bmm {y:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}); "
+              "pipelined == serial bits")
     launch = sum(cuda_ms(lambda: gs.gather_score_serial_kernel(v, s, q)) for v, s, q in captured)
     print(f"gather_score_serial, one call per bucket with its host launch cost: {launch:.4f} ms")
     b_ms, b_by = bound(nb, flops, FP32_FLOPS)
@@ -1823,7 +1869,7 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
             want = plain(*args[name])
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            if routes:  # groupmax, count_above: the route each shape takes
+            if routes:  # the route each shape takes
                 routes = {r: n - routes[r] for r, n in kernel.launches_by_route.items()}
                 print(f"{name} ({what}): launches by route {routes}")
                 if dtype_name == "bfloat16" and D == MIPS_DIM and routes["wgmma"] != 2:
@@ -1860,7 +1906,7 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
                 plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, warmup=1)
                 yard_ms = cuda_ms(lambda: yard(*args[name]), reps=5, warmup=1)
                 timing = {"ms": ms}
-                if name in ("groupmax", "count_above"):  # redesigned: queued calls too
+                if name in ("groupmax", "count_above", "tile_max_scores"):  # redesigned: queued too
                     timing = {"ms": device_ms(lambda: kernel(*args[name]), calls=10),
                               "single_ms": ms}
                     print(f"{name} ({what}): kernel {timing['ms']:.4f} ms queued, "
@@ -1875,9 +1921,11 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     if dev.type == "cuda":
-        for prefix in ("groupmax_wgmma_kernel", "count_above_wgmma_kernel"):
+        for prefix, smem in (("groupmax_wgmma_kernel", "dst_bf16_sweep_smem"),
+                             ("count_above_wgmma_kernel", "dst_bf16_sweep_smem"),
+                             ("tile_max_wgmma_kernel", "dst_tile_max_smem")):
             print(sweep_build_report(prefix, prefix.replace("_kernel", "").replace("_", " "),
-                                     lambda lib: {f"B={B}": lib.dst_bf16_sweep_smem(B)
+                                     lambda lib: {f"B={B}": getattr(lib, smem)(B)
                                                   for B in (512, 64)}))
     return entries
 

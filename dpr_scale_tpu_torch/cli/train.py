@@ -7,13 +7,16 @@ Usage:
 
 One device. Weights start from ``init_params`` (seed ``seed``, default 0);
 checkpoints, ``--resume`` and ``task.pretrained_checkpoint_path`` are not
-ported yet (ROADMAP.md A5) and are refused.
+ported yet (ROADMAP.md A3) and are refused, as are ``trainer.profile_dir``
+(the profiler, A2) and more than one device (``trainer.num_devices``, A5).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+
+import torch
 
 from dpr_scale_tpu_torch.cli.common import (
     build_datamodule,
@@ -28,21 +31,38 @@ from dpr_scale_tpu_torch.train.loop import Trainer
 from dpr_scale_tpu_torch.utils.logging import MetricLogger
 
 
-def _refuse_unported(cfg, args) -> None:
+def _refuse_unported(cfg, args, device) -> None:
     if args.resume:
         raise NotImplementedError(
             "--resume needs checkpoints, which the port does not have yet "
-            "(ROADMAP.md A5)"
+            "(ROADMAP.md A3)"
         )
     if cfg.get("checkpoint_callback", {}).get("dirpath"):
         raise NotImplementedError(
             "checkpoint_callback.dirpath is set, but the port has no checkpoint "
-            "manager yet (ROADMAP.md A5); unset it"
+            "manager yet (ROADMAP.md A3); unset it"
         )
     if cfg.task.get("pretrained_checkpoint_path"):
         raise NotImplementedError(
             "task.pretrained_checkpoint_path: the port cannot read orbax "
-            "checkpoints yet (ROADMAP.md A5 and the exporter in A1); unset it"
+            "checkpoints yet (ROADMAP.md A3); unset it"
+        )
+    tr = cfg.trainer
+    if tr.get("profile_dir"):
+        raise NotImplementedError(
+            "trainer.profile_dir: the port has no training profiler yet "
+            "(ROADMAP.md A2); unset it"
+        )
+    # the JAX trainer runs data-parallel over num_devices devices, every
+    # visible one when the key is absent or null; the port trains on one
+    n = tr.get("num_devices")
+    if (n is not None and n > 1) or (
+        n is None and device.type == "cuda" and torch.cuda.device_count() > 1
+    ):
+        raise NotImplementedError(
+            f"trainer.num_devices={n} with {torch.cuda.device_count()} CUDA devices "
+            "visible: the port trains on one device, multi-GPU training is not "
+            "ported yet (ROADMAP.md A5); set trainer.num_devices=1"
         )
 
 
@@ -56,8 +76,8 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    _refuse_unported(cfg, args)
     device = resolve_device(args.device)
+    _refuse_unported(cfg, args, device)
 
     tokenizer = build_tokenizer(cfg)
     dm = build_datamodule(cfg, tokenizer)
@@ -83,7 +103,9 @@ def main(argv=None):
         max_steps=max_steps,
         log_every=tr.get("log_every", 10),
         eval_every_steps=tr.get("eval_every_steps"),
-        logger=MetricLogger(jsonl_path=tr.get("metrics_jsonl")),
+        logger=MetricLogger(
+            jsonl_path=tr.get("metrics_jsonl"), tensorboard_dir=tr.get("tensorboard_dir")
+        ),
     )
     state = task.init_state(cfg.get("seed", 0))
     if not args.test_only:

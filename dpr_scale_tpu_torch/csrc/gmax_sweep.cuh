@@ -13,7 +13,8 @@
 // by the four lanes of a quad, so its maximum is an in-thread max and two
 // shuffles, a count over any rows an in-thread sum and two shuffles, and
 // no score reaches shared or device memory.  bf16_sweep() is the bf16 loop
-// (groupmax and the counts), count_sweep() the counts' epilogue on it.
+// (groupmax, the counts and tile_max; a block's span is SPAN rows, or
+// whole tiles of tile_max), count_sweep() the counts' epilogue on it.
 //
 // Two layouts of a block's work, by query tile:
 //   QM = 128: warpgroup w owns queries [64 w, 64 w + 64) against all TILE =
@@ -84,9 +85,9 @@ __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int s
   __syncthreads();
 }
 
-// corpus rows [row0, row0 + SPAN) of this block, cut at N: its TILE-row tiles
-__device__ __forceinline__ int span_tiles(long long row0, long long N) {
-  const long long rows = N - row0 < SPAN ? N - row0 : SPAN;
+// corpus rows [row0, row0 + span) of this block, cut at N: its TILE-row tiles
+__device__ __forceinline__ int span_tiles(long long row0, long long N, long long span = SPAN) {
+  const long long rows = N - row0 < span ? N - row0 : span;
   return (int)((rows + TILE - 1) / TILE);
 }
 
@@ -177,29 +178,46 @@ constexpr int BF16_STAGE = C_BYTES + Layout<QM>::Q_BYTES;  // a 256-row corpus a
 template <int QM>
 constexpr int BF16_STAGES = RING_STAGES<BF16_STAGE<QM>, 0>;
 
-// the dynamic shared memory of a bf16 sweep block
+// the dynamic shared memory of a bf16 sweep block: its ring and barriers,
+// and `extra` bytes past them (bf16_extra)
 template <int QM>
-constexpr size_t bf16_smem() {
-  return smem_bytes(BF16_STAGES<QM>, BF16_STAGE<QM>, 0);
+constexpr size_t bf16_smem(int extra = 0) {
+  return smem_bytes(BF16_STAGES<QM>, BF16_STAGE<QM>, extra);
+}
+
+// the extra bytes of a bf16 sweep block launched with them
+template <int QM>
+__device__ __forceinline__ unsigned char* bf16_extra() {
+  return aligned_smem() + BF16_STAGES<QM> * BF16_STAGE<QM> + 2 * BF16_STAGES<QM> * 8;
 }
 
 // Launches kernel(tmQ, tmC, args..., B, D, N, nqt), a bf16 sweep of QM
-// queries a block, with tmQ the queries (B, D) in (QM, 64) boxes and tmC
-// the corpus (N, D) in (TILE, 64) boxes; block b takes query tile b % nqt
-// and span b / nqt, so the query tiles of one span run together and read
-// its rows from L2.  Returns the failed encode's or the launch's code.
+// queries a block over spans of `span` rows (a multiple of TILE), with
+// tmQ the queries (B, D) in (QM, 64) boxes and tmC the corpus (N, D) in
+// (TILE, 64) boxes, and `extra` bytes of shared memory past the ring;
+// block b takes query tile b % nqt and span b / nqt, so the query tiles of
+// one span run together and read its rows from L2.  Returns the failed
+// encode's or the launch's code.
 template <int QM, typename Kernel, typename... Args>
-int launch_bf16_sweep(Kernel kernel, const void* q, const void* corpus, int B, long long N, int D,
-                      cudaStream_t stream, Args... args) {
+int launch_bf16_spans(Kernel kernel, long long span, int extra, const void* q,
+                      const void* corpus, int B, long long N, int D, cudaStream_t stream,
+                      Args... args) {
   const int nqt = (B + QM - 1) / QM;
-  const long long blocks = (N + SPAN - 1) / SPAN * nqt;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (N + span - 1) / span * nqt;
+  if (blocks > 0x7fffffffLL || span % TILE != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tc;
   cudaError_t err = make_tmap(&tq, q, B, D, QM, 64);
   if (err == cudaSuccess) err = make_tmap(&tc, corpus, N, D, TILE, 64);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch(kernel, dim3((unsigned)blocks), THREADS, bf16_smem<QM>(), stream, tq, tc,
-                     args..., B, D, N, nqt);
+  return (int)launch(kernel, dim3((unsigned)blocks), THREADS, bf16_smem<QM>(extra), stream, tq,
+                     tc, args..., B, D, N, nqt);
+}
+
+// the same over SPAN-row spans with no extra bytes (groupmax and the counts)
+template <int QM, typename Kernel, typename... Args>
+int launch_bf16_sweep(Kernel kernel, const void* q, const void* corpus, int B, long long N, int D,
+                      cudaStream_t stream, Args... args) {
+  return launch_bf16_spans<QM>(kernel, SPAN, 0, q, corpus, B, N, D, stream, args...);
 }
 
 // the first of the two query rows (qa, qa + 8) a consumer thread holds
@@ -210,15 +228,16 @@ __device__ __forceinline__ int query_row(int nqt) {
          (t % 32) / 4;
 }
 
-// The block's walk over its span (block b: query tile b % nqt, span b /
-// nqt): the producer thread streams each tile's k-slices through the ring;
-// each consumer warpgroup runs its products and, once a tile's have
-// retired, calls epilogue(acc, rbase), rbase the first corpus row of its
-// part of the tile.  Returns false in the producer warpgroup, true in the
-// consumers after the span.
+// The block's walk over its span of `span` rows (block b: query tile b %
+// nqt, span b / nqt): the producer thread streams each tile's k-slices
+// through the ring; each consumer warpgroup runs its products and, once a
+// tile's have retired, calls epilogue(acc, rbase), rbase the first corpus
+// row of its part of the tile.  Returns false in the producer warpgroup,
+// true in the consumers after the span.
 template <int QM, typename Epilogue>
 __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtensorMap& tmC, int D,
-                                           long long N, int nqt, Epilogue&& epilogue) {
+                                           long long N, int nqt, Epilogue&& epilogue,
+                                           long long span = SPAN) {
   using L = Layout<QM>;
   constexpr int STAGE = BF16_STAGE<QM>, STAGES = BF16_STAGES<QM>;
   unsigned char* smem = aligned_smem();
@@ -226,8 +245,8 @@ __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtenso
   uint64_t* empty = full + STAGES;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   const int q0 = (int)(blockIdx.x % nqt) * QM;
-  const long long row0 = (long long)(blockIdx.x / nqt) * SPAN;
-  const int tiles = span_tiles(row0, N), KT = (D + 63) / 64;
+  const long long row0 = (long long)(blockIdx.x / nqt) * span;
+  const int tiles = span_tiles(row0, N, span), KT = (D + 63) / 64;
   ring_init(full, empty, STAGES);
 
   if (wg == 2) {

@@ -1,15 +1,16 @@
-// The Hopper instructions the port's wgmma kernels are built from, one
-// small wrapper each: TMA (2-D cp.async.bulk.tensor loads with the 128-byte
-// swizzle, their tensor maps encoded on the host, bf16 or bytes), mbarriers
-// (the rings' full / empty handshakes), wgmma (warpgroup products from
-// shared-memory descriptors: bf16 with B MN-major or K-major, fp32
-// accumulate; s8 with both K-major, int32 accumulate), setmaxnreg and named
-// barriers, plus the warp-level int8 mma.sync of the older integer tile, the
-// block's dynamic shared memory and the launch of a kernel with it.  Used by
-// ffn_fwd.cu (the FFN GEMMs), mips_scan.cu and int_scan.cu (the group-max
-// sweeps) and int_tile.cuh.  tests/cuda_emu/hopper_ptx.cuh defines the same
-// functions on the host, by the PTX ISA, so that the kernels' sources run
-// on a CPU.
+// The Hopper instructions the port's wgmma and ring kernels are built from,
+// one small wrapper each: TMA (2-D cp.async.bulk.tensor loads with the
+// 128-byte swizzle, their tensor maps encoded on the host, bf16 or bytes;
+// 1-D bulk copies, which need no tensor map), mbarriers (the rings' full /
+// empty handshakes), wgmma (warpgroup products from shared-memory
+// descriptors: bf16 with B MN-major or K-major, fp32 accumulate; s8 with
+// both K-major, int32 accumulate), setmaxnreg and named barriers, plus the
+// warp-level int8 mma.sync of the older integer tile, the block's dynamic
+// shared memory and the launch of a kernel with it.  Used by ffn_fwd.cu
+// (the FFN GEMMs), mips_scan.cu, count_groups.cu and int_scan.cu (the
+// sweeps), int_tile.cuh and gather_score.cu (every launch; the pipelined
+// scorer's ring).  tests/cuda_emu/hopper_ptx.cuh defines the same functions
+// on the host, by the PTX ISA, so that the kernels' sources run on a CPU.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up at run time
@@ -139,6 +140,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16) from src in device memory
+// to dst in shared memory, both 16-byte aligned, its bytes counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

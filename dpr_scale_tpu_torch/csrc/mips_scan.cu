@@ -29,9 +29,10 @@
 //
 // groupmax and count_above on a bf16 corpus whose rows TMA can address
 // (D % 8 == 0, 16-byte aligned bases) run groupmax_wgmma_kernel and
-// count_above_wgmma_kernel, on gmax_sweep.cuh's frame: a ring of TMA loads
-// (4 stages of a 256-row corpus slice and the block's query slice, 64
-// columns each) feeding two consumer warpgroups on wgmma m64nNk16 (queries
+// count_above_wgmma_kernel, and tile_max over tiles of whole 256-row units
+// (tile % 256 == 0) tile_max_wgmma_kernel, on gmax_sweep.cuh's frame: a
+// ring of TMA loads (4 stages of a 256-row corpus slice and the block's
+// query slice, 64 columns each) feeding two consumer warpgroups on wgmma m64nNk16 (queries
 // on M, corpus rows on N, both K-major, fp32 sums in registers).  groupmax:
 // per tile each thread takes the max of its two columns of every n8 slice,
 // the quad's lanes reduce-scatter the 8-row group maxima with shuffles, a
@@ -40,13 +41,20 @@
 // the (groups, B) layout.  count_above: each thread counts its scores above
 // its two queries' thresholds in registers over the whole span (rows past
 // N masked), then two shuffles sum the quad and one atomicAdd a query adds
-// it (gmax_sweep.cuh's count_sweep, one group of all N rows).  B > 64
-// takes 128-query blocks (m64n256 a warpgroup); B <= 64 64-query blocks
-// (m64n128, the warpgroups on the two halves of a tile), so the corpus is
-// read once.  Every other case (fp32, D % 8 != 0, unaligned) and tile_max
-// run on score_tile.cuh's tile (wmma, synchronous staging; a 128 x 64 fp32
+// it (gmax_sweep.cuh's count_sweep, one group of all N rows).  tile_max:
+// a block's span is whole tiles (one tile of 4,096 rows; tiles of at most
+// 2,048 rows as many as fit in 2,048), each thread carries the running
+// max of its two query rows' scores over a tile's 256-row units in
+// registers, and at the tile's end two quad shuffles give the tile's
+// maxima, stored once (no atomics: deterministic).  B > 64 takes
+// 128-query blocks (m64n256 a warpgroup); B <= 64 64-query blocks
+// (m64n128, the warpgroups on the two halves of a tile, whose tile_max
+// maxima meet in shared memory), so the corpus is read once.  Every other
+// case (fp32, D % 8 != 0, unaligned; tile_max's tiles of other widths) runs
+// on score_tile.cuh's tile (wmma, synchronous staging; a 128 x 64 fp32
 // score tile in shared memory, reduced by strided columns).
-// dst_groupmax_route / dst_count_above_route say which kernel a call takes.
+// dst_groupmax_route / dst_count_above_route / dst_tile_max_route say which
+// kernel a call takes.
 #include "gmax_sweep.cuh"  // first: the emulation defines the CUDA keywords there
 #include "score_tile.cuh"
 
@@ -200,6 +208,76 @@ count_above_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
   gs::count_sweep<QM>(tmQ, tmC, tau, out, B, D, N, nqt, N, 1);
 }
 
+// the rows of a tile_max_wgmma_kernel block: one tile of at least SPAN
+// rows, else as many whole tiles as fit in SPAN
+__host__ __device__ inline long long tile_max_span(long long tile) {
+  return tile >= SPAN ? tile : SPAN / tile * tile;
+}
+
+// 64 floats past the ring: the maxima the QM = 64 layout's second
+// warpgroup hands to the first
+constexpr int TILE_MAX_EXTRA = 64 * 4;
+static_assert(gs::bf16_smem<64>(TILE_MAX_EXTRA) <= gs::SMEM_LIMIT &&
+                  gs::bf16_smem<128>(TILE_MAX_EXTRA) <= gs::SMEM_LIMIT,
+              "the exchange fits beside the ring");
+
+// tile_max over a TMA-addressable bf16 corpus, tiles of a multiple of 256
+// rows (N % tile == 0): out[b * ntiles + t] = max of tile t's scores
+template <int QM>
+__global__ void __launch_bounds__(gs::THREADS, 1)
+tile_max_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                      const __grid_constant__ CUtensorMap tmC, float* __restrict__ out,
+                      long long tile, int B, int D, long long N, int nqt) {
+  using L = gs::Layout<QM>;
+  const int lane = threadIdx.x % 32, wg = threadIdx.x / 128;
+  const int qa = gs::query_row<QM>(nqt), qb = qa - (int)(blockIdx.x % nqt) * QM;  // rows qa, qa + 8
+  const long long ntiles = N / tile;
+  float* handed = reinterpret_cast<float*>(gs::bf16_extra<QM>());  // (64,), QM = 64
+  const float neg_inf = -__int_as_float(0x7f800000);
+  float m[2] = {neg_inf, neg_inf};  // this thread's running maxima of rows qa, qa + 8
+  gs::bf16_sweep<QM>(tmQ, tmC, D, N, nqt, [&](const float (&acc)[L::N / 2], long long rbase) {
+#pragma unroll
+    for (int j = 0; j < L::NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        m[h] = fmaxf(m[h], fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+    const long long end = (rbase / gs::TILE + 1) * gs::TILE;  // the 256-row unit's end
+    if (end % tile != 0) return;  // the same in both warpgroups: a tile holds whole units
+    // the tile's last unit: the quad's maxima, every lane of it
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(gs::FULL_MASK, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(gs::FULL_MASK, m[h], 2));
+    }
+    if (QM == 64) {  // each warpgroup saw half of the tile's rows: the second hands its maxima over
+      if (wg == 1 && (lane & 3) == 0) {
+        handed[qb] = m[0];
+        handed[qb + 8] = m[1];
+      }
+      dst_hopper::named_bar_sync(1, 256);
+      if (wg == 0) {
+        m[0] = fmaxf(m[0], handed[qb]);
+        m[1] = fmaxf(m[1], handed[qb + 8]);
+      }
+      dst_hopper::named_bar_sync(1, 256);  // read before the next tile's hand-over
+    }
+    const long long t = end / tile - 1;
+    if ((QM == 128 || wg == 0) && (lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (qa + 8 * h < B) out[(size_t)(qa + 8 * h) * ntiles + t] = m[h];
+    }
+    m[0] = m[1] = neg_inf;
+  }, tile_max_span(tile));
+}
+
+// 1 where dst_tile_max takes tile_max_wgmma_kernel: a bf16 sweep whose
+// tiles are whole 256-row units
+inline int tile_max_route(const void* q, const void* corpus, long long N, int D, long long tile,
+                          int dtype) {
+  return gs::bf16_route(q, corpus, N, D, dtype) && tile % gs::TILE == 0;
+}
+
 template <typename T>
 int launch_count(const void* q, const void* corpus, const void* tau, void* out, int B,
                  long long N, int D, cudaStream_t stream) {
@@ -285,16 +363,37 @@ extern "C" int dst_groupmax_route(const void* q, const void* corpus, long long N
   return gs::bf16_route(q, corpus, N, D, dtype);
 }
 
+// 1: dst_tile_max takes the wgmma kernel on these arguments; 0: score_tile.
+extern "C" int dst_tile_max_route(const void* q, const void* corpus, long long N, int D,
+                                  long long tile, int dtype) {
+  return tile_max_route(q, corpus, N, D, tile, dtype);
+}
+
 // Dynamic shared memory of a block of the bf16 wgmma sweeps (groupmax,
 // count_above, count_above_groups: one frame) at batch B.
 extern "C" long long dst_bf16_sweep_smem(int B) {
   return (long long)(B > 64 ? gs::bf16_smem<128>() : gs::bf16_smem<64>());
 }
 
-// out (B, N / tile) fp32.
+// Dynamic shared memory of a tile_max_wgmma_kernel block at batch B.
+extern "C" long long dst_tile_max_smem(int B) {
+  return (long long)(B > 64 ? gs::bf16_smem<128>(TILE_MAX_EXTRA)
+                            : gs::bf16_smem<64>(TILE_MAX_EXTRA));
+}
+
+// out (B, N / tile) fp32.  The route is chosen by shape alone
+// (dst_tile_max_route).
 extern "C" int dst_tile_max(const void* q, const void* corpus, void* out, int B, long long N,
                             int D, long long tile, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1 || tile < 1 || N % tile != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tile_max_route(q, corpus, N, D, tile, dtype))
+    return B > 64 ? gs::launch_bf16_spans<128>(tile_max_wgmma_kernel<128>, tile_max_span(tile),
+                                               TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
+                                               tile)
+                  : gs::launch_bf16_spans<64>(tile_max_wgmma_kernel<64>, tile_max_span(tile),
+                                              TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
+                                              tile);
   if (dtype == 0) return launch_tile_max<bf16>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);
   if (dtype == 1)
     return launch_tile_max<float>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);

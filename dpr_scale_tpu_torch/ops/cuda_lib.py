@@ -155,6 +155,10 @@ def library() -> ctypes.CDLL:
             lib.dst_bf16_sweep_smem.restype = ll
             lib.dst_tile_max.argtypes = [p, p, p, i, ll, i, ll, i, p]
             lib.dst_tile_max.restype = i
+            lib.dst_tile_max_route.argtypes = [p, p, ll, i, ll, i]
+            lib.dst_tile_max_route.restype = i
+            lib.dst_tile_max_smem.argtypes = [i]
+            lib.dst_tile_max_smem.restype = ll
             lib.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
             lib.dst_int_groupmax.restype = i
             lib.dst_int_groupmax_route.argtypes = [p, p, i, i]
@@ -177,6 +181,10 @@ def library() -> ctypes.CDLL:
             lib.dst_gather_serial.restype = i
             lib.dst_gather_pipelined.argtypes = [p] * 4 + [i, ll, i, i, i, i, i, p]
             lib.dst_gather_pipelined.restype = i
+            lib.dst_gather_pipelined_route.argtypes = [p, p, i, i]
+            lib.dst_gather_pipelined_route.restype = i
+            lib.dst_gather_pipelined_smem.argtypes = [i, i, i]
+            lib.dst_gather_pipelined_smem.restype = ll
             lib.dst_gather_streamed.argtypes = [p] * 5 + [i, ll, i, i, i, i, p]
             lib.dst_gather_streamed.restype = i
             _lib, _lib_path = lib, path

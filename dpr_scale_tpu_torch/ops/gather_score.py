@@ -19,7 +19,9 @@ and the MXU dot at ``:517-523`` compute). An entry whose slot lies outside
   ``pallas_call`` at ``:431``), :func:`gather_score_pipelined_kernel`
   (``_scores_pallas``, ``:550``) and :func:`gather_score_streamed_kernel`
   (``_scores_streamed``, ``:648``) — ``csrc/gather_score.cu``, any D up to
-  the limits in :func:`_check_kernel`;
+  the limits in :func:`_check_kernel`; the pipelined kernel gives the
+  serial kernel's bits, through a ring of bulk copies where a row is a
+  multiple of 16 bytes (:data:`PIPE_ROUTES`);
 * :func:`gather_score_serial`, :func:`gather_score_pipelined`,
   :func:`gather_score_streamed` — dispatch: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel or raises.
@@ -35,7 +37,12 @@ import torch
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SERIAL_TILE = 2048  # rows of one entry a serial block scores
-PIPE_STAGE_BYTES = 16384  # posting bytes one pipelined ring stage holds
+PIPE_BULK_STAGE_BYTES = 16384  # posting bytes of one stage of the bulk-copy ring
+PIPE_STAGE_BYTES = 16384  # posting bytes of one stage of the element-copy kernel
+# the pipelined kernel's routes (dst_gather_pipelined_route's 0 and 1): rows
+# of 16-byte multiples take one bulk copy per (entry, L-tile), other rows
+# element copies
+PIPE_ROUTES = ("element_copy", "bulk_copy")
 STREAM_TILE_BYTES = 32768  # posting bytes of one streamed block's tile
 STREAM_PIECE = 64  # entries a streamed block scores against its tile
 PLAIN_CHUNK_BYTES = 1 << 28  # fp32 posting bytes the plain version gathers at once
@@ -119,9 +126,21 @@ def gather_score_serial_kernel(vecs, slots, q):
     return out
 
 
+def pipelined_tiling(route, row_bytes, L, E):
+    """(tile, group) of a pipelined launch: rows per work item and entries
+    per item. The bulk-copy ring takes one entry's tile of at most
+    PIPE_BULK_STAGE_BYTES a stage; the element-copy kernel up to 8 entries'
+    tiles in PIPE_STAGE_BYTES."""
+    if route == "bulk_copy":
+        return _pow2_rows(PIPE_BULK_STAGE_BYTES, row_bytes, L), 1
+    tile = _pow2_rows(PIPE_STAGE_BYTES // 2, row_bytes, L)
+    return tile, max(1, min(8, E, PIPE_STAGE_BYTES // (tile * row_bytes)))
+
+
 def gather_score_pipelined_kernel(vecs, slots, q):
-    """Launch the double-buffered (cp.async ring) kernel of
-    ``csrc/gather_score.cu``."""
+    """Launch the pipelined kernel of ``csrc/gather_score.cu``: the
+    bulk-copy ring where the rows allow it, else the element-copy kernel
+    (``launches_by_route`` counts each)."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     slots, q, out = _check_kernel(vecs, slots, q, "gather_score_pipelined")
@@ -129,17 +148,19 @@ def gather_score_pipelined_kernel(vecs, slots, q):
     E = slots.shape[0]
     if E == 0:
         return out
-    row_bytes = D * vecs.element_size()
-    tile = _pow2_rows(PIPE_STAGE_BYTES // 2, row_bytes, L)
-    group = max(1, min(8, E, PIPE_STAGE_BYTES // (tile * row_bytes)))
+    dtype = _KERNEL_DTYPES[vecs.dtype]
     with torch.cuda.device(vecs.device):
-        rc = cuda_lib.library().dst_gather_pipelined(
+        lib = cuda_lib.library()
+        route = PIPE_ROUTES[lib.dst_gather_pipelined_route(vecs.data_ptr(), q.data_ptr(), D,
+                                                           dtype)]
+        tile, group = pipelined_tiling(route, D * vecs.element_size(), L, E)
+        rc = lib.dst_gather_pipelined(
             vecs.data_ptr(), slots.data_ptr(), q.data_ptr(), out.data_ptr(),
-            E, n_exp, L, D, tile, group, _KERNEL_DTYPES[vecs.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            E, n_exp, L, D, tile, group, dtype, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(rc, "gather_score_pipelined")
     gather_score_pipelined_kernel.launches += 1
+    gather_score_pipelined_kernel.launches_by_route[route] += 1
     return out
 
 
@@ -185,6 +206,7 @@ def gather_score_streamed_kernel(vecs, q, slots, pieces=None):
 
 gather_score_serial_kernel.launches = 0
 gather_score_pipelined_kernel.launches = 0
+gather_score_pipelined_kernel.launches_by_route = dict.fromkeys(PIPE_ROUTES, 0)
 gather_score_streamed_kernel.launches = 0
 
 

@@ -21,11 +21,12 @@ Each comes as ``<name>_plain`` (plain PyTorch: the CPU path and the oracle,
 scores materialise chunk by chunk), ``<name>_kernel`` (the hand-written CUDA
 kernel, bf16 or fp32, scores never reach memory; ``.launches`` counts its
 launches) and ``<name>`` (dispatch: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises). The first three kernels run a
-wgmma kernel fed by TMA on a bf16 corpus whose rows TMA can address (and,
-for the group counts, groups of a multiple of 128 rows), the older
-score-tile kernel on every other shape, chosen by shape in the C entry
-point; their ``.launches_by_route`` counts each route (:data:`ROUTES`).
+CUDA tensor launches the kernel or raises). Each kernel runs a wgmma kernel
+fed by TMA on a bf16 corpus whose rows TMA can address (and, for the group
+counts, groups of a multiple of 128 rows; for the tile maxima, tiles of a
+multiple of 256 rows), the older score-tile kernel on every other shape,
+chosen by shape in the C entry point; ``.launches_by_route`` counts each
+route (:data:`ROUTES`).
 """
 from __future__ import annotations
 
@@ -263,17 +264,22 @@ def tile_max_scores_kernel(queries, corpus, tile: int = TILE_ROWS):
     q = _kernel_inputs("tile_max_scores", queries, corpus)
     B, N, D = queries.shape[0], corpus.shape[0], corpus.shape[1]
     out = torch.empty((B, N // tile), dtype=torch.float32, device=corpus.device)
+    dtype = _KERNEL_DTYPES[corpus.dtype]
     with torch.cuda.device(corpus.device):
-        rc = cuda_lib.library().dst_tile_max(
-            q.data_ptr(), corpus.data_ptr(), out.data_ptr(), B, N, D, tile,
-            _KERNEL_DTYPES[corpus.dtype], torch.cuda.current_stream().cuda_stream,
+        lib = cuda_lib.library()
+        route = ROUTES[lib.dst_tile_max_route(q.data_ptr(), corpus.data_ptr(), N, D, tile, dtype)]
+        rc = lib.dst_tile_max(
+            q.data_ptr(), corpus.data_ptr(), out.data_ptr(), B, N, D, tile, dtype,
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(rc, "tile_max_scores")
     tile_max_scores_kernel.launches += 1
+    tile_max_scores_kernel.launches_by_route[route] += 1
     return out
 
 
 tile_max_scores_kernel.launches = 0
+tile_max_scores_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def tile_max_scores(queries, corpus, tile: int = TILE_ROWS):

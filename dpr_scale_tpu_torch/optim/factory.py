@@ -101,15 +101,14 @@ def make_optimizer(
     name = name.lower()
     if name in ("lamb", "madgrad"):
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (queued in ROADMAP.md); "
+            f"optimizer {name!r} is not ported yet (ROADMAP.md A4); "
             "use task.optim.name=adamw"
         )
     if name not in ("adamw", "adam"):
         raise ValueError(f"unknown optimizer {name!r}")
     if accumulate_steps > 1:
         raise NotImplementedError(
-            "trainer.accumulate_grad_batches > 1 is not ported yet (queued in "
-            "ROADMAP.md)"
+            "trainer.accumulate_grad_batches > 1 is not ported yet (ROADMAP.md A4)"
         )
     return AdamW(
         learning_rate,

@@ -2,7 +2,7 @@
 epochs of train steps, ``max_steps``, periodic metrics, validation each
 epoch (and every ``eval_every_steps``), and a final test.
 
-No checkpoint manager yet (ROADMAP.md A5): ``test`` evaluates the state it
+No checkpoint manager yet (ROADMAP.md A3): ``test`` evaluates the state it
 is given.
 """
 from __future__ import annotations

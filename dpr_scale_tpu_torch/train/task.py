@@ -10,7 +10,7 @@ the step updates the model's parameters and the optimizer's moments in place
 and returns the same state object. The dropout of step ``n`` is a pure
 function of ``(dropout_seed, n)`` (:class:`DropoutRng`), as JAX's
 ``fold_in(dropout_rng, step)`` is. Single device only: the multi-GPU global
-batch (all_gather of contexts) and GradCache are queued in ROADMAP.md.
+batch (all_gather of contexts) and GradCache are ROADMAP.md A5 and A6.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ class DenseRetrieverTask:
         if self.grad_cache_chunks > 1:
             raise NotImplementedError(
                 "task.grad_cache_chunks > 1 (GradCache) is not ported yet "
-                "(queued in ROADMAP.md)"
+                "(ROADMAP.md A6)"
             )
         if self.optimizer is None:
             self.optimizer = AdamW(1e-5, weight_decay=1e-4)  # optax.adamw(1e-5)

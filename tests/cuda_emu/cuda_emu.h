@@ -1,11 +1,13 @@
-// A host emulation of the CUDA features the attention, FFN and MIPS sweep
-// kernels (dpr_scale_tpu_torch/csrc/attention_*.cu, ffn_fwd.cu,
-// mips_scan.cu, count_groups.cu, int_scan.cu) use, so that their sources run on a CPU under
-// g++: one block at a time, one std::thread per CUDA thread, std::barrier
-// for __syncthreads, named barriers, the warp's collective instructions and
-// the few intrinsics they call.  tests/test_torch_{attention,ffn,mips}_
-// emulated.py build the kernels with it, beside attention_ptx.cuh /
-// hopper_ptx.cuh / mma.h here in place of the PTX wrappers and wmma.
+// A host emulation of the CUDA features the attention, FFN, MIPS sweep and
+// gather-score kernels (dpr_scale_tpu_torch/csrc/attention_*.cu,
+// ffn_fwd.cu, mips_scan.cu, count_groups.cu, int_scan.cu, gather_score.cu)
+// use, so that their sources run on a CPU under g++: one block at a time,
+// one std::thread per CUDA thread, std::barrier for __syncthreads, named
+// barriers, the warp's collective instructions, the device queries of a
+// persistent grid and the few intrinsics they call.
+// tests/test_torch_{attention,ffn,mips,gather}_emulated.py build the
+// kernels with it, beside attention_ptx.cuh / hopper_ptx.cuh / mma.h here in
+// place of the PTX wrappers and wmma.
 #pragma once
 
 #include <algorithm>
@@ -87,6 +89,31 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 using std::max;
 using std::min;
 
+// the device's queries, for the persistent grids: an emulated card of
+// EMU_SMS multiprocessors (few, so that each block walks several items)
+// holding one block of any kernel each
+constexpr int EMU_SMS = 2;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  assert(attr == cudaDevAttrMultiProcessorCount);
+  *value = EMU_SMS;
+  return cudaSuccess;
+}
+template <typename Kernel>
+cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <typename Kernel>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, Kernel, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
+
 // the running block: its index, its threads' barrier and its warps' state
 struct EmuWarp {
   std::barrier<> bar{32};
@@ -118,6 +145,25 @@ inline float __shfl_xor_sync(unsigned, float x, int mask) {
   w.f[emu_lane()] = x;
   w.bar.arrive_and_wait();
   const float r = w.f[emu_lane() ^ mask];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+// lane src's x, in every lane
+inline float __shfl_sync(unsigned, float x, int src) {
+  EmuWarp& w = emu_warp();
+  w.f[emu_lane()] = x;
+  w.bar.arrive_and_wait();
+  const float r = w.f[src % 32];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+inline int __shfl_sync(unsigned, int x, int src) {
+  EmuWarp& w = emu_warp();
+  w.i[emu_lane()] = x;
+  w.bar.arrive_and_wait();
+  const int r = w.i[src % 32];
   w.bar.arrive_and_wait();
   return r;
 }

@@ -6,6 +6,10 @@
 //   bits [4, 7) of each shared-memory address XOR its bits [7, 10)),
 //   zero-fills the part past the matrix and completes its bytes on the
 //   mbarrier;
+// * a 1-D bulk copy (cp.async.bulk) copies its bytes, a multiple of 16
+//   between 16-byte aligned addresses, and completes them on the mbarrier,
+//   late: a copy lands when a thread waits on its mbarrier and finds the
+//   phase still open (one copy a wait);
 // * an mbarrier counts pending arrivals and transaction bytes and flips its
 //   phase when both reach zero; try_wait.parity(P) is true once the phase of
 //   parity P has completed;
@@ -126,9 +130,32 @@ inline void emu_complete_tx(uint64_t* bar, uint32_t bytes) {
   emu_mbar_step(m);
 }
 
+// 1-D bulk copies in flight (under emu_mbar_mu): a copy lands only when a
+// thread waits on its own mbarrier and finds the phase open, so copies land
+// in the order their waiters come, not the order they were issued, and a
+// wait that passes before its copy has landed shows, as on the card
+struct EmuBulk {
+  unsigned char* dst;
+  const void* src;
+  uint32_t bytes;
+  uint64_t* bar;
+};
+inline std::vector<EmuBulk> emu_bulk_in_flight;
+
 inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   std::unique_lock<std::mutex> lock(emu_mbar_mu);
   auto done = [&] { return emu_mbar(bar).phase != parity; };
+  if (done()) return true;
+  for (size_t i = 0; i < emu_bulk_in_flight.size(); ++i) {  // a copy of bar's lands, after the check
+    const EmuBulk c = emu_bulk_in_flight[i];
+    if (c.bar != bar) continue;
+    emu_bulk_in_flight.erase(emu_bulk_in_flight.begin() + i);
+    std::memcpy(c.dst, c.src, c.bytes);
+    EmuMbar& m = emu_mbar(c.bar);
+    m.tx -= (int32_t)c.bytes;
+    emu_mbar_step(m);
+    return false;
+  }
   emu_mbar_cv.wait_for(lock, std::chrono::milliseconds(1), done);  // try_wait's time limit
   return done();
 }
@@ -155,6 +182,16 @@ inline void tma_load(void* dst, const CUtensorMap* map, int row, int col, uint64
         std::memset(emu_smem + a, 0, e);
     }
   emu_complete_tx(bar, (uint32_t)(map->box_rows * map->box_cols * e));
+}
+
+// ---- bulk copies ----
+
+inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  const uint32_t d = smem_addr(dst);
+  assert(d % 16 == 0 && (uintptr_t)src % 16 == 0 && bytes % 16 == 0 && bytes > 0);
+  assert(d + bytes <= EMU_SMEM_BYTES);
+  std::lock_guard<std::mutex> lock(emu_mbar_mu);
+  emu_bulk_in_flight.push_back({emu_smem + d, src, bytes, bar});
 }
 
 // ---- warpgroups ----

@@ -377,6 +377,51 @@ def test_tile_max_kernel_matches_plain(cuda_device, B, D, dtype, tile, n_tiles):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,tile,last_row", [(512, 4096, False), (64, 4096, False),
+                                             (130, 256, True), (7, 4096, True)])
+def test_tile_max_wgmma_route(cuda_device, B, tile, last_row):
+    """D = 768 bf16 over 5 x 2,048 rows + the rest of a tile, at the
+    retrieval batch, a serving batch, 256-row tiles (eight a block) and a
+    ragged query tile; with ``last_row`` positive queries and each tile's
+    last row all 3, so every maximum lies there: the wgmma route, within
+    2e-5 of max |ref|, the same bits again."""
+    N = (5 * 2048 // tile + 1) * tile
+    q, c = _scan_inputs(cuda_device, B, N, 768, torch.float32, B + tile)
+    if last_row:
+        q, c[tile - 1 :: tile] = q.abs() + 0.1, 3.0
+    q, c = q.bfloat16(), c.bfloat16()
+    before = dict(mips_kernels.tile_max_scores_kernel.launches_by_route)
+    out = mips_kernels.tile_max_scores(q, c, tile)
+    again = mips_kernels.tile_max_scores(q, c, tile)
+    torch.cuda.synchronize()
+    assert mips_kernels.tile_max_scores_kernel.launches_by_route["wgmma"] == before["wgmma"] + 2
+    want = mips_kernels.tile_max_scores_plain(q, c, tile)
+    if last_row:
+        assert torch.equal(want, q.float() @ c[tile - 1 :: tile].float().T)
+    _assert_max_close("tile max", out, want)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype,tile,route", [(768, torch.bfloat16, 4096, "wgmma"),
+                                                (768, torch.bfloat16, 256, "wgmma"),
+                                                (768, torch.bfloat16, 300, "score_tile"),
+                                                (100, torch.bfloat16, 4096, "score_tile"),
+                                                (768, torch.float32, 4096, "score_tile")])
+def test_tile_max_route_follows_the_shape(cuda_device, D, dtype, tile, route):
+    """TMA-addressable bf16 rows in tiles of whole 256-row units take the
+    wgmma kernel, other tiles, D = 100 and fp32 the score-tile kernel; each
+    route counts its own launches."""
+    q, c = _scan_inputs(cuda_device, 64, 2 * tile, D, dtype, D + tile)
+    before = dict(mips_kernels.tile_max_scores_kernel.launches_by_route)
+    mips_kernels.tile_max_scores(q, c, tile)
+    torch.cuda.synchronize()
+    after = mips_kernels.tile_max_scores_kernel.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in mips_kernels.ROUTES}
+
+
+@pytest.mark.cuda
 def test_scan_kernels_refuse_what_they_cannot_run(cuda_device):
     q = torch.zeros(4, 64, device=cuda_device, dtype=torch.bfloat16)
     c = torch.zeros(256, 64, device=cuda_device, dtype=torch.bfloat16)
@@ -567,6 +612,30 @@ def test_gather_score_kernels_match_plain(cuda_device, n_exp, L, D, E, dtype, ca
         _assert_scores_close(name, got, want)
     if case == "pad":
         assert (want[slots == n_exp] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "one_slot", "pad"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_exp,L,D,E", _GATHER_SHAPES + [(16, 128, 32, 301), (4, 8192, 32, 9),
+                                                          (16, 131072, 128, 13)])
+def test_gather_pipelined_gives_the_serial_bits(cuda_device, n_exp, L, D, E, dtype, case):
+    """The pipelined kernel takes the bulk-copy route where a row is a
+    multiple of 16 bytes (else element copies), and on either route gives
+    the serial kernel's scores bit for bit: the same lane split and sums.
+    The last shape walks ~200 work items a block, where consumer groups
+    sharing one ring once read stages before their copies had landed."""
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    vecs, slots, q = _gather_inputs(cuda_device, n_exp, L, D, E, dtype, case, 2 * L + D + E)
+    route = "bulk_copy" if D * vecs.element_size() % 16 == 0 else "element_copy"
+    before = dict(gs.gather_score_pipelined_kernel.launches_by_route)
+    got = gs.gather_score_pipelined_kernel(vecs, slots, q)
+    want = gs.gather_score_serial_kernel(vecs, slots, q)
+    torch.cuda.synchronize()
+    after = gs.gather_score_pipelined_kernel.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in gs.PIPE_ROUTES}
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,11 @@ equal to ``count_above_groups_plain`` / ``count_above_plain`` on
 integer-valued inputs (every summation order gives the same fp32 score),
 with thresholds equal to some scores (the comparison is strict), negative
 thresholds where rows past N would score 0, both layouts, ragged spans,
-tiles and query tiles, group widths on both routes. Lone K-major wgmmas
+tiles and query tiles, group widths on both routes. ``dst_tile_max`` is
+held against ``tile_max_scores_plain`` (within MAX_REL): both layouts,
+ragged query tiles, 256-row tiles (a block holds several, its last span
+ragged), 768- and 4,096-row tiles, tiles on the older kernel, and maxima
+that lie in each tile's last row. Lone K-major wgmmas
 are held against ``torch.mm`` and an exact integer product first, so that a
 slip in the emulation itself fails on its own. Skips where no g++ is found.
 """
@@ -73,6 +77,10 @@ def emulated(tmp_path_factory):
     dll.dst_groupmax.restype = i
     dll.dst_groupmax_route.argtypes = [p, p, ll, i, i]
     dll.dst_groupmax_route.restype = i
+    dll.dst_tile_max.argtypes = [p, p, p, i, ll, i, ll, i, p]
+    dll.dst_tile_max.restype = i
+    dll.dst_tile_max_route.argtypes = [p, p, ll, i, ll, i]
+    dll.dst_tile_max_route.restype = i
     dll.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
     dll.dst_int_groupmax.restype = i
     dll.dst_int_groupmax_route.argtypes = [p, p, i, i]
@@ -312,3 +320,56 @@ def test_emulated_int_groupmax_equals_plain(emulated, B, N, D, packed, planes, d
         assert (want_r % 8 < 3).all()  # the ties were there, and went to the first row
     bare, _none, _route = _int_groupmax(emulated, q8, c, sc, qsc, packed, planes, False)
     assert torch.equal(bare, want_v)
+
+
+def _tile_max_inputs(B, N, D, tile, last_row, seed):
+    """Random queries and rows; with ``last_row`` the queries are positive
+    and each tile's last row is all 3, so every maximum lies there."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    c = rng.standard_normal((N, D)).astype(np.float32)
+    if last_row:
+        q = np.abs(q) + 0.1
+        c[tile - 1 :: tile] = 3.0
+    return torch.from_numpy(q), torch.from_numpy(c)
+
+
+# (B, N, D, dtype, tile, last row, route): 64-query blocks over two
+# 4,096-row tiles; 128-query blocks, three query tiles (the last ragged)
+# over a D that ends mid-slice; 256-row tiles, eight a block, the last span
+# of three; 768-row tiles (two a block) over two k-slices; the maxima in
+# each tile's last row, in both layouts; then the older kernel: a 300-row
+# tile, D = 100, fp32
+TILE_MAX_CASES = [
+    (7, 2 * 4096, 64, torch.bfloat16, 4096, False, 1),
+    (130, 4096, 48, torch.bfloat16, 4096, False, 1),
+    (64, 11 * 256, 64, torch.bfloat16, 256, False, 1),
+    (70, 3 * 768, 128, torch.bfloat16, 768, False, 1),
+    (9, 2 * 4096, 64, torch.bfloat16, 4096, True, 1),
+    (130, 4 * 256, 32, torch.bfloat16, 256, True, 1),
+    (5, 3 * 300, 64, torch.bfloat16, 300, True, 0),
+    (7, 2 * 256, 100, torch.bfloat16, 256, False, 0),
+    (5, 2 * 256, 64, torch.float32, 256, False, 0),
+]
+
+
+@pytest.mark.parametrize(
+    "B,N,D,dtype,tile,last_row,route", TILE_MAX_CASES,
+    ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-{str(c[3])[6:]}-t{c[4]}{'-last' if c[5] else ''}"
+         for c in TILE_MAX_CASES])
+def test_emulated_tile_max_matches_plain(emulated, B, N, D, dtype, tile, last_row, route):
+    """dst_tile_max: every tile's maximum within MAX_REL of max |ref| of
+    tile_max_scores_plain, every entry written, on the route its shape
+    selects."""
+    q, c = (t.to(dtype) for t in _tile_max_inputs(B, N, D, tile, last_row, B + N + D))
+    out = torch.full((B, N // tile), float("nan"))
+    code = _dtype_code(dtype)
+    assert emulated.dst_tile_max(q.data_ptr(), c.data_ptr(), out.data_ptr(), B, N, D, tile, code,
+                                 None) == 0
+    assert emulated.dst_tile_max_route(q.data_ptr(), c.data_ptr(), N, D, tile, code) == route
+    want = mk.tile_max_scores_plain(q, c, tile)
+    if last_row:  # the trap is live: each maximum is the last row's score
+        last = q.float() @ c[tile - 1 :: tile].float().T
+        assert torch.equal(want, last)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() <= MAX_REL * want.abs().max().item()

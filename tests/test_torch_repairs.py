@@ -8,7 +8,15 @@
   ``task.quantized_checkpoint_path`` and wrote shards from seeded weights;
   it now raises (their readers are ROADMAP A8);
 * ``cli.serve`` ignored ``serve_citadel`` and served the dense tower alone;
-  it now raises (the CITADEL tower is ROADMAP A7).
+  it now raises (the CITADEL tower is ROADMAP A7);
+* ``cli.train`` dropped ``trainer.tensorboard_dir`` (now handed to the
+  logger, as JAX does), ``trainer.profile_dir`` (now refused: the profiler
+  is ROADMAP A2) and ``trainer.num_devices`` (now more than one device is
+  refused, and so is an absent or null key while more than one CUDA device
+  is visible: multi-GPU training is ROADMAP A5);
+* refusals named the wrong ROADMAP item: checkpoints, ``--resume`` and
+  ``pretrained_checkpoint_path`` are A3, the optimizers and accumulation
+  A4, GradCache A6.
 """
 import os
 import pickle
@@ -17,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from dpr_scale_tpu_torch.cli import generate_embeddings, serve
+from dpr_scale_tpu_torch.cli import generate_embeddings, serve, train
 from dpr_scale_tpu_torch.config import load_config
 
 CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf")
@@ -88,3 +96,74 @@ def test_serve_refuses_the_citadel_tower(tiny_bert_dir, tmp_path):
         f"serve_citadel.ctx_embeddings_dir={tmp_path}/citadel"])
     with pytest.raises(NotImplementedError, match="serve_citadel.*A7"):
         serve.build_retriever(cfg, device="cpu")
+
+
+def _train_argv(tiny_bert_dir, dpr10_jsonl, *extra):
+    return ["--config", os.path.join(CONF, "tiny_smoke.yaml"), "--device", "cpu",
+            f"task.transform.model_path={tiny_bert_dir}", f"datamodule.train_path={dpr10_jsonl}",
+            f"datamodule.val_path={dpr10_jsonl}", f"datamodule.test_path={dpr10_jsonl}", *extra]
+
+
+def test_cli_train_hands_tensorboard_dir_to_the_logger(tiny_bert_dir, dpr10_jsonl, tmp_path,
+                                                       monkeypatch):
+    """C5: both of the JAX CLI's logger keys reach ``MetricLogger``."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def logger(**kwargs):
+        seen.update(kwargs)
+        raise Stop
+
+    monkeypatch.setattr(train, "MetricLogger", logger)
+    tb, jsonl = str(tmp_path / "tb"), str(tmp_path / "m.jsonl")
+    with pytest.raises(Stop):
+        train.main(_train_argv(tiny_bert_dir, dpr10_jsonl, f"trainer.tensorboard_dir={tb}",
+                               f"trainer.metrics_jsonl={jsonl}"))
+    assert seen == {"jsonl_path": jsonl, "tensorboard_dir": tb}
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["trainer.profile_dir=/tmp/prof"], "profile_dir.*A2"),
+    (["trainer.num_devices=2"], "num_devices=2.*A5"),
+    (["--resume"], "resume.*A3"),
+    (["checkpoint_callback.dirpath=/nonexistent/ckpt"], "dirpath.*A3"),
+    (["task.pretrained_checkpoint_path=/nonexistent/p"], "pretrained_checkpoint_path.*A3"),
+    (["task.optim.name=lamb"], "lamb.*A4"),
+    (["task.optim.name=madgrad"], "madgrad.*A4"),
+    (["trainer.accumulate_grad_batches=2"], "accumulate_grad_batches.*A4"),
+    (["task.grad_cache_chunks=2"], "GradCache.*A6"),
+], ids=["profile_dir", "num_devices", "resume", "dirpath", "pretrained", "lamb", "madgrad",
+        "accumulate", "grad_cache"])
+def test_cli_train_refusals_name_their_roadmap_item(tiny_bert_dir, dpr10_jsonl, extra, item):
+    """C6-C8: each refusal of ``cli.train`` names the item that ports it,
+    and none names the exporter of A1."""
+    with pytest.raises(NotImplementedError, match=item) as err:
+        train.main(_train_argv(tiny_bert_dir, dpr10_jsonl, *extra))
+    msg = str(err.value)
+    assert "A1" not in msg and ("A5" not in msg or "A5" in item), msg
+
+
+@pytest.mark.parametrize("num_devices,device,visible,refused", [
+    (None, "cuda:0", 2, True),
+    (None, "cuda:0", 1, False),
+    (None, "cpu", 4, False),
+    (1, "cuda:0", 4, False),
+    (2, "cpu", 0, True),
+])
+def test_cli_train_refuses_more_than_one_device(monkeypatch, num_devices, device, visible,
+                                                refused):
+    """C7: the JAX trainer runs data-parallel over ``trainer.num_devices``
+    devices, all visible ones when the key is null or absent; the port runs
+    on one, so it refuses both unless one device is all there is."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    overrides = [] if num_devices is None else [f"trainer.num_devices={num_devices}"]
+    cfg = load_config(os.path.join(CONF, "tiny_smoke.yaml"), overrides)
+    assert cfg.trainer.get("num_devices") == num_devices
+    args = train.argparse.Namespace(resume=False)
+    if refused:
+        with pytest.raises(NotImplementedError, match="num_devices.*A5"):
+            train._refuse_unported(cfg, args, torch.device(device))
+    else:
+        train._refuse_unported(cfg, args, torch.device(device))
