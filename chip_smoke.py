@@ -135,10 +135,11 @@ training (``cli.train``, dropout 0.1). Phases:
      planes, and ragged (B = 7, D = 100); int8_tile_max (the tool's
      pallas_dot) on the int8 and the tool's rows; values and rows exactly
      equal and repeatable; their times beside the plain version, a
-     ``torch._int_mm`` yardstick and the bound (int_groupmax also queued,
-     with its share of the bound); int_groupmax's launches by route, the
-     D = 768 cases on the wgmma kernel; that kernel's registers, spills,
-     shared memory and HGMMA / UTMALDG counts in its SASS;
+     ``torch._int_mm`` yardstick and the bound (both also queued, with
+     their share of the bound); both kernels' launches by route, the
+     D = 768 cases (int8_tile_max's in 2,048-row tiles) on the wgmma
+     kernels; those kernels' registers, spills, shared memory and IGMMA /
+     UTMALDG counts in their SASS;
  17. the quantised tiers on phase 15's shards and questions:
      ``cli.run_retrieval`` with ``task.mips_method=int8`` and with ``=int4
      task.rerank_oversample=4``, ``retrieve()`` with int8 at
@@ -2171,7 +2172,7 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         yard_ms = library_ms(yard)
         timing = {"ms": ms}
-        if name == "int_groupmax":  # redesigned: queued calls too, as the FFN's
+        if name in ("int_groupmax", "int8_tile_max"):  # redesigned: queued calls too, as the FFN's
             timing = {"ms": device_ms(run, calls=10), "single_ms": ms}
             print(f"{name} ({what}): kernel {timing['ms']:.4f} ms queued, "
                   f"{b_ms / timing['ms']:.1%} of its bound")
@@ -2219,7 +2220,16 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
             x8 = torch.cat([ik.unpack_int4(corpus[lo : lo + YARD_CHUNK])  # int32 temporaries
                             for lo in range(0, N, YARD_CHUNK)]) if packed else corpus
             n_tile = tile if N % tile == 0 else N // 8  # 1,616 rows: ragged score tiles
+            routes = dict(getattr(ik.int8_tile_max_kernel, "launches_by_route", {}))
             got, again = ik.int8_tile_max_kernel(q8, x8, n_tile), ik.int8_tile_max_kernel(q8, x8, n_tile)
+            if routes:  # the route each shape takes
+                routes = {r: n - routes[r]
+                          for r, n in ik.int8_tile_max_kernel.launches_by_route.items()}
+                print(f"int8_tile_max (B={B} N={N} D={D} tile={n_tile}): launches by route "
+                      f"{routes}")
+                if D == MIPS_DIM and n_tile == tile and routes["wgmma"] != 2:
+                    raise AssertionError(f"int8_tile_max (B={B} D={D} tile={n_tile}) did not run "
+                                         "the wgmma kernel")
             want = ik.int8_tile_max_plain(q8, x8, n_tile)
             record("int8_tile_max", f"B={B} N={N} D={D} tile={n_tile}", (got,), (again,), (want,),
                    timed, lambda: ik.int8_tile_max_kernel(q8, x8, n_tile),
@@ -2236,6 +2246,9 @@ def phase_int_kernels(dev, cases=INT_CASES, tile=2048):
             lambda lib: {f"{'int4' if p else 'int8'} planes={n} B={B}":
                          lib.dst_int_groupmax_smem(B, p, n)
                          for p in (0, 1) for n in (1, 2) for B in (512, 64)}))
+        print(sweep_build_report(
+            "int8_tile_max_wgmma_kernel", "int8_tile_max wgmma",
+            lambda lib: {f"B={B}": lib.dst_int8_tile_max_smem(B) for B in (512, 64)}))
     return entries
 
 

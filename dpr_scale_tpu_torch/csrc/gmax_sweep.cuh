@@ -14,7 +14,9 @@
 // shuffles, a count over any rows an in-thread sum and two shuffles, and
 // no score reaches shared or device memory.  bf16_sweep() is the bf16 loop
 // (groupmax, the counts and tile_max; a block's span is SPAN rows, or
-// whole tiles of tile_max), count_sweep() the counts' epilogue on it.
+// whole tiles of tile_max), count_sweep() the counts' epilogue on it;
+// s8_sweep() the int8 / packed int4 loop of one or two query planes
+// (int_groupmax and int8_tile_max), int32 sums.
 //
 // Two layouts of a block's work, by query tile:
 //   QM = 128: warpgroup w owns queries [64 w, 64 w + 64) against all TILE =
@@ -89,6 +91,13 @@ __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int s
 __device__ __forceinline__ int span_tiles(long long row0, long long N, long long span = SPAN) {
   const long long rows = N - row0 < span ? N - row0 : span;
   return (int)((rows + TILE - 1) / TILE);
+}
+
+// the rows of a tile-max block (tile a multiple of TILE): one tile of at
+// least SPAN rows, else as many whole tiles as fit in SPAN, so that each
+// tile's maximum is stored once
+__host__ __device__ inline long long tile_max_span(long long tile) {
+  return tile >= SPAN ? tile : SPAN / tile * tile;
 }
 
 // m[j][h] is a quad lane's partial maximum of group j for its query row h;
@@ -300,6 +309,51 @@ __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtenso
   return true;
 }
 
+// ---- the tile-max epilogue: tile_max (bf16) and int8_tile_max (s8) ----
+
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+
+// One 256-row unit of a tile-max sweep whose spans are whole tiles
+// (tile_max_span): m[h], this thread's running maxima of its query rows qa +
+// 8 h, takes the unit's scores in acc.  At a tile's last unit the quad's
+// lanes combine them with two shuffles and, in the QM = 64 layout, where
+// each warpgroup saw half of the tile's rows, the second warpgroup hands its
+// maxima to the first through `handed` (64 values past the ring, between two
+// named barriers, so that the next tile's hand-over cannot race this one's
+// reads); then it returns true, with the tile's maxima in m in every lane of
+// the first warpgroup (of both with QM = 128): the caller stores them and
+// restarts m.  The same in both warpgroups: a tile holds whole units.
+template <int QM, typename T>
+__device__ __forceinline__ bool tile_max_unit(T (&m)[2], const T (&acc)[Layout<QM>::N / 2],
+                                              long long rbase, long long tile, T* handed) {
+  const int lane = threadIdx.x % 32, wg = threadIdx.x / 128;
+#pragma unroll
+  for (int j = 0; j < Layout<QM>::NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = vmax(m[h], vmax(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+  if ((rbase / TILE + 1) * TILE % tile != 0) return false;  // not the tile's last unit
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = vmax(m[h], __shfl_xor_sync(FULL_MASK, m[h], 1));
+    m[h] = vmax(m[h], __shfl_xor_sync(FULL_MASK, m[h], 2));
+  }
+  if (QM == 64) {
+    const int qb = 16 * (threadIdx.x % 128 / 32) + lane / 4;  // the block's query row qa - q0
+    if (wg == 1 && (lane & 3) == 0) {
+      handed[qb] = m[0];
+      handed[qb + 8] = m[1];
+    }
+    named_bar_sync(1, 256);
+    if (wg == 0) {
+      m[0] = vmax(m[0], handed[qb]);
+      m[1] = vmax(m[1], handed[qb + 8]);
+    }
+    named_bar_sync(1, 256);  // read before the next tile's hand-over
+  }
+  return true;
+}
+
 constexpr int UNIT = 128;  // rows of a count's unit: half a 256-row tile
 
 // A count sweep block on bf16_sweep: for each query b of the block and
@@ -381,6 +435,185 @@ __device__ __forceinline__ void count_sweep(const CUtensorMap& tmQ, const CUtens
         }
       });
   if (consumer && g >= 0) flush();
+}
+
+// ---- the s8 sweep: int_groupmax, int8_tile_max ----
+
+// four packed bytes -> their low and their high nibbles, each sign-extended
+// to a byte: ((p & 0xF) ^ 8) - 8 and the arithmetic p >> 4
+__device__ inline void unpack4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  hi = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+constexpr int UNPACKED = 128 * SLICE;  // a warpgroup's low (or high) sign-extended int4 tile
+
+// The shared memory of an s8 sweep block: STAGES ring stages of a 256-row
+// corpus slice of 128 bytes and the block's query slices of each plane (a
+// packed stage: the low and the high dims' slices), then, for packed rows,
+// each warpgroup's unpacked low and high tiles, then the barriers and any
+// extra bytes a kernel asks for (s8_extra)
+template <int QM, bool PACKED, int PLANES>
+struct S8Frame {
+  static_assert(!PACKED || QM == 64, "a warpgroup unpacks its own 128 rows");
+  static_assert(PLANES == 1 || QM == 64, "two accumulator sets: m64n128 each");
+  static constexpr int NSUB = PACKED ? 2 : 1;  // query slices a plane and stage: low, high dims
+  static constexpr int STAGE = C_BYTES + PLANES * NSUB * Layout<QM>::Q_BYTES;
+  static constexpr int UNPACK = PACKED ? 2 * 2 * UNPACKED : 0;
+  static constexpr int STAGES = RING_STAGES<STAGE, UNPACK>;
+  static constexpr size_t smem(int extra = 0) { return smem_bytes(STAGES, STAGE, UNPACK + extra); }
+};
+
+// the extra bytes of an s8 sweep block launched with them
+template <int QM, bool PACKED, int PLANES>
+__device__ __forceinline__ unsigned char* s8_extra() {
+  using F = S8Frame<QM, PACKED, PLANES>;
+  return aligned_smem() + F::STAGES * F::STAGE + F::UNPACK + 2 * F::STAGES * 8;
+}
+
+// Launches kernel(tmQ, tmC, args..., B, W, N, nqt), an s8 sweep of QM
+// queries a block over spans of `span` rows (a multiple of TILE), with tmQ
+// the query planes (PLANES * B, D) bytes in (QM, 128-byte) boxes and tmC the
+// corpus (N, W) bytes in (TILE, 128-byte) boxes, and `extra` bytes of
+// shared memory past the barriers; block b takes query tile b % nqt and
+// span b / nqt.  Returns the failed encode's or the launch's code.
+template <int QM, bool PACKED, int PLANES, typename Kernel, typename... Args>
+int launch_s8_spans(Kernel kernel, long long span, int extra, const void* q8, const void* corpus,
+                    int B, long long N, int D, int W, cudaStream_t stream, Args... args) {
+  const int nqt = (B + QM - 1) / QM;
+  const long long blocks = (N + span - 1) / span * nqt;
+  if (blocks > 0x7fffffffLL || span % TILE != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tc;
+  cudaError_t err = make_tmap_bytes(&tq, q8, (long long)PLANES * B, D, QM);
+  if (err == cudaSuccess) err = make_tmap_bytes(&tc, corpus, N, W, TILE);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch(kernel, dim3((unsigned)blocks), THREADS,
+                     S8Frame<QM, PACKED, PLANES>::smem(extra), stream, tq, tc, args..., B, W, N,
+                     nqt);
+}
+
+// The block's walk over its span of `span` rows (block b: query tile b %
+// nqt, span b / nqt), as bf16_sweep, on wgmma m64nNk32 s8 with one int32
+// accumulator set a query plane (plane p's queries are rows p * B .. of
+// tmQ, so the planes of a query meet in one thread).  sm_90's wgmma has no
+// s4 type: a packed stage's bytes (low nibble dim j, high nibble dim j + W)
+// are sign-extended by the consumers into an int8 low and high tile in
+// shared memory (each warpgroup its own 128 rows, behind a fence and a
+// warpgroup barrier), which meet the query columns [c0, c0 + 128) and [W +
+// c0, ...): two products a packed load.  Once a tile's products have
+// retired each consumer warpgroup calls epilogue(acc, rbase), rbase the
+// first corpus row of its part of the tile.  Returns false in the producer
+// warpgroup, true in the consumers after the span.
+template <int QM, bool PACKED, int PLANES, typename Epilogue>
+__device__ __forceinline__ bool s8_sweep(const CUtensorMap& tmQ, const CUtensorMap& tmC, int B,
+                                         int W, long long N, int nqt, Epilogue&& epilogue,
+                                         long long span = SPAN) {
+  using L = Layout<QM>;
+  using F = S8Frame<QM, PACKED, PLANES>;
+  constexpr int STAGE = F::STAGE, STAGES = F::STAGES, NSUB = F::NSUB;
+  unsigned char* smem = aligned_smem();
+  unsigned char* unpacked = smem + STAGES * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(unpacked + F::UNPACK);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int q0 = (int)(blockIdx.x % nqt) * QM;
+  const long long row0 = (long long)(blockIdx.x / nqt) * span;
+  const int tiles = span_tiles(row0, N, span), KT = (W + SLICE - 1) / SLICE;
+  ring_init(full, empty, STAGES);
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring's loads in flight ----
+    setmaxnreg_dec<40>();
+    if (t == 0) {
+      for (int it = 0; it < tiles * KT; ++it) {
+        const int s = it % STAGES, tile = it / KT, col = (it % KT) * SLICE;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // first use passes
+        unsigned char* st = smem + s * STAGE;
+        mbar_arrive_expect_tx(&full[s], STAGE);
+        tma_load(st, &tmC, (int)(row0 + tile * TILE), col, &full[s]);
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p)
+#pragma unroll
+          for (int sub = 0; sub < NSUB; ++sub)
+            tma_load(st + C_BYTES + (p * NSUB + sub) * L::Q_BYTES, &tmQ, p * B + q0,
+                     sub * W + col, &full[s]);
+      }
+    }
+    return false;
+  }
+  // ---- consumers: warpgroup wg's queries against its rows of each tile ----
+  setmaxnreg_inc<232>();
+  const int lane = t % 32;
+  unsigned char* lo_tile = unpacked + wg * 2 * UNPACKED;
+  int acc[PLANES][L::N / 2];
+  int it = 0;
+  for (int tile = 0; tile < tiles; ++tile) {
+#pragma unroll
+    for (int p = 0; p < PLANES; ++p)
+#pragma unroll
+      for (int i = 0; i < L::N / 2; ++i) acc[p][i] = 0;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* st = smem + s * STAGE;
+      if constexpr (PACKED) {
+        // the previous products, the last readers of this warpgroup's
+        // unpacked tiles and of the previous stage, have retired
+        wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p) fence_operands(acc[p]);
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        named_bar_sync(2 + wg, 128);
+        const uint4* src = reinterpret_cast<const uint4*>(st + L::r_off(wg) * SLICE);
+        uint4* lo = reinterpret_cast<uint4*>(lo_tile);
+        uint4* hi = reinterpret_cast<uint4*>(lo_tile + UNPACKED);
+        // the swizzle moves 16-byte chunks within 1024-byte periods, and the
+        // three tiles share it: unpacking keeps each byte's place
+        for (int i = t; i < UNPACKED / 16; i += 128) {
+          const uint4 v = src[i];
+          uint4 l, h;
+          unpack4(v.x, l.x, h.x);
+          unpack4(v.y, l.y, h.y);
+          unpack4(v.z, l.z, h.z);
+          unpack4(v.w, l.w, h.w);
+          lo[i] = l;
+          hi[i] = h;
+        }
+        fence_proxy_async();  // the generic writes, visible to wgmma
+        named_bar_sync(2 + wg, 128);
+      }
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p) fence_operands(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p)
+#pragma unroll
+        for (int sub = 0; sub < NSUB; ++sub) {
+          const unsigned char* a =
+              st + C_BYTES + (p * NSUB + sub) * L::Q_BYTES + L::q_off(wg) * SLICE;
+          const unsigned char* b = PACKED ? lo_tile + sub * UNPACKED : st + L::r_off(wg) * SLICE;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // 32-byte k-steps through the 128-byte slice
+            wgmma_tn_s8<L::N>(acc[p], smem_desc(a + kk * 32, 16, 1024),
+                              smem_desc(b + kk * 32, 16, 1024));
+        }
+      wgmma_commit();
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p) fence_operands(acc[p]);
+      if constexpr (!PACKED) {
+        wgmma_wait<1>();  // the previous stage's products have retired
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p) fence_operands(acc[p]);
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < PLANES; ++p) fence_operands(acc[p]);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    epilogue(acc, row0 + (long long)tile * TILE + L::r_off(wg));
+  }
+  return true;
 }
 
 }  // namespace gmax_sweep

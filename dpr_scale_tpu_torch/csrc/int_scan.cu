@@ -1,6 +1,8 @@
 // Two one-sweep reductions of the integer inner products of quantised
 // queries q (PLANES * B, D) int8 against corpus rows, each an epilogue on the
-// int32 tiles of int_tile.cuh.  The (B, N) scores never reach device memory.
+// int32 sums of gmax_sweep.cuh's s8 wgmma loop (widths TMA can address) or
+// on the int32 tiles of int_tile.cuh.  The (B, N) scores never reach device
+// memory.
 //
 // Replaces the two TPU kernels of tools/microbench_int4_kernel.py:
 //   * i4_groupmax (_i4_kernel, :160): per 8-row group g and query b, the max
@@ -19,32 +21,34 @@
 // query batch (B = 256 over 4,194,304 x 768: 1.65e12 operations, 0.83 ms at
 // 1,979 dense int8 TOPS); the single read of the corpus at serving batches
 // (2,097,152 x 768 int8 at B = 64: 1.6 GB, 0.48 ms; packed int4 half that).
-// Design: i4_groupmax on widths TMA can address (int8: D % 16 == 0; packed:
-// D / 2 % 16 == 0; 16-byte aligned bases) runs int_groupmax_wgmma_kernel on
-// gmax_sweep.cuh's frame: a ring of TMA loads (a 256-row corpus slice of 128
-// bytes and the block's query slices of each plane a stage) feeding two
-// consumer warpgroups on wgmma m64nNk32 s8 (queries on M, corpus rows on N,
-// both K-major, int32 sums in registers, one accumulator set per plane, so
-// the two planes of a query meet in one thread).  sm_90's wgmma has no s4
-// type: a packed stage's bytes (low nibble dim j, high nibble dim j + D / 2)
-// are sign-extended by the consumers into an int8 low and high tile in
-// shared memory (each warpgroup its own 128 rows, behind a fence and a
-// warpgroup barrier), which meet the query columns [c0, c0 + 128) and
-// [D / 2 + c0, ...): two products per packed load.  The epilogue
-// dequantises in registers (the exact integer dot as fp32, the planes'
-// rounded sum, the two rounded scalings) and the quad's lanes
-// reduce-scatter each 8-row group's (value, row) with shuffles, the
-// smaller row winning ties; stores run along the query axis.  One plane of
-// int8 over more than 64 queries takes 128-query blocks (m64n256 a
-// warpgroup); two planes, packed rows and B <= 64 take 64-query blocks
-// (m64n128, the warpgroups on the two halves of a tile).  Other widths,
-// and tile_max, run on int_tile.cuh's tile: a block owns (64 queries of
-// every plane, a span of rows), i4_groupmax writes per 128-row tile the 16
-// group maxima (and rows) of each query through shared memory; tile_max
-// reduces one whole tile in shared memory and writes it once.  The query
-// tiles of one span are neighbouring block indices, so they run together
-// and read the span's corpus bytes from L2.  dst_int_groupmax_route says
-// which route a call takes.
+// Design: on widths TMA can address (int8: D % 16 == 0; packed: D / 2 % 16
+// == 0; 16-byte aligned bases) both run on gmax_sweep.cuh's s8_sweep: a ring
+// of TMA loads (a 256-row corpus slice of 128 bytes and the block's query
+// slices of each plane a stage) feeding two consumer warpgroups on wgmma
+// m64nNk32 s8 (queries on M, corpus rows on N, both K-major, int32 sums in
+// registers; packed int4 sign-extended into int8 tiles in shared memory).
+// int_groupmax_wgmma_kernel's epilogue dequantises in registers (the exact
+// integer dot as fp32, the planes' rounded sum, the two rounded scalings)
+// and the quad's lanes reduce-scatter each 8-row group's (value, row) with
+// shuffles, the smaller row winning ties; stores run along the query axis.
+// One plane of int8 over more than 64 queries takes 128-query blocks
+// (m64n256 a warpgroup); two planes, packed rows and B <= 64 take 64-query
+// blocks (m64n128, the warpgroups on the two halves of a tile).
+// int8_tile_max_wgmma_kernel (tiles of a multiple of 256 rows): a block's
+// span is whole tiles (gmax_sweep.cuh's tile_max_span), each thread carries
+// the running integer max of its two query rows over a tile's 256-row
+// units, at the tile's end two quad shuffles give the tile's maxima (the
+// QM = 64 halves meet in 256 bytes past the ring), stored once along the
+// query axis, no atomics: B > 64 takes 128-query blocks, B <= 64 64-query
+// blocks, so the corpus is read once.  Other widths and tiles run on
+// int_tile.cuh's tile (mma.sync, synchronous staging): a block owns (64
+// queries of every plane, a span of rows), i4_groupmax writes per 128-row
+// tile the 16 group maxima (and rows) of each query through shared memory;
+// tile_max reduces one whole tile in shared memory and writes it once.  The
+// query tiles of one span are neighbouring block indices, so they run
+// together and read the span's corpus bytes from L2.
+// dst_int_groupmax_route / dst_int8_tile_max_route say which route a call
+// takes.
 #include "gmax_sweep.cuh"  // first: the emulation defines the CUDA keywords there
 #include "int_tile.cuh"
 
@@ -124,130 +128,22 @@ int8_tile_max_kernel(Operands op, int* __restrict__ out, long long tile, long lo
   }
 }
 
-// int_groupmax over TMA-addressable widths (gmax_sweep.cuh); tmQ reads the
-// query planes (PLANES * B, D) in (QM, 128-byte) boxes, tmC the corpus (N,
-// W) bytes in (256, 128-byte) boxes.  ROWS: store the argmax rows too.
+// int_groupmax over TMA-addressable widths: the dequantising group-max
+// epilogue on gmax_sweep.cuh's s8 loop.  ROWS: store the argmax rows too.
 template <bool PACKED, int PLANES, int QM, bool ROWS>
 __global__ void __launch_bounds__(gs::THREADS, 1)
 int_groupmax_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
                           const __grid_constant__ CUtensorMap tmC, const float* __restrict__ row_sc,
                           const float* __restrict__ q_sc, float* __restrict__ vals,
-                          int* __restrict__ rows, int B, int W, long long N, int nqt,
-                          float lo_weight) {
+                          int* __restrict__ rows, float lo_weight, int B, int W, long long N,
+                          int nqt) {
   using L = gs::Layout<QM>;
-  static_assert(!PACKED || QM == 64, "a warpgroup unpacks its own 128 rows");
-  static_assert(PLANES == 1 || QM == 64, "two accumulator sets: m64n128 each");
-  constexpr int NSUB = PACKED ? 2 : 1;  // query slices a plane and stage: low, high dims
-  constexpr int STAGE = gs::C_BYTES + PLANES * NSUB * L::Q_BYTES;
-  constexpr int UNPACKED = 128 * gs::SLICE;  // a warpgroup's low (or high) tile
-  constexpr int EXTRA = PACKED ? 2 * 2 * UNPACKED : 0;
-  constexpr int STAGES = gs::RING_STAGES<STAGE, EXTRA>;
-  unsigned char* smem = gs::aligned_smem();
-  unsigned char* unpacked = smem + STAGES * STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(unpacked + EXTRA);
-  uint64_t* empty = full + STAGES;
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
-  const int q0 = (int)(blockIdx.x % nqt) * QM;
-  const long long row0 = (long long)(blockIdx.x / nqt) * gs::SPAN;
-  const int tiles = gs::span_tiles(row0, N), KT = (W + gs::SLICE - 1) / gs::SLICE;
-  gs::ring_init(full, empty, STAGES);
-
-  if (wg == 2) {
-    // ---- producer: one thread keeps the ring's loads in flight ----
-    dst_hopper::setmaxnreg_dec<40>();
-    if (t == 0) {
-      for (int it = 0; it < tiles * KT; ++it) {
-        const int s = it % STAGES, tile = it / KT, col = (it % KT) * gs::SLICE;
-        dst_hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // first use passes
-        unsigned char* st = smem + s * STAGE;
-        dst_hopper::mbar_arrive_expect_tx(&full[s], STAGE);
-        dst_hopper::tma_load(st, &tmC, (int)(row0 + tile * gs::TILE), col, &full[s]);
-#pragma unroll
-        for (int p = 0; p < PLANES; ++p)
-#pragma unroll
-          for (int sub = 0; sub < NSUB; ++sub)
-            dst_hopper::tma_load(st + gs::C_BYTES + (p * NSUB + sub) * L::Q_BYTES, &tmQ,
-                                 p * B + q0, sub * W + col, &full[s]);
-      }
-    }
-    return;
-  }
-  // ---- consumers: warpgroup wg's queries against its rows of each tile ----
-  dst_hopper::setmaxnreg_inc<232>();
-  const int warp = t / 32, lane = t % 32;
-  const int qa = q0 + L::q_off(wg) + 16 * warp + lane / 4;  // this thread's rows qa, qa + 8
+  const int lane = threadIdx.x % 32;
+  const int qa = gs::query_row<QM>(nqt);  // this thread's rows qa, qa + 8
   const float qs[2] = {qa < B ? q_sc[qa] : 1.0f, qa + 8 < B ? q_sc[qa + 8] : 1.0f};
-  unsigned char* lo_tile = unpacked + wg * 2 * UNPACKED;
-  int acc[PLANES][L::N / 2];
-  int it = 0;
-  for (int tile = 0; tile < tiles; ++tile) {
-#pragma unroll
-    for (int p = 0; p < PLANES; ++p)
-#pragma unroll
-      for (int i = 0; i < L::N / 2; ++i) acc[p][i] = 0;
-    for (int kt = 0; kt < KT; ++kt, ++it) {
-      const int s = it % STAGES;
-      dst_hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-      const unsigned char* st = smem + s * STAGE;
-      if constexpr (PACKED) {
-        // the previous products, the last readers of this warpgroup's
-        // unpacked tiles and of the previous stage, have retired
-        dst_hopper::wgmma_wait<0>();
-#pragma unroll
-        for (int p = 0; p < PLANES; ++p) dst_hopper::fence_operands(acc[p]);
-        if (kt > 0 && lane == 0) dst_hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
-        dst_hopper::named_bar_sync(2 + wg, 128);
-        const uint4* src = reinterpret_cast<const uint4*>(st + L::r_off(wg) * gs::SLICE);
-        uint4* lo = reinterpret_cast<uint4*>(lo_tile);
-        uint4* hi = reinterpret_cast<uint4*>(lo_tile + UNPACKED);
-        // the swizzle moves 16-byte chunks within 1024-byte periods, and the
-        // three tiles share it: unpacking keeps each byte's place
-        for (int i = t; i < UNPACKED / 16; i += 128) {
-          const uint4 v = src[i];
-          uint4 l, h;
-          unpack4(v.x, l.x, h.x);
-          unpack4(v.y, l.y, h.y);
-          unpack4(v.z, l.z, h.z);
-          unpack4(v.w, l.w, h.w);
-          lo[i] = l;
-          hi[i] = h;
-        }
-        dst_hopper::fence_proxy_async();  // the generic writes, visible to wgmma
-        dst_hopper::named_bar_sync(2 + wg, 128);
-      }
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p) dst_hopper::fence_operands(acc[p]);
-      dst_hopper::wgmma_fence();
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p)
-#pragma unroll
-        for (int sub = 0; sub < NSUB; ++sub) {
-          const unsigned char* a = st + gs::C_BYTES + (p * NSUB + sub) * L::Q_BYTES +
-                                   L::q_off(wg) * gs::SLICE;
-          const unsigned char* b =
-              PACKED ? lo_tile + sub * UNPACKED : st + L::r_off(wg) * gs::SLICE;
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)  // 32-byte k-steps through the 128-byte slice
-            dst_hopper::wgmma_tn_s8<L::N>(acc[p], dst_hopper::smem_desc(a + kk * 32, 16, 1024),
-                                          dst_hopper::smem_desc(b + kk * 32, 16, 1024));
-        }
-      dst_hopper::wgmma_commit();
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p) dst_hopper::fence_operands(acc[p]);
-      if constexpr (!PACKED) {
-        dst_hopper::wgmma_wait<1>();  // the previous stage's products have retired
-#pragma unroll
-        for (int p = 0; p < PLANES; ++p) dst_hopper::fence_operands(acc[p]);
-        if (kt > 0 && lane == 0) dst_hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
-      }
-    }
-    dst_hopper::wgmma_wait<0>();
-#pragma unroll
-    for (int p = 0; p < PLANES; ++p) dst_hopper::fence_operands(acc[p]);
-    if (lane == 0) dst_hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
-
-    // ---- epilogue: dequantised group maxima (and rows) in registers ----
-    const long long rbase = row0 + (long long)tile * gs::TILE + L::r_off(wg);
+  gs::s8_sweep<QM, PACKED, PLANES>(tmQ, tmC, B, W, N, nqt, [&](const int (&acc)[PLANES][L::N / 2],
+                                                                long long rbase) {
+    // dequantised group maxima (and rows) in registers
     float m[L::NJ][2], r[L::NJ / 4][2];
     int mr[L::NJ][2], rr[L::NJ / 4][2];
 #pragma unroll
@@ -285,7 +181,43 @@ int_groupmax_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
           }
       }
     }
-  }
+  });
+}
+
+// 64 ints past the barriers: the maxima the QM = 64 layout's second
+// warpgroup hands to the first
+constexpr int TILE_MAX_EXTRA = 64 * 4;
+static_assert(gs::S8Frame<64, false, 1>::smem(TILE_MAX_EXTRA) <= gs::SMEM_LIMIT &&
+                  gs::S8Frame<128, false, 1>::smem(TILE_MAX_EXTRA) <= gs::SMEM_LIMIT,
+              "the exchange fits beside the ring");
+
+// int8_tile_max over a TMA-addressable int8 corpus, tiles of a multiple of
+// 256 rows (N % tile == 0): out[t * B + b] = max of tile t's integer dots,
+// on gmax_sweep.cuh's s8 loop over spans of whole tiles (tile_max_span)
+template <int QM>
+__global__ void __launch_bounds__(gs::THREADS, 1)
+int8_tile_max_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                           const __grid_constant__ CUtensorMap tmC, int* __restrict__ out,
+                           long long tile, int B, int W, long long N, int nqt) {
+  using L = gs::Layout<QM>;
+  const int lane = threadIdx.x % 32, wg = threadIdx.x / 128;
+  const int qa = gs::query_row<QM>(nqt);  // this thread's rows qa, qa + 8
+  int* handed = reinterpret_cast<int*>(gs::s8_extra<QM, false, 1>());  // (64,), QM = 64
+  // trap: the dots can be negative, so INT_MIN (not 0) is the identity
+  int m[2] = {INT_MIN, INT_MIN};  // this thread's running maxima of rows qa, qa + 8
+  gs::s8_sweep<QM, false, 1>(tmQ, tmC, B, W, N, nqt, [&](const int (&acc)[1][L::N / 2],
+                                                         long long rbase) {
+    if (!gs::tile_max_unit<QM>(m, acc[0], rbase, tile, handed)) return;
+    // trap: query rows past B are the query box's zero fill (they score 0)
+    // and are never stored
+    const long long t = (rbase / gs::TILE + 1) * gs::TILE / tile - 1;
+    if ((QM == 128 || wg == 0) && (lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (qa + 8 * h < B) out[(size_t)t * B + qa + 8 * h] = m[h];
+    }
+    m[0] = m[1] = INT_MIN;
+  }, gs::tile_max_span(tile));
 }
 
 template <bool PACKED, int PLANES>
@@ -300,42 +232,21 @@ int launch_groupmax(const Operands& op, const void* row_sc, const void* q_sc, vo
                                  (const float*)q_sc, (float*)vals, (int*)rows, N, nqt, lo_weight);
 }
 
-template <bool PACKED, int PLANES, int QM>
-constexpr size_t wgmma_smem() {
-  constexpr int STAGE = gs::C_BYTES + PLANES * (PACKED ? 2 : 1) * QM * gs::SLICE;
-  constexpr int EXTRA = PACKED ? 4 * 128 * gs::SLICE : 0;
-  return gs::smem_bytes(gs::RING_STAGES<STAGE, EXTRA>, STAGE, EXTRA);
-}
-
-template <bool PACKED, int PLANES, int QM, bool ROWS>
-int launch_wgmma(const Operands& op, const CUtensorMap& tq, const CUtensorMap& tc,
-                 const void* row_sc, const void* q_sc, void* vals, void* rows, long long N,
-                 float lo_weight, cudaStream_t stream) {
-  const int nqt = (op.B + QM - 1) / QM;
-  const long long blocks = (N + gs::SPAN - 1) / gs::SPAN * nqt;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return (int)dst_hopper::launch(int_groupmax_wgmma_kernel<PACKED, PLANES, QM, ROWS>,
-                                 dim3((unsigned)blocks), gs::THREADS,
-                                 wgmma_smem<PACKED, PLANES, QM>(), stream, tq, tc, (const float*)row_sc, (const float*)q_sc,
-                                 (float*)vals, (int*)rows, op.B, op.W, N, nqt, lo_weight);
-}
-
 // the wgmma route: 128-query blocks for one int8 plane over more than 64
 // queries, else 64-query blocks
 template <bool PACKED, int PLANES, bool ROWS>
 int launch_groupmax_wgmma(const Operands& op, const void* row_sc, const void* q_sc, void* vals,
                           void* rows, long long N, float lo_weight, cudaStream_t stream) {
   constexpr int QM = !PACKED && PLANES == 1 ? 128 : 64;
-  const int qm = QM == 128 && op.B > 64 ? 128 : 64;
-  CUtensorMap tq, tc;
-  cudaError_t err = dst_hopper::make_tmap_bytes(&tq, op.q, (long long)PLANES * op.B, op.D, qm);
-  if (err == cudaSuccess) err = dst_hopper::make_tmap_bytes(&tc, op.corpus, N, op.W, gs::TILE);
-  if (err != cudaSuccess) return (int)err;
-  if (qm == 128)
-    return launch_wgmma<PACKED, PLANES, QM, ROWS>(op, tq, tc, row_sc, q_sc, vals, rows, N,
-                                                  lo_weight, stream);
-  return launch_wgmma<PACKED, PLANES, 64, ROWS>(op, tq, tc, row_sc, q_sc, vals, rows, N,
-                                                lo_weight, stream);
+  if (QM == 128 && op.B > 64)
+    return gs::launch_s8_spans<QM, PACKED, PLANES>(
+        int_groupmax_wgmma_kernel<PACKED, PLANES, QM, ROWS>, gs::SPAN, 0, op.q, op.corpus, op.B,
+        N, op.D, op.W, stream, (const float*)row_sc, (const float*)q_sc, (float*)vals,
+        (int*)rows, lo_weight);
+  return gs::launch_s8_spans<64, PACKED, PLANES>(
+      int_groupmax_wgmma_kernel<PACKED, PLANES, 64, ROWS>, gs::SPAN, 0, op.q, op.corpus, op.B, N,
+      op.D, op.W, stream, (const float*)row_sc, (const float*)q_sc, (float*)vals, (int*)rows,
+      lo_weight);
 }
 
 template <bool PACKED, int PLANES>
@@ -351,6 +262,13 @@ int launch_groupmax_wgmma(const Operands& op, const void* row_sc, const void* q_
 // and queries of D bytes that TMA can address; 0 for int_groupmax_kernel
 int wgmma_route(const void* q8, const void* corpus, int D, int W) {
   return W % 16 == 0 && D % 16 == 0 && (uintptr_t)q8 % 16 == 0 && (uintptr_t)corpus % 16 == 0;
+}
+
+// 1 where dst_int8_tile_max runs int8_tile_max_wgmma_kernel: an int8
+// corpus and queries TMA can address, tiles of whole 256-row units, rows an
+// int coordinate reaches
+int int8_tile_max_route(const void* q8, const void* corpus, long long N, int D, long long tile) {
+  return wgmma_route(q8, corpus, D, D) && tile % gs::TILE == 0 && N <= INT_MAX;
 }
 
 }  // namespace
@@ -390,15 +308,40 @@ extern "C" int dst_int_groupmax_route(const void* q8, const void* corpus, int D,
 
 // Dynamic shared memory of a wgmma int_groupmax block at batch B.
 extern "C" long long dst_int_groupmax_smem(int B, int packed, int planes) {
-  if (packed) return (long long)(planes == 2 ? wgmma_smem<true, 2, 64>() : wgmma_smem<true, 1, 64>());
-  if (planes == 2) return (long long)wgmma_smem<false, 2, 64>();
-  return (long long)(B > 64 ? wgmma_smem<false, 1, 128>() : wgmma_smem<false, 1, 64>());
+  if (packed)
+    return (long long)(planes == 2 ? gs::S8Frame<64, true, 2>::smem()
+                                   : gs::S8Frame<64, true, 1>::smem());
+  if (planes == 2) return (long long)gs::S8Frame<64, false, 2>::smem();
+  return (long long)(B > 64 ? gs::S8Frame<128, false, 1>::smem()
+                            : gs::S8Frame<64, false, 1>::smem());
 }
 
-// q8 (B, D) int8, corpus (N, D) int8; out (N / tile, B) int32.
+// 1: dst_int8_tile_max takes the wgmma kernel on these arguments; 0: int_tile.
+extern "C" int dst_int8_tile_max_route(const void* q8, const void* corpus, long long N, int D,
+                                       long long tile) {
+  return int8_tile_max_route(q8, corpus, N, D, tile);
+}
+
+// Dynamic shared memory of an int8_tile_max_wgmma_kernel block at batch B.
+extern "C" long long dst_int8_tile_max_smem(int B) {
+  return (long long)(B > 64 ? gs::S8Frame<128, false, 1>::smem(TILE_MAX_EXTRA)
+                            : gs::S8Frame<64, false, 1>::smem(TILE_MAX_EXTRA));
+}
+
+// q8 (B, D) int8, corpus (N, D) int8; out (N / tile, B) int32.  The route
+// is chosen by shape alone (dst_int8_tile_max_route); a failed tensor-map
+// encode returns its code.
 extern "C" int dst_int8_tile_max(const void* q8, const void* corpus, void* out, int B,
                                  long long N, int D, long long tile, void* stream) {
   if (B < 1 || D < 1 || N < 1 || tile < 1 || N % tile != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (int8_tile_max_route(q8, corpus, N, D, tile))
+    return B > 64 ? gs::launch_s8_spans<128, false, 1>(int8_tile_max_wgmma_kernel<128>,
+                                                       gs::tile_max_span(tile), TILE_MAX_EXTRA,
+                                                       q8, corpus, B, N, D, D, s, (int*)out, tile)
+                  : gs::launch_s8_spans<64, false, 1>(int8_tile_max_wgmma_kernel<64>,
+                                                      gs::tile_max_span(tile), TILE_MAX_EXTRA, q8,
+                                                      corpus, B, N, D, D, s, (int*)out, tile);
   const Operands op{(const int8_t*)q8, (const int8_t*)corpus, B, D, D,
                     vectorizable(q8, corpus, D, D)};
   const size_t smem = Tile<false, 1>::smem_bytes() + STRIDES * QT * 4;
@@ -406,5 +349,5 @@ extern "C" int dst_int8_tile_max(const void* q8, const void* corpus, void* out, 
   const long long ntiles = N / tile;
   if (ntiles * nqt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return (int)dst_hopper::launch(int8_tile_max_kernel, dim3((unsigned)(ntiles * nqt)), THREADS,
-                                 smem, (cudaStream_t)stream, op, (int*)out, tile, ntiles, nqt);
+                                 smem, s, op, (int*)out, tile, ntiles, nqt);
 }

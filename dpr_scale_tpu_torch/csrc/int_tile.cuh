@@ -18,12 +18,14 @@
 // in one epilogue.  No cp.async/TMA pipelining yet: loads and MMAs alternate.
 #pragma once
 
-#include "hopper_ptx.cuh"  // mma.sync m16n8k32 s8; first under the emulation
+#include "gmax_sweep.cuh"  // unpack4; hopper_ptx.cuh's mma.sync m16n8k32 s8, first
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace int_tile {
+
+using gmax_sweep::unpack4;
 
 constexpr int ROWS = 128;   // corpus rows per tile (8 warps x 16 rows)
 constexpr int QT = 64;      // queries per block, each plane
@@ -92,13 +94,6 @@ __device__ inline void stage(int8_t* dst, const int8_t* src, int valid, int rows
       dst[r * LD + c] = (r < valid && col0 + c < ncols) ? src[r * stride + col0 + c] : 0;
     }
   }
-}
-
-// four packed bytes -> their low and their high nibbles, each sign-extended
-// to a byte: ((p & 0xF) ^ 8) - 8 and the arithmetic p >> 4
-__device__ inline void unpack4(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  lo = __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-  hi = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
 // the packed slice [col0, col0 + KC) of rows [0, ROWS) into the low tile lo

@@ -208,12 +208,6 @@ count_above_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
   gs::count_sweep<QM>(tmQ, tmC, tau, out, B, D, N, nqt, N, 1);
 }
 
-// the rows of a tile_max_wgmma_kernel block: one tile of at least SPAN
-// rows, else as many whole tiles as fit in SPAN
-__host__ __device__ inline long long tile_max_span(long long tile) {
-  return tile >= SPAN ? tile : SPAN / tile * tile;
-}
-
 // 64 floats past the ring: the maxima the QM = 64 layout's second
 // warpgroup hands to the first
 constexpr int TILE_MAX_EXTRA = 64 * 4;
@@ -230,45 +224,21 @@ tile_max_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
                       long long tile, int B, int D, long long N, int nqt) {
   using L = gs::Layout<QM>;
   const int lane = threadIdx.x % 32, wg = threadIdx.x / 128;
-  const int qa = gs::query_row<QM>(nqt), qb = qa - (int)(blockIdx.x % nqt) * QM;  // rows qa, qa + 8
+  const int qa = gs::query_row<QM>(nqt);  // this thread's rows qa, qa + 8
   const long long ntiles = N / tile;
   float* handed = reinterpret_cast<float*>(gs::bf16_extra<QM>());  // (64,), QM = 64
   const float neg_inf = -__int_as_float(0x7f800000);
   float m[2] = {neg_inf, neg_inf};  // this thread's running maxima of rows qa, qa + 8
   gs::bf16_sweep<QM>(tmQ, tmC, D, N, nqt, [&](const float (&acc)[L::N / 2], long long rbase) {
-#pragma unroll
-    for (int j = 0; j < L::NJ; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        m[h] = fmaxf(m[h], fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
-    const long long end = (rbase / gs::TILE + 1) * gs::TILE;  // the 256-row unit's end
-    if (end % tile != 0) return;  // the same in both warpgroups: a tile holds whole units
-    // the tile's last unit: the quad's maxima, every lane of it
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m[h] = fmaxf(m[h], __shfl_xor_sync(gs::FULL_MASK, m[h], 1));
-      m[h] = fmaxf(m[h], __shfl_xor_sync(gs::FULL_MASK, m[h], 2));
-    }
-    if (QM == 64) {  // each warpgroup saw half of the tile's rows: the second hands its maxima over
-      if (wg == 1 && (lane & 3) == 0) {
-        handed[qb] = m[0];
-        handed[qb + 8] = m[1];
-      }
-      dst_hopper::named_bar_sync(1, 256);
-      if (wg == 0) {
-        m[0] = fmaxf(m[0], handed[qb]);
-        m[1] = fmaxf(m[1], handed[qb + 8]);
-      }
-      dst_hopper::named_bar_sync(1, 256);  // read before the next tile's hand-over
-    }
-    const long long t = end / tile - 1;
+    if (!gs::tile_max_unit<QM>(m, acc, rbase, tile, handed)) return;
+    const long long t = (rbase / gs::TILE + 1) * gs::TILE / tile - 1;
     if ((QM == 128 || wg == 0) && (lane & 3) == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (qa + 8 * h < B) out[(size_t)(qa + 8 * h) * ntiles + t] = m[h];
     }
     m[0] = m[1] = neg_inf;
-  }, tile_max_span(tile));
+  }, gs::tile_max_span(tile));
 }
 
 // 1 where dst_tile_max takes tile_max_wgmma_kernel: a bf16 sweep whose
@@ -388,10 +358,10 @@ extern "C" int dst_tile_max(const void* q, const void* corpus, void* out, int B,
   if (B < 1 || D < 1 || N < 1 || tile < 1 || N % tile != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (tile_max_route(q, corpus, N, D, tile, dtype))
-    return B > 64 ? gs::launch_bf16_spans<128>(tile_max_wgmma_kernel<128>, tile_max_span(tile),
+    return B > 64 ? gs::launch_bf16_spans<128>(tile_max_wgmma_kernel<128>, gs::tile_max_span(tile),
                                                TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
                                                tile)
-                  : gs::launch_bf16_spans<64>(tile_max_wgmma_kernel<64>, tile_max_span(tile),
+                  : gs::launch_bf16_spans<64>(tile_max_wgmma_kernel<64>, gs::tile_max_span(tile),
                                               TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
                                               tile);
   if (dtype == 0) return launch_tile_max<bf16>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);

@@ -167,6 +167,10 @@ def library() -> ctypes.CDLL:
             lib.dst_int_groupmax_smem.restype = ll
             lib.dst_int8_tile_max.argtypes = [p, p, p, i, ll, i, ll, p]
             lib.dst_int8_tile_max.restype = i
+            lib.dst_int8_tile_max_route.argtypes = [p, p, ll, i, ll]
+            lib.dst_int8_tile_max_route.restype = i
+            lib.dst_int8_tile_max_smem.argtypes = [i]
+            lib.dst_int8_tile_max_smem.restype = ll
             lib.dst_ffn_fwd.argtypes = [p] * 8 + [i, i, i, u, u, f, p]
             lib.dst_ffn_fwd.restype = i
             lib.dst_ffn_ln_fwd.argtypes = [p] * 14 + [i, i, i, f, u, u, f, p]

@@ -19,7 +19,9 @@ holds dim j in its low nibble and dim j + D/2 in its high nibble):
   tile (``int_groupmax_kernel.launches_by_route`` counts each);
 * :func:`int8_tile_max` ``(N // tile, B)`` int32 — the max integer dot of
   each ``tile``-row tile, N % tile == 0: ``pallas_dot`` (``:111``), the
-  tool's int8 baseline (no caller in either package).
+  tool's int8 baseline (no caller in either package). Widths TMA can
+  address in tiles of a multiple of 256 rows take the wgmma kernel, the
+  rest the int8 tile (``int8_tile_max_kernel.launches_by_route``).
 
 Each comes as ``<name>_plain`` (plain PyTorch: the CPU path and the oracle;
 the integer dot is a float64 matmul, exact since |sum| <= D * 128 * 128 <
@@ -178,7 +180,8 @@ def int_groupmax_kernel(q8, corpus, row_scales, q_scales, *, packed: bool, plane
     return vals, rows
 
 
-ROUTES = ("int_tile", "wgmma")  # dst_int_groupmax_route's 0 and 1
+# 0 and 1 of dst_int_groupmax_route and dst_int8_tile_max_route
+ROUTES = ("int_tile", "wgmma")
 int_groupmax_kernel.launches = 0
 int_groupmax_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -217,16 +220,20 @@ def int8_tile_max_kernel(q8, corpus, tile: int = TILE_ROWS):
     B, N, D = q8.shape[0], corpus.shape[0], q8.shape[1]
     out = torch.empty((N // tile, B), dtype=torch.int32, device=corpus.device)
     with torch.cuda.device(corpus.device):
-        rc = cuda_lib.library().dst_int8_tile_max(
+        lib = cuda_lib.library()
+        route = ROUTES[lib.dst_int8_tile_max_route(q8.data_ptr(), corpus.data_ptr(), N, D, tile)]
+        rc = lib.dst_int8_tile_max(
             q8.data_ptr(), corpus.data_ptr(), out.data_ptr(), B, N, D, tile,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(rc, "int8_tile_max")
     int8_tile_max_kernel.launches += 1
+    int8_tile_max_kernel.launches_by_route[route] += 1
     return out
 
 
 int8_tile_max_kernel.launches = 0
+int8_tile_max_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def int8_tile_max(q8, corpus, tile: int = TILE_ROWS):

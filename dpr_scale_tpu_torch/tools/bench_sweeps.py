@@ -8,7 +8,11 @@ geometry) it times, queued behind a GPU sleep, ``count_above_groups`` at
 B = 512 over the block and at B = 64 over it and over its first 1,048,576
 rows, and ``count_above``, ``groupmax`` and ``tile_max_scores`` (4,096-row
 tiles) at B = 512 and 64 (thresholds at each query's 99.99th score
-percentile); then, at B = 512 and k = 100, one device search per method
+percentile); over a seeded int8 copy of the block (its values times 32,
+rounded and clamped; the first 384 bytes of each row as packed int4),
+``int_groupmax`` without rows (int8 and int4, one plane) at B = 512 and
+64 and ``int8_tile_max`` (2,048-row tiles) at B = 512, 256 and 64; then,
+at B = 512 and k = 100, one device search per method
 ("fused", "auto", "groupmax": CUDA events around
 ``MipsIndex._device_search``) and ``MipsIndex.benchmark`` over four
 batches (its dict). Then the serial and pipelined gather-score kernels,
@@ -36,6 +40,7 @@ import torch
 
 from dpr_scale_tpu_torch.index.mips import MipsIndex
 from dpr_scale_tpu_torch.ops import gather_score as gs
+from dpr_scale_tpu_torch.ops import int_kernels as ik
 from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
 SEED = 7
@@ -119,6 +124,25 @@ def bench_gather(dev, g):
     return res
 
 
+def bench_int(dev, g, corpus):
+    """The integer sweeps over an int8 copy of ``corpus`` (see the module
+    docstring): their queued times."""
+    c8 = torch.cat([(corpus[lo : lo + CHUNK].float() * 32).round().clamp(-127, 127).to(torch.int8)
+                    for lo in range(0, ROWS, CHUNK)])
+    c4 = c8[:, : DIM // 2].contiguous()
+    sc = torch.rand(ROWS, generator=g, device=dev) + 0.5
+    res = {}
+    for B in (512, 256, 64):
+        q8 = torch.randint(-127, 128, (B, DIM), generator=g, device=dev, dtype=torch.int8)
+        qsc = torch.rand(B, generator=g, device=dev) * 0.09 + 0.01
+        if B != 256:
+            for tier, rows, packed in (("int8", c8, False), ("int4", c4, True)):
+                res[f"int_groupmax {tier} B={B}"] = queued_ms(lambda: ik.int_groupmax_kernel(
+                    q8, rows, sc, qsc, packed=packed, want_rows=False))
+        res[f"int8_tile_max B={B}"] = queued_ms(lambda: ik.int8_tile_max_kernel(q8, c8, 2048))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("bench_sweeps: no CUDA device", file=sys.stderr)
@@ -138,6 +162,7 @@ def main():
         res[f"groupmax B={B}"] = queued_ms(lambda: mk.groupmax_kernel(q, corpus))
         res[f"tile_max_scores B={B}"] = queued_ms(
             lambda: mk.tile_max_scores_kernel(q, corpus, mk.TILE_ROWS))
+    res.update(bench_int(dev, g, corpus))
     half = corpus[: ROWS // 2]
     tau = p9999(q, half)
     res[f"count_above_groups B=64 N={ROWS // 2}"] = queued_ms(

@@ -766,10 +766,12 @@ def test_int_groupmax_route_follows_the_shape(cuda_device, D, packed, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile,n_tiles", [(2048, 3), (300, 5)])
+@pytest.mark.parametrize("tile,n_tiles", [(2048, 3), (300, 5), (256, 9), (4096, 2)])
 @pytest.mark.parametrize("B,D", _INT_CASES, ids=[f"B{B}-D{D}" for B, D in _INT_CASES])
 def test_int8_tile_max_kernel_equals_plain(cuda_device, B, D, tile, n_tiles):
-    """The tool's 2,048-row tile, and a 300-row tile that ends mid score tile."""
+    """The tool's 2,048-row tile, a 300-row tile that ends mid score tile,
+    256-row tiles (eight a block on the wgmma route, the last span of one)
+    and 4,096-row tiles (a block walks two spans' worth of rows)."""
     from dpr_scale_tpu_torch.ops import int_kernels as ik
 
     q8, c, _sc, _qsc = _int_inputs(cuda_device, B, tile * n_tiles, D, False, 1, 3 * B + D)
@@ -778,6 +780,58 @@ def test_int8_tile_max_kernel_equals_plain(cuda_device, B, D, tile, n_tiles):
     torch.cuda.synchronize()
     assert ik.int8_tile_max_kernel.launches == before + 1
     assert torch.equal(out, ik.int8_tile_max_plain(q8, c, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tile,kind", [(512, 2048, "rand"), (256, 2048, "neg"),
+                                         (64, 2048, "last"), (130, 256, "last"),
+                                         (7, 4096, "neg")])
+def test_int8_tile_max_wgmma_route(cuda_device, B, tile, kind):
+    """D = 768 over 5 x 2,048 rows + the rest of a tile, at the retrieval
+    batch, the tool's batch, a serving batch, 256-row tiles (eight a block)
+    and a ragged query tile; ``neg``: positive queries against negative
+    rows (every maximum below 0), ``last``: positive queries and each
+    tile's last row all 127 (every maximum there): the wgmma route, exactly
+    the plain version, the same bits again."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    N = (5 * 2048 // tile + 1) * tile
+    q8, c, _sc, _qsc = _int_inputs(cuda_device, B, N, 768, False, 1, B + tile)
+    if kind != "rand":
+        q8 = q8.abs().clamp(min=1)
+    if kind == "neg":
+        c = -(c.abs().clamp(min=1))
+    if kind == "last":
+        c[tile - 1 :: tile] = 127
+    before = ik.int8_tile_max_kernel.launches_by_route["wgmma"]
+    out = ik.int8_tile_max(q8, c, tile)
+    again = ik.int8_tile_max(q8, c, tile)
+    torch.cuda.synchronize()
+    assert ik.int8_tile_max_kernel.launches_by_route["wgmma"] == before + 2
+    want = ik.int8_tile_max_plain(q8, c, tile)
+    if kind == "neg":
+        assert (want < 0).all()
+    if kind == "last":
+        assert torch.equal(want, (c[tile - 1 :: tile].double() @ q8.double().T).int())
+    assert torch.equal(out, want) and torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,tile,route", [(768, 2048, "wgmma"), (768, 256, "wgmma"),
+                                          (768, 4096, "wgmma"), (768, 300, "int_tile"),
+                                          (100, 2048, "int_tile")])
+def test_int8_tile_max_route_follows_the_shape(cuda_device, D, tile, route):
+    """TMA-addressable int8 rows in tiles of whole 256-row units take the
+    wgmma kernel, a 300-row tile and D = 100 the int8-tile kernel; each
+    route counts its own launches."""
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+
+    q8, c, _sc, _qsc = _int_inputs(cuda_device, 64, 2 * tile, D, False, 1, D + tile)
+    before = dict(ik.int8_tile_max_kernel.launches_by_route)
+    ik.int8_tile_max(q8, c, tile)
+    torch.cuda.synchronize()
+    after = ik.int8_tile_max_kernel.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in ik.ROUTES}
 
 
 @pytest.mark.cuda

@@ -21,7 +21,10 @@ tiles and query tiles, group widths on both routes. ``dst_tile_max`` is
 held against ``tile_max_scores_plain`` (within MAX_REL): both layouts,
 ragged query tiles, 256-row tiles (a block holds several, its last span
 ragged), 768- and 4,096-row tiles, tiles on the older kernel, and maxima
-that lie in each tile's last row. Lone K-major wgmmas
+that lie in each tile's last row. ``dst_int8_tile_max`` is held exactly
+equal to ``int8_tile_max_plain``: both layouts, ragged query tiles, tiles
+of 256 to 4,096 rows, D of 16 to 768, all-negative maxima, maxima in each
+tile's last row, and the older kernel's shapes. Lone K-major wgmmas
 are held against ``torch.mm`` and an exact integer product first, so that a
 slip in the emulation itself fails on its own. Skips where no g++ is found.
 """
@@ -85,6 +88,10 @@ def emulated(tmp_path_factory):
     dll.dst_int_groupmax.restype = i
     dll.dst_int_groupmax_route.argtypes = [p, p, i, i]
     dll.dst_int_groupmax_route.restype = i
+    dll.dst_int8_tile_max.argtypes = [p, p, p, i, ll, i, ll, p]
+    dll.dst_int8_tile_max.restype = i
+    dll.dst_int8_tile_max_route.argtypes = [p, p, ll, i, ll]
+    dll.dst_int8_tile_max_route.restype = i
     dll.emu_wgmma_tn_selftest.argtypes = [p, p, p, i, i, i]
     dll.emu_wgmma_tn_selftest.restype = i
     return dll
@@ -373,3 +380,61 @@ def test_emulated_tile_max_matches_plain(emulated, B, N, D, dtype, tile, last_ro
         assert torch.equal(want, last)
     assert torch.isfinite(out).all()
     assert (out - want).abs().max().item() <= MAX_REL * want.abs().max().item()
+
+
+def _int8_tile_max_inputs(B, N, D, tile, kind, seed):
+    """Random int8 queries and rows; ``neg``: positive queries against
+    negative rows, so every dot (and maximum) is negative; ``last``: positive
+    queries and each tile's last row all 127, so every maximum lies there."""
+    rng = np.random.default_rng(seed)
+    q8 = rng.integers(1 if kind != "rand" else -127, 128, size=(B, D), dtype=np.int8)
+    c = rng.integers(-128, 0 if kind == "neg" else 128, size=(N, D), dtype=np.int8)
+    if kind == "last":
+        c[tile - 1 :: tile] = 127
+    return torch.from_numpy(q8), torch.from_numpy(c)
+
+
+# (B, N, D, tile, kind, route): 64-query blocks over one 4,096-row tile (a
+# block walks 16 units, two spans' worth) with each maximum in its last row;
+# 256-row tiles, eight a block, the last span of three; 128-query blocks
+# over one ragged query tile, 768-row tiles (two a block, the last span of
+# one) over a D that ends mid-slice; the tool's 2,048-row tile over D = 768
+# (six k-slices); all-negative maxima in both layouts over ragged query
+# tiles; maxima in each 256-row tile's last row on 128-query blocks; two
+# 4,096-row tiles over two query tiles; the tool's tile at D = 768 with the
+# maxima in each last row on 128-query blocks; then the older kernel: a
+# 300-row tile, D = 100
+INT8_TILE_MAX_CASES = [
+    (7, 4096, 16, 4096, "last", 1),
+    (64, 11 * 256, 64, 256, "rand", 1),
+    (100, 3 * 768, 96, 768, "rand", 1),
+    (9, 2048, 768, 2048, "rand", 1),
+    (9, 5 * 256, 128, 256, "neg", 1),
+    (130, 2 * 256, 128, 256, "neg", 1),
+    (100, 4 * 256, 32, 256, "last", 1),
+    (130, 2 * 4096, 64, 4096, "rand", 1),
+    (70, 2 * 2048, 768, 2048, "last", 1),
+    (5, 3 * 300, 64, 300, "rand", 0),
+    (7, 2 * 256, 100, 256, "rand", 0),
+]
+
+
+@pytest.mark.parametrize("B,N,D,tile,kind,route", INT8_TILE_MAX_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-t{c[3]}-{c[4]}"
+                              for c in INT8_TILE_MAX_CASES])
+def test_emulated_int8_tile_max_equals_plain(emulated, B, N, D, tile, kind, route):
+    """dst_int8_tile_max: every tile's maximum exactly equal to
+    int8_tile_max_plain (every entry written over a garbage-filled output),
+    on the route its shape selects."""
+    q8, c = _int8_tile_max_inputs(B, N, D, tile, kind, B + N + D + tile)
+    out = torch.full((N // tile, B), 12345, dtype=torch.int32)
+    assert emulated.dst_int8_tile_max(q8.data_ptr(), c.data_ptr(), out.data_ptr(), B, N, D, tile,
+                                      None) == 0
+    assert emulated.dst_int8_tile_max_route(q8.data_ptr(), c.data_ptr(), N, D, tile) == route
+    want = ik.int8_tile_max_plain(q8, c, tile)
+    if kind == "neg":  # the trap is live: 0 (zero-filled queries, a 0 start) is above every max
+        assert (want < 0).all()
+    if kind == "last":  # the trap is live: each maximum is the last row's dot, and only its
+        dots = (c.long() @ q8.long().T).view(N // tile, tile, B)
+        assert torch.equal(want.long(), dots[:, -1]) and (dots[:, :-1] < dots[:, -1:]).all()
+    assert torch.equal(out, want)
