@@ -167,6 +167,20 @@ save, a resume and an export into encoding and retrieval. Phases:
      above the seeded encoder's by RECALL_MARGIN; the attention forward
      (with and without dropout), backward and group-count counters must
      rise.
+ 19. the configs at their own batch and model (OWN_RUNS, on phase 18's
+     keyed data): the GradCache step (c = 2, 4) against the monolithic one
+     at rate 0 and batch 128 (loss within GC_LOSS_REL, gradient cosine at
+     least GC_COS), the remat step against the one without at rate 0.1 and
+     batch 64 (REMAT_LOSS_REL, REMAT_COS); then ``cli.train`` on
+     conf/nq.yaml at its batch 256 with ``task.grad_cache_chunks=2``
+     (without and with the fused FFN, 4 steps), conf/ccnews_ict.yaml at its
+     batch 2,048 with 16 chunks (2 steps), conf/nq.yaml with bert_large's
+     arch and remat at batch 256 (3 steps), lamb, madgrad and accumulation
+     over 2 steps at batch 64, and a run with ``trainer.profile_dir``: step
+     ms by CUDA events, queries/s and peak memory of each; every loss
+     finite, every peak under the card's memory, the profiler's trace holds
+     device events; the attention counters (and the FFN forward's with the
+     flag) must rise.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -2756,6 +2770,239 @@ def phase_checkpoint(work, dev, batch_size=TRAIN_BATCH, steps=CKPT_STEPS,
     return launches
 
 
+# phase 19 (phase_own_batch): the dense configs at their own batch and model
+# through cli.train on phase 18's keyed data. Each run is (name, config,
+# queries a step, steps, overrides): conf/nq.yaml at its batch 256 (512
+# contexts) under GradCache, without and with the fused FFN; conf/ccnews_ict.yaml
+# at its global batch 2,048 (num_negative 0, two towers) under GradCache with
+# 16 chunks; conf/nq.yaml with bert_large's model file (arch, remat) at batch
+# 256; lamb, madgrad and accumulation at batch 64; and the profiler. The
+# depth cut is the steps. The gates: GradCache against the monolithic step
+# at rate 0 (the same bf16 kernels on chunks of other sizes: GEMM algorithms
+# and the summation order differ), remat against no remat at rate 0.1 (the
+# same generators replayed; only the embedding backward's atomics differ).
+NQ_OWN = ["datamodule.num_val_negative=1", "datamodule.num_test_negative=1"]
+OWN_RUNS = (
+    ("a nq gradcache", "nq.yaml", 256, 4, [*NQ_OWN, "task.grad_cache_chunks=2"]),
+    ("b nq gradcache fused_ffn", "nq.yaml", 256, 4,
+     [*NQ_OWN, "task.grad_cache_chunks=2", "task.model.fused_ffn=true"]),
+    ("c ccnews_ict gradcache", "ccnews_ict.yaml", 2048, 2, ["task.grad_cache_chunks=16"]),
+    ("d nq bert_large remat", "nq.yaml", 256, 3,
+     [*NQ_OWN, "task.model.arch=bert_large", "task.model.remat=true"]),
+    ("e lamb", "nq.yaml", 64, 2, [*NQ_OWN, "task.optim.name=lamb"]),
+    ("e madgrad", "nq.yaml", 64, 2, [*NQ_OWN, "task.optim.name=madgrad"]),
+    ("e accumulate", "nq.yaml", 64, 2, [*NQ_OWN, "trainer.accumulate_grad_batches=2"]),
+    ("f profile", "nq.yaml", 64, 2, [*NQ_OWN, "trainer.profile_dir={work}/profile"]),
+)
+OWN_VAL_ROWS = 64
+GC_GATE_BATCH, GC_GATE_CHUNKS, GC_LOSS_REL, GC_COS = 128, (2, 4), 1e-3, 0.999
+REMAT_GATE_BATCH, REMAT_LOSS_REL, REMAT_COS = 64, 1e-4, 0.9999
+PORT_KERNEL_SYMBOLS = ("attention_fwd_kernel", "attention_bwd_dq_kernel",
+                       "attention_bwd_dkdv_kernel", "ffn_gemm_kernel", "ln_rows_kernel")
+
+
+def _cosine(a, b):
+    """Cosine of two gradients, each a list of tensors, as one vector."""
+    import torch
+
+    dot = sum(torch.dot(x.flatten().double(), y.flatten().double()) for x, y in zip(a, b))
+    na = sum(x.double().square().sum() for x in a).sqrt()
+    nb = sum(y.double().square().sum() for y in b).sqrt()
+    return float(dot / (na * nb))
+
+
+def _gate_state(data, dev, overrides):
+    """The task, its state from seed SEED and the first training batch of
+    conf/nq.yaml with ``overrides`` on phase 19's data."""
+    from dpr_scale_tpu_torch.cli.common import (build_datamodule, build_optimizer, build_task,
+                                                build_tokenizer)
+    from dpr_scale_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "conf", "nq.yaml"), [*data, *overrides])
+    dm = build_datamodule(cfg, build_tokenizer(cfg))
+    batch = next(iter(dm.train_batches(0)))
+    dm.close()
+    task = build_task(cfg, build_optimizer(cfg, 1), dev)
+    return task, task.init_state(SEED), task.to_device(batch)
+
+
+def check_grad_cache(data, dev, batch_size=GC_GATE_BATCH, chunks=GC_GATE_CHUNKS):
+    """Gate: at rate 0 the GradCache step's loss within GC_LOSS_REL of the
+    monolithic step's and its gradient's cosine to it at least GC_COS, for
+    each chunk count. Returns {chunks: (loss relative, cosine)}."""
+    import torch
+
+    from dpr_scale_tpu_torch.models.transformer import DropoutRng
+
+    task, state, batch = _gate_state(data, dev, [
+        f"datamodule.batch_size={batch_size}", "task.model.hidden_dropout=0",
+        "task.model.attention_dropout=0"])
+    rng = DropoutRng(SEED, 0, dev)
+    loss, grads = task.loss_and_grads(state, batch, rng)
+    loss = loss.item()
+    out = {}
+    for c in chunks:
+        task.grad_cache_chunks = c
+        got, g = task.loss_and_grads(state, batch, rng)
+        out[c] = (abs(got.item() - loss) / abs(loss), _cosine(g, grads))
+        del g
+        print(f"GradCache gate, {batch_size} queries + {2 * batch_size} contexts, rate 0: "
+              f"c = {c} loss {got.item():.6f} vs monolithic {loss:.6f} (relative "
+              f"{out[c][0]:.3g}, tolerance {GC_LOSS_REL}), gradient cosine {out[c][1]:.7f} "
+              f"(at least {GC_COS})")
+    del task, state, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    bad = {c: r for c, r in out.items() if not (r[0] <= GC_LOSS_REL and r[1] >= GC_COS)}
+    if bad:
+        raise AssertionError(f"GradCache disagrees with the monolithic step: {bad}")
+    return out
+
+
+def check_remat(data, dev, batch_size=REMAT_GATE_BATCH):
+    """Gate: at the config's dropout (0.1) the step with remat against the
+    step without it, one DropoutRng: the loss within REMAT_LOSS_REL and the
+    gradient's cosine at least REMAT_COS. Returns (loss relative, cosine)."""
+    import torch
+
+    from dpr_scale_tpu_torch.models.transformer import DropoutRng
+
+    runs = []
+    for remat in ("false", "true"):
+        task, state, batch = _gate_state(data, dev, [f"datamodule.batch_size={batch_size}",
+                                                     f"task.model.remat={remat}"])
+        loss, grads = task.loss_and_grads(state, batch, DropoutRng(SEED, 1, dev))
+        runs.append((loss.item(), grads))
+        del task, state
+    (l0, g0), (l1, g1) = runs
+    rel, cos = abs(l1 - l0) / abs(l0), _cosine(g1, g0)
+    print(f"remat gate, {batch_size} queries + {2 * batch_size} contexts, dropout 0.1: loss "
+          f"{l1:.6f} vs {l0:.6f} without remat (relative {rel:.3g}, tolerance "
+          f"{REMAT_LOSS_REL}), gradient cosine {cos:.7f} (at least {REMAT_COS})")
+    del runs, g0, g1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if not (rel <= REMAT_LOSS_REL and cos >= REMAT_COS):
+        raise AssertionError(f"remat changes the step: loss relative {rel}, cosine {cos}")
+    return rel, cos
+
+
+def trace_port_kernels(path):
+    """(device events, {port kernel symbol: events}) of a torch.profiler
+    Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    named = {s: sum(s in n for n in kernels) for s in PORT_KERNEL_SYMBOLS}
+    return len(kernels), {s: n for s, n in named.items() if n}
+
+
+def phase_own_batch(work, dev, runs=OWN_RUNS, card="", gate_batches=None, n_val=OWN_VAL_ROWS,
+                    extra=()):
+    """Phase 19: the GradCache and remat gates, then each run of ``runs``
+    through ``cli.train`` with ``--device dev``: every loss and gradient
+    norm finite, the peak under the card's memory; step ms (CUDA events
+    around each step; steps 2..), queries/s and the peak printed beside
+    ``card``. The attention counters must rise in every run with GradCache
+    or remat, the FFN forward's with the fused FFN; the profiled run's trace
+    must hold device events. ``runs``/``gate_batches``/``n_val``/``extra``
+    only shrink it for a rehearsal on the CPU. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli import train
+    from dpr_scale_tpu_torch.ops import attention, ffn
+    from dpr_scale_tpu_torch.train.task import DenseRetrieverTask
+    from dpr_scale_tpu_torch.utils.profiling import TRACE_FILE
+
+    n_rows = max(batch * steps for _, _, batch, steps, _ in runs)
+    tok_dir, _gold = write_keyed_data(work, n_rows + n_rows % 2, 8, n_val)
+    data = [f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
+            f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
+            *extra]
+    gc_batch, remat_batch = gate_batches or (GC_GATE_BATCH, REMAT_GATE_BATCH)
+    check_grad_cache(data, dev, gc_batch)
+    check_remat(data, dev, remat_batch)
+
+    counters = {"attention_fwd_dropout": (attention.attention_fwd_kernel, "dropout_launches"),
+                "attention_bwd": (attention.attention_bwd_kernel, "launches"),
+                "ffn_fwd": (ffn.ffn_fwd_kernel, "launches")}
+    total = dict.fromkeys(counters, 0)
+    capacity = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
+    real_step = DenseRetrieverTask.train_step
+    missing = []
+    for name, config, batch, steps, overrides in runs:
+        overrides = [o.format(work=work) for o in overrides]
+        ticks = []
+
+        def timed(self, state, b):
+            if dev.type != "cuda":
+                t0 = time.perf_counter()
+                out = real_step(self, state, b)
+                ticks.append((time.perf_counter() - t0) * 1e3)
+                return out
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_step(self, state, b)
+            end.record()
+            ticks.append((start, end))
+            return out
+
+        log = f"{work}/{name.replace(' ', '_')}.jsonl"
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        DenseRetrieverTask.train_step = timed
+        t0 = time.perf_counter()
+        try:
+            train.main(["--config", os.path.join(ROOT, "conf", config), "--device", str(dev),
+                        *data, f"datamodule.batch_size={batch}", f"trainer.max_steps={steps}",
+                        "trainer.log_every=1", f"trainer.metrics_jsonl={log}", *overrides])
+        finally:
+            DenseRetrieverTask.train_step = real_step
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        for k, n in launches.items():
+            total[k] += n
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            ticks = [a.elapsed_time(b) for a, b in ticks]
+            peak = torch.cuda.max_memory_allocated()
+        with open(log) as f:
+            lines = [json.loads(l) for l in f]
+        logged = [l for l in lines if "train_loss" in l]
+        numbers = [l[k] for l in logged for k in ("train_loss", "grad_norm")]
+        if len(logged) != steps or len(ticks) != steps or not np.isfinite(numbers).all():
+            raise AssertionError(f"run {name}: steps {logged}")
+        step_ms = statistics.median(ticks[1:] or ticks)
+        peak_gib = peak / 2**30 if dev.type == "cuda" else float("nan")
+        print(f"own batch, run {name} ({config} {' '.join(overrides)}): {steps} steps of {batch} "
+              f"queries in {wall:.2f} s wall (CLI incl. init, data, validation, test); step ms "
+              f"{[round(t, 2) for t in ticks]}, median of steps 2.. {step_ms:.2f} ms = "
+              f"{batch * 1e3 / step_ms:.1f} queries/s; losses "
+              f"{[round(l['train_loss'], 4) for l in logged]}; grad_norms "
+              f"{[round(l['grad_norm'], 4) for l in logged]}; peak device memory {peak_gib:.2f} GiB; "
+              f"launches {launches}; {card}")
+        if capacity is not None and not peak < capacity:
+            raise AssertionError(f"run {name}: peak {peak} bytes of {capacity}")
+        must = ["attention_fwd_dropout", "attention_bwd"] if (
+            "grad_cache" in " ".join(overrides) or "remat" in " ".join(overrides)) else []
+        must += ["ffn_fwd"] if "task.model.fused_ffn=true" in overrides else []
+        missing += [f"{name}: {k}" for k in must if launches[k] < 1]
+        if "trainer.profile_dir" in " ".join(overrides):
+            n_device, named = trace_port_kernels(os.path.join(work, "profile", TRACE_FILE))
+            print(f"own batch, run {name}: the trace holds {n_device} device kernel events; the "
+                  f"port's kernels it names: {named} (the profiler can drop them, ROADMAP C4)")
+            if dev.type == "cuda" and not n_device:
+                raise AssertionError("the profiler's trace holds no device events")
+    print(f"own-batch launches: {total}")
+    if missing:
+        raise AssertionError(f"a kernel of a run's path never launched: {missing}")
+    return total
+
+
 def main():
     import torch
 
@@ -2842,6 +3089,12 @@ def main():
         ckpt_launches = phase_checkpoint(work, torch.device("cuda", 0))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        own_launches = phase_own_batch(work, torch.device("cuda", 0), card=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"
@@ -2852,11 +3105,12 @@ def main():
         {"name": "attention_fwd_dropout", "route": "cuda", "source": source + "attention_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/attention.py:210",
          "launches": train_launches["attention_fwd_dropout"]
-         + ckpt_launches["attention_fwd_dropout"],
+         + ckpt_launches["attention_fwd_dropout"] + own_launches["attention_fwd_dropout"],
          **train_kernels["attention_fwd_dropout"]},
         {"name": "attention_bwd", "route": "cuda", "source": source + "attention_bwd.cu",
          "replaces": "dpr_scale_tpu/ops/attention.py:237",
-         "launches": train_launches["attention_bwd"] + ckpt_launches["attention_bwd"],
+         "launches": train_launches["attention_bwd"] + ckpt_launches["attention_bwd"]
+         + own_launches["attention_bwd"],
          **train_kernels["attention_bwd"]},
         {"name": "count_above_groups", "route": "cuda", "source": source + "count_groups.cu",
          "replaces": "dpr_scale_tpu/ops/mips_kernels.py:134",
@@ -2865,7 +3119,8 @@ def main():
          **count},
         {"name": "ffn_fwd", "route": "cuda", "source": source + "ffn_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/ffn.py:169",
-         "launches": ffn_train_launches["ffn_fwd"], **ffn_kernels["ffn_fwd"]},
+         "launches": ffn_train_launches["ffn_fwd"] + own_launches["ffn_fwd"],
+         **ffn_kernels["ffn_fwd"]},
         {"name": "ffn_ln_fwd", "route": "cuda", "source": source + "ffn_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/ffn.py:387",
          "launches": ffn_launches["ffn_ln_fwd"], **ffn_kernels["ffn_ln_fwd"]},

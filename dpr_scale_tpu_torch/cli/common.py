@@ -148,11 +148,14 @@ def build_optimizer(cfg, total_steps: int):
 
 def build_task(cfg, optimizer, device) -> DenseRetrieverTask:
     """The dense task (``task.type`` dense); other task types are not
-    ported yet."""
+    ported yet (ROADMAP.md A7)."""
     t = cfg.task
     task_type = t.get("type", "dense")
     if task_type != "dense":
-        raise NotImplementedError(f"task.type={task_type!r} is not ported yet")
+        raise NotImplementedError(
+            f"task.type={task_type!r} is not ported yet (ROADMAP.md A7); the port "
+            "trains the dense task"
+        )
     return DenseRetrieverTask(
         cfg=build_model_config(cfg),
         projection_dim=t.model.get("projection_dim", 0),
@@ -173,7 +176,7 @@ def refuse_worker_processes(cfg) -> None:
         raise NotImplementedError(
             "datamodule.num_workers > 0: the port builds batches on one "
             "prefetch thread; the JAX package's worker-process pool is not "
-            "ported. Set datamodule.num_workers=0"
+            "ported (ROADMAP.md A8). Set datamodule.num_workers=0"
         )
 
 

@@ -13,8 +13,12 @@ or from the params export ``task.pretrained_checkpoint_path``. With
 step, and the best step's params are exported to
 ``checkpoint_callback.params_export`` (default ``<dirpath>/params_best``),
 which ``task.checkpoint_path`` of the encode / retrieve / serve CLIs reads.
-``trainer.profile_dir`` (the profiler, A2) and more than one device
-(``trainer.num_devices``, A5) are refused.
+``trainer.profile_dir`` records the training in a torch.profiler trace.
+``task.grad_cache_chunks``, ``task.model.remat``, ``task.optim.name``
+(adamw, adam, lamb, madgrad) and ``trainer.accumulate_grad_batches`` train
+as in the JAX CLI. More than one device (``trainer.num_devices``, ROADMAP
+A5), ``datamodule.num_workers`` (A8) and task types other than dense (A7)
+are refused.
 """
 from __future__ import annotations
 
@@ -40,11 +44,6 @@ from dpr_scale_tpu_torch.utils.logging import MetricLogger
 
 def _refuse_unported(cfg, device) -> None:
     tr = cfg.trainer
-    if tr.get("profile_dir"):
-        raise NotImplementedError(
-            "trainer.profile_dir: the port has no training profiler yet "
-            "(ROADMAP.md A2); unset it"
-        )
     # the JAX trainer runs data-parallel over num_devices devices, every
     # visible one when the key is absent or null; the port trains on one
     n = tr.get("num_devices")
@@ -113,6 +112,7 @@ def main(argv=None):
         logger=MetricLogger(
             jsonl_path=tr.get("metrics_jsonl"), tensorboard_dir=tr.get("tensorboard_dir")
         ),
+        profile_dir=tr.get("profile_dir"),
     )
     state = task.init_state(cfg.get("seed", 0))
     pretrained = cfg.task.get("pretrained_checkpoint_path")

@@ -3,7 +3,9 @@
 Counterpart of :mod:`dpr_scale_tpu.models.encoder` (``DenseEncoder`` and
 ``BiEncoder``); ``projection_dim == -1`` projects to the hidden size. A
 forward given a :class:`~dpr_scale_tpu_torch.models.transformer.DropoutRng`
-runs in training mode (dropout on), otherwise it is deterministic.
+runs in training mode (dropout on), otherwise it is deterministic; the
+query tower draws from ``rng.fold(0)``, the context tower from
+``rng.fold(1)``, so a shared trunk draws other masks for each.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from dpr_scale_tpu_torch.models.transformer import (
     LayerNorm,
     TransformerConfig,
     TransformerEncoder,
+    fold,
 )
 
 
@@ -72,6 +75,6 @@ class BiEncoder(nn.Module):
 
     def forward(self, query_ids, query_mask, contexts_ids, contexts_mask, rng=None):
         return (
-            self.encode_query(query_ids, query_mask, rng),
-            self.encode_context(contexts_ids, contexts_mask, rng),
+            self.encode_query(query_ids, query_mask, fold(rng, 0)),
+            self.encode_context(contexts_ids, contexts_mask, fold(rng, 1)),
         )

@@ -14,7 +14,14 @@ on the attention output and the FFN output (``hidden_dropout``) and on the
 attention probabilities (``attention_dropout``; inside the kernel on the
 fused path). A forward is deterministic unless it is given a
 :class:`DropoutRng`, the counterpart of Flax's ``deterministic=False`` with
-a ``dropout`` rng.
+a ``dropout`` rng. Each layer draws from its own fold of that rng, so a
+second forward of one layer (GradCache's re-encode, remat's recompute)
+draws the same masks and kernel seeds as the first.
+
+With ``cfg.remat`` each layer of a forward that takes gradients runs under
+``torch.utils.checkpoint`` (JAX: ``nn.remat``): its activations are
+recomputed in the backward, from generators the layer rebuilds inside the
+checkpointed function, so remat changes no value at any dropout rate.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +51,7 @@ class TransformerConfig:
     pad_token_id: int = 0
     position_offset: int = 0  # RoBERTa uses 2 (positions start at pad+1)
     dtype: torch.dtype = torch.bfloat16  # activation dtype
-    remat: bool = False  # a forward without gradients only (see REMAT_REFUSAL)
+    remat: bool = False  # recompute each layer's activations in the backward
     fused_attention: bool = False  # ops.attention kernel instead of matmuls
     fused_ffn: bool = False  # ops.ffn kernels for the FFN half of each layer
 
@@ -84,21 +92,42 @@ class TransformerConfig:
 
 class DropoutRng:
     """The dropout randomness of one training step, a pure function of
-    ``(seed, step)`` as JAX's ``fold_in(dropout_rng, step)`` is.
+    ``(seed, step)`` as JAX's ``fold_in(dropout_rng, step)`` is, and of the
+    ``path`` of :meth:`fold` calls that led to it.
 
     Hidden and unfused-attention masks are drawn from a generator on the
-    activations' device; the fused attention kernel takes one int seed per
-    call, drawn from a CPU generator, so no seed needs a device sync."""
+    activations' device; the fused kernels take one int seed per call,
+    drawn from a CPU generator, so no seed needs a device sync. Both
+    generators are made anew for each object: two objects of one
+    ``(seed, step, path)`` draw the same sequence."""
 
-    def __init__(self, seed: int, step: int, device):
-        state = np.random.SeedSequence((int(seed), int(step))).generate_state(2, np.uint64)
+    def __init__(self, seed: int, step: int, device, path=()):
+        self.seed, self.step, self.path = int(seed), int(step), tuple(int(i) for i in path)
+        self._device = torch.device(device)
+        # the path's length first: (s, t) and (s, t, 0) would otherwise mix
+        # into the same state (SeedSequence pads its entropy with zeros)
+        entropy = (self.seed, self.step, len(self.path), *self.path)
+        state = np.random.SeedSequence(entropy).generate_state(2, np.uint64)
         self.cpu = torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))
-        self.device = torch.Generator(device=torch.device(device)).manual_seed(
+        self.device = torch.Generator(device=self._device).manual_seed(
             int(state[1] >> np.uint64(1))
         )
 
+    def fold(self, i: int) -> "DropoutRng":
+        """A fresh rng whose state is a function of ``(seed, step, *path,
+        i)`` alone (``jax.random.fold_in``), whatever was drawn from this
+        one."""
+        if i < 0:
+            raise ValueError(f"fold index must be >= 0, got {i}")
+        return DropoutRng(self.seed, self.step, self._device, self.path + (i,))
+
     def kernel_seed(self) -> int:
         return int(torch.randint(0, 2**32, (), generator=self.cpu))
+
+
+def fold(rng: Optional[DropoutRng], i: int) -> Optional[DropoutRng]:
+    """``rng.fold(i)``, or None for a deterministic forward."""
+    return None if rng is None else rng.fold(i)
 
 
 def dropout(x, rate: float, rng: Optional[DropoutRng]):
@@ -229,19 +258,19 @@ class TransformerLayer(nn.Module):
         return self.output_ln(x + ffn.view(B, L, H))
 
 
-REMAT_REFUSAL = (
-    "remat with gradients is not ported yet (ROADMAP A4): torch.utils.checkpoint "
-    "replays only the default generators, not the explicit dropout generators of "
-    "this port, so its dropout gradients would be wrong; set task.model.remat=false"
-)
+def _run_layer(layer: TransformerLayer, x, attn_bias, rng: Optional[DropoutRng], i: int):
+    """Layer ``i`` on its own fold of ``rng``, made here so that remat's
+    recompute of this call rebuilds the same generators."""
+    return layer(x, attn_bias, fold(rng, i))
 
 
 class TransformerEncoder(nn.Module):
     """Token ids -> contextual hidden states (B, L, H).
 
-    ``cfg.remat`` (JAX: each layer under ``nn.remat``) changes no forward
-    value, so a forward without gradients runs as without it; one that takes
-    gradients raises (REMAT_REFUSAL)."""
+    Dropout: the embeddings draw from ``rng.fold(0)``, layer ``i`` from
+    ``rng.fold(i + 1)``. ``cfg.remat``: each layer of a forward that takes
+    gradients under ``torch.utils.checkpoint`` (non-reentrant), as JAX wraps
+    each in ``nn.remat``; a forward without gradients runs as without it."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -263,8 +292,6 @@ class TransformerEncoder(nn.Module):
         rng: Optional[DropoutRng] = None,
     ):
         cfg = self.cfg
-        if cfg.remat and torch.is_grad_enabled() and self.word_embeddings.weight.requires_grad:
-            raise NotImplementedError(REMAT_REFUSAL)
         B, L = input_ids.shape
         input_ids = input_ids.long()
         if attention_mask is None:
@@ -279,9 +306,16 @@ class TransformerEncoder(nn.Module):
         x = x + self.position_embeddings(pos_ids).to(cfg.dtype)
         if cfg.type_vocab_size > 0:
             x = x + self.token_type_embeddings(torch.zeros_like(input_ids)).to(cfg.dtype)
-        x = dropout(self.embeddings_ln(x), cfg.hidden_dropout, rng)
+        x = dropout(self.embeddings_ln(x), cfg.hidden_dropout, fold(rng, 0))
         # additive key bias (B, 1, L): 0 keep, -1e9 drop
         attn_bias = (1.0 - attention_mask.float())[:, None, :] * -1e9
-        for layer in self.layers:
-            x = layer(x, attn_bias, rng)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers, start=1):
+            if remat:
+                # the layer's generators live inside the function, so the
+                # default generators' states need not be replayed
+                x = checkpoint(_run_layer, layer, x, attn_bias, rng, i,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _run_layer(layer, x, attn_bias, rng, i)
         return x

@@ -11,8 +11,11 @@ token sequences with ragged masks: ``--batch`` queries of 8-32 tokens and
 two contexts per query of 40 tokens to L, as the datamodule lays them out
 (num_negative 1). It prints, as ``profile_serve`` does, the host-clock wall
 time of one step, the device kernel time of one step, the busy share and
-the kernel time by class, then the peak device memory. The override
-``task.model.fused_ffn=true`` profiles the fused-FFN configuration.
+the kernel time by class, then the peak device memory; a step that does not
+fit the card prints the allocator's out-of-memory message and the peak
+reached before it. The override ``task.model.fused_ffn=true`` profiles the
+fused-FFN configuration, ``task.grad_cache_chunks=N`` the GradCache step,
+``task.model.arch=bert_large task.model.remat=true`` bert_large's.
 """
 from __future__ import annotations
 
@@ -65,6 +68,9 @@ def main(argv=None):
     try:
         report(f"train step, {B} queries + {2 * B} contexts, L={L}",
                lambda: task.train_step(state, batch), dev, out)
+    except torch.cuda.OutOfMemoryError as err:
+        print(f"train step, {B} queries + {2 * B} contexts, L={L}: out of device memory: "
+              f"{str(err).splitlines()[0]}")
     finally:
         if out is not None:
             out.close()

@@ -5,9 +5,10 @@ Counterpart of :mod:`dpr_scale_tpu.train.checkpoint` in the port's own
 format (orbax needs jax):
 
   * ``<directory>/<step>/`` holds ``state.pt`` (``torch.save`` of the state
-    dict: the fp32 master parameters keyed by name, the AdamW ``mu`` / ``nu``
-    keyed by the same names, ``count``, ``step``, ``dropout_seed``) and
-    ``metrics.json``;
+    dict: the fp32 master parameters keyed by name, the optimizer's name
+    and its per-parameter state keyed by the same names (AdamW / lamb
+    ``mu`` / ``nu``, madgrad's sums and ``x0``, an accumulator), its
+    counters, ``step``, ``dropout_seed``) and ``metrics.json``;
   * ``<directory>/last/state/`` holds the newest save in the same layout
     (its ``state.pt`` a hard link to the step's when that step was kept);
   * a params export (``save_params``) is a directory holding ``params.pt``,

@@ -7,6 +7,8 @@ A state restored at step ``n`` continues the schedule: completed epochs are
 skipped, and an epoch left in the middle resumes at its next batch through
 the datamodule's ``start_batch=`` (batches are pure functions of seed,
 epoch and position, so the batches are those of an unbroken run).
+``profile_dir`` records ``fit`` in a torch.profiler trace
+(:func:`~dpr_scale_tpu_torch.utils.profiling.trace_if`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, Optional
 from dpr_scale_tpu_torch.train.checkpoint import CheckpointManager
 from dpr_scale_tpu_torch.train.task import DenseRetrieverTask, TrainState
 from dpr_scale_tpu_torch.utils.logging import MetricLogger
+from dpr_scale_tpu_torch.utils.profiling import trace_if
 
 
 class Trainer:
@@ -29,6 +32,7 @@ class Trainer:
         log_every: int = 10,
         eval_every_steps: Optional[int] = None,
         logger: Optional[MetricLogger] = None,
+        profile_dir: Optional[str] = None,
     ):
         self.task = task
         self.dm = datamodule
@@ -38,9 +42,14 @@ class Trainer:
         self.log_every = log_every
         self.eval_every_steps = eval_every_steps
         self.log = logger or MetricLogger()
+        self.profile_dir = profile_dir
         self._last_validated_step = -1
 
     def fit(self, state: TrainState) -> TrainState:
+        with trace_if(self.profile_dir):
+            return self._fit(state)
+
+    def _fit(self, state: TrainState) -> TrainState:
         global_step = state.step
         if self.max_steps and global_step >= self.max_steps:
             return state  # a resumed run that had finished trains no further
@@ -63,8 +72,8 @@ class Trainer:
                         "grad_norm": float(metrics["grad_norm"]),
                     }  # float() syncs: the rate below covers finished steps
                     scalars["queries_per_s"] = examples / max(time.time() - t0, 1e-9)
-                    # the LR of the update just applied (count - 1)
-                    scalars["lr"] = float(self.task.optimizer.schedule(global_step - 1))
+                    # the LR of the last update applied (count - 1)
+                    scalars["lr"] = self.task.optimizer.applied_lr(state.opt_state)
                     self.log.scalars(global_step, scalars)
                     t0, examples = time.time(), 0
                 if self.eval_every_steps and global_step % self.eval_every_steps == 0:

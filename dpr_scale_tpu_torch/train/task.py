@@ -3,14 +3,17 @@
 Counterpart of :class:`dpr_scale_tpu.train.task.DenseRetrieverTask`:
 
     encode queries + contexts -> similarity -> masked temperature CE
-    -> gradients -> clip -> AdamW on fp32 master parameters.
+    -> gradients -> the optimizer (clip, then adamw / adam / lamb / madgrad,
+    with or without accumulation) on fp32 master parameters.
 
 The JAX task is functional (a jitted step maps a state to a new one); here
-the step updates the model's parameters and the optimizer's moments in place
+the step updates the model's parameters and the optimizer's state in place
 and returns the same state object. The dropout of step ``n`` is a pure
 function of ``(dropout_seed, n)`` (:class:`DropoutRng`), as JAX's
-``fold_in(dropout_rng, step)`` is. Single device only: the multi-GPU global
-batch (all_gather of contexts) and GradCache are ROADMAP.md A5 and A6.
+``fold_in(dropout_rng, step)`` is. ``grad_cache_chunks > 1`` takes the
+gradients by GradCache (:mod:`dpr_scale_tpu_torch.train.gradcache`): the
+monolithic step's at the activation memory of one chunk. Single device
+only: the multi-GPU global batch (all_gather of contexts) is ROADMAP.md A5.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ import torch
 
 from dpr_scale_tpu_torch.models.convert import init_params
 from dpr_scale_tpu_torch.models.encoder import BiEncoder
-from dpr_scale_tpu_torch.models.transformer import REMAT_REFUSAL, DropoutRng, TransformerConfig
-from dpr_scale_tpu_torch.optim.factory import AdamW, global_norm
+from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig
+from dpr_scale_tpu_torch.optim.factory import AdamW, Optimizer, global_norm
+from dpr_scale_tpu_torch.train.gradcache import grad_cache_grads
 from dpr_scale_tpu_torch.train.loss import contrastive_loss, rank_metrics
 
 _INT_KEYS = ("query_ids", "query_mask", "contexts_ids", "contexts_mask")
@@ -37,40 +41,52 @@ class TrainState:
     dropout_seed: int
 
     def state_dict(self) -> Dict:
-        """The state as a checkpoint holds it: the fp32 parameters, and the
-        optimizer's ``mu`` / ``nu`` keyed by the same parameter names (the
-        live tensors, not copies), ``count``, ``step`` and
+        """The state as a checkpoint holds it: the fp32 parameters; the
+        optimizer's state (:meth:`Optimizer.init`), each per-parameter list
+        keyed by the parameter names (the live tensors, not copies), its
+        name under ``optimizer`` and its counters as ints; ``step`` and
         ``dropout_seed``."""
         names = [name for name, _ in self.model.named_parameters()]
-        return {
-            "params": {name: p.detach() for name, p in self.model.named_parameters()},
-            "mu": dict(zip(names, self.opt_state["mu"])),
-            "nu": dict(zip(names, self.opt_state["nu"])),
-            "count": int(self.opt_state["count"]),
-            "step": int(self.step),
-            "dropout_seed": int(self.dropout_seed),
-        }
+        out = {"params": {name: p.detach() for name, p in self.model.named_parameters()}}
+        for key, value in self.opt_state.items():
+            out[key] = dict(zip(names, value)) if isinstance(value, list) else value
+        out["step"], out["dropout_seed"] = int(self.step), int(self.dropout_seed)
+        return out
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping) -> None:
         """Copy a :meth:`state_dict` into this state in place: the tensors
-        stay on their device with their dtypes. Raises on a missing or an
-        unexpected parameter name, or a shape that differs."""
+        stay on their device with their dtypes. Raises on another optimizer
+        (a state saved without an ``optimizer`` name, the AdamW-only format,
+        loads into the adam family), a missing or an unexpected parameter
+        name, or a shape that differs."""
+        mine = self.opt_state["optimizer"]
+        theirs = state.get("optimizer")
+        layout = set(self.opt_state) - {"optimizer"}
+        if (theirs is None and layout != {"count", "mu", "nu"}) or theirs not in (None, mine):
+            raise ValueError(
+                f"the checkpoint holds the state of optimizer {theirs or 'adamw'!r}, this "
+                f"run's is {mine!r} (task.optim.name, trainer.accumulate_grad_batches)"
+            )
         self.model.load_state_dict(state["params"])
         names = [name for name, _ in self.model.named_parameters()]
-        for key in ("mu", "nu"):
+        for key, mine_value in self.opt_state.items():
+            if key == "optimizer":
+                continue
+            if not isinstance(mine_value, list):
+                self.opt_state[key] = int(state[key])
+                continue
             if set(state[key]) != set(names):
                 raise KeyError(
                     f"optimizer {key} names differ from the model's: missing "
                     f"{sorted(set(names) - set(state[key]))}, unexpected "
                     f"{sorted(set(state[key]) - set(names))}"
                 )
-            for name, t in zip(names, self.opt_state[key]):
+            for name, t in zip(names, mine_value):
                 src = state[key][name]
                 if src.shape != t.shape:
                     raise ValueError(f"optimizer {key}[{name}]: {tuple(src.shape)} != {tuple(t.shape)}")
                 t.copy_(src)
-        self.opt_state["count"] = int(state["count"])
         self.step = int(state["step"])
         self.dropout_seed = int(state["dropout_seed"])
 
@@ -87,22 +103,15 @@ class DenseRetrieverTask:
     in_batch_negatives: bool = True
     in_batch_eval: bool = True
     encoder_family: str = "dense"
-    optimizer: Optional[AdamW] = None
+    optimizer: Optional[Optimizer] = None
     device: torch.device = torch.device("cpu")
     grad_cache_chunks: int = 1
 
     def __post_init__(self):
         if self.encoder_family != "dense":
             raise NotImplementedError(
-                f"encoder_family={self.encoder_family!r} is not ported yet; the "
-                "port trains the dense CLS bi-encoder"
-            )
-        if self.cfg.remat:  # training takes gradients
-            raise NotImplementedError(REMAT_REFUSAL)
-        if self.grad_cache_chunks > 1:
-            raise NotImplementedError(
-                "task.grad_cache_chunks > 1 (GradCache) is not ported yet "
-                "(ROADMAP.md A6)"
+                f"encoder_family={self.encoder_family!r} is not ported yet "
+                "(ROADMAP.md A7); the port trains the dense CLS bi-encoder"
             )
         if self.optimizer is None:
             self.optimizer = AdamW(1e-5, weight_decay=1e-4)  # optax.adamw(1e-5)
@@ -156,16 +165,40 @@ class DenseRetrieverTask:
         self, state: TrainState, batch, rng: Optional[DropoutRng] = None
     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The training loss of ``batch`` and its gradient for each of
-        ``state.model.parameters()``; deterministic (no dropout) without
+        ``state.model.parameters()``, by GradCache when
+        ``grad_cache_chunks > 1``; deterministic (no dropout) without
         ``rng``."""
-        loss, _scores = self._loss(state.model, batch, rng, self.in_batch_negatives)
         params = list(state.model.parameters())
+        if self.grad_cache_chunks > 1:
+            return self._grad_cache(state.model, params, batch, rng)
+        loss, _scores = self._loss(state.model, batch, rng, self.in_batch_negatives)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return loss, [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
+    def _grad_cache(self, model, params, batch, rng: Optional[DropoutRng]):
+        """GradCache over ``grad_cache_chunks`` strided chunks, chunk ``g``
+        encoded with ``rng.fold(g)`` (the JAX task's ``_grad_cache_grads``)."""
+
+        def encode_chunk(qi, qm, ci, cm, chunk_rng):
+            q, c = model(qi, qm, ci, cm, chunk_rng)
+            return {"emb": q}, {"emb": c}
+
+        def loss_on_reprs(q_full, c_full):
+            loss, _scores = contrastive_loss(
+                q_full["emb"], c_full["emb"], batch["pos_ctx_indices"], batch["ctx_mask"],
+                self.softmax_temperature, self.in_batch_negatives,
+            )
+            return loss, {}
+
+        loss, _aux, grads = grad_cache_grads(
+            params, batch, rng, self.grad_cache_chunks, encode_chunk, loss_on_reprs
+        )
+        return loss, grads
+
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        """One update. Metrics stay on the device (no host sync): the loss
-        and the PRE-clip global gradient norm."""
+        """One step (an update, or with accumulation a micro-step). Metrics
+        stay on the device (no host sync): the loss and the PRE-clip global
+        norm of this step's gradient."""
         rng = DropoutRng(state.dropout_seed, state.step, self.device)
         loss, grads = self.loss_and_grads(state, batch, rng)
         params = list(state.model.parameters())

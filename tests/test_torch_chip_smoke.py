@@ -253,3 +253,83 @@ def test_checkpoint_phase_runs_on_cpu_until_the_launch_check(tmp_path, capsys):
     assert gain >= chip_smoke.RECALL_MARGIN
     assert ("checkpoint-path launches: {'attention_fwd': 0, 'attention_fwd_dropout': 0, "
             "'attention_bwd': 0, 'count_above_groups': 0}") in out
+
+
+# phase 19 at a tiny width: fp32, so that the remat gate is exact on the CPU
+_OWN_TINY = ["task.model.vocab_size=30522", "task.transform.max_seq_len=16",
+             "task.model.hidden_size=32", "task.model.num_heads=2", "task.model.num_layers=2",
+             "task.model.intermediate_size=64", "task.model.dtype=float32"]
+
+
+def _tiny_own_data(work):
+    tok_dir, _gold = chip_smoke.write_keyed_data(str(work), 32, 8, 8)
+    return [f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
+            f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
+            *_OWN_TINY]
+
+
+def test_own_batch_phase_runs_on_cpu_until_the_launch_check(tmp_path, capsys):
+    """Phase 19 at a tiny width: both gates pass, and every run of OWN_RUNS
+    (its overrides, two steps at batch 8, 16 for ccnews_ict's 16 chunks)
+    trains through cli.train with finite losses; the profiled run's trace
+    exists; the counters of the GradCache and remat runs must rise."""
+    runs = tuple((name, cfg, 16 if batch > 256 else 8, 2, overrides)
+                 for name, cfg, batch, _steps, overrides in chip_smoke.OWN_RUNS)
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_own_batch(str(tmp_path), torch.device("cpu"), runs=runs,
+                                   gate_batches=(8, 8), n_val=8, extra=_OWN_TINY)
+    out = capsys.readouterr().out
+    assert out.count("GradCache gate, 8 queries") == 2
+    assert "remat gate, 8 queries + 16 contexts, dropout 0.1: loss" in out
+    assert "(relative 0, tolerance 0.0001), gradient cosine 1.0000000" in out
+    assert out.count("own batch, run ") == len(runs) + 1
+    assert "the trace holds 0 device kernel events" in out
+    assert ("own-batch launches: {'attention_fwd_dropout': 0, 'attention_bwd': 0, "
+            "'ffn_fwd': 0}") in out
+
+
+def test_own_batch_gates_fail_on_a_grad_cache_mismatch(tmp_path, monkeypatch):
+    """A GradCache whose last chunk adds no gradient in phase 3 (its
+    outputs scaled by 0) fails the GradCache gate: the loss still agrees,
+    the cosine does not."""
+    from dpr_scale_tpu_torch.train import task as task_mod
+
+    data = _tiny_own_data(tmp_path)
+    assert set(chip_smoke.check_grad_cache(data, torch.device("cpu"), 8)) == {2, 4}
+    real = task_mod.grad_cache_grads
+
+    def lossy(params, batch, rng, chunks, encode_chunk, loss_on_reprs):
+        calls = []
+
+        def enc(*args):
+            q, c = encode_chunk(*args)
+            calls.append(1)
+            if len(calls) == 2 * chunks:  # phase 3's last chunk
+                q, c = ({k: v * 0 for k, v in d.items()} for d in (q, c))
+            return q, c
+
+        return real(params, batch, rng, chunks, enc, loss_on_reprs)
+
+    monkeypatch.setattr(task_mod, "grad_cache_grads", lossy)
+    with pytest.raises(AssertionError, match="GradCache disagrees"):
+        chip_smoke.check_grad_cache(data, torch.device("cpu"), 8)
+
+
+def test_own_batch_gates_fail_on_a_remat_mask_mismatch(tmp_path, monkeypatch):
+    """A recompute that draws other dropout masks than the forward did (each
+    layer's third and later calls, after the two towers' forwards, on
+    another fold) fails the remat gate."""
+    from dpr_scale_tpu_torch.models import transformer
+
+    data = _tiny_own_data(tmp_path)
+    assert chip_smoke.check_remat(data, torch.device("cpu"), 8) == (0.0, pytest.approx(1.0))
+    calls = {}
+
+    def drifting(layer, x, attn_bias, rng, i):
+        calls[layer] = calls.get(layer, 0) + 1
+        shift = 0 if calls[layer] <= 2 else 1000
+        return layer(x, attn_bias, transformer.fold(rng, i + shift))
+
+    monkeypatch.setattr(transformer, "_run_layer", drifting)
+    with pytest.raises(AssertionError, match="remat changes the step"):
+        chip_smoke.check_remat(data, torch.device("cpu"), 8)
