@@ -181,6 +181,25 @@ save, a resume and an export into encoding and retrieval. Phases:
      finite, every peak under the card's memory, the profiler's trace holds
      device events; the attention counters (and the FFN forward's with the
      flag) must rise.
+ 20. the multi-vector slice (conf/citadel.yaml, bert_base at L = 128, on
+     phase 18's keyed data, its learning rate and warmup): the monolithic
+     CITADEL step at the conf's batch of 128 (its peak or its OOM) and the
+     GradCache gate (MV_GC_CHUNKS chunks against it at rate 0, batch
+     MV_GATE_BATCH); run_eval at the conf's 1,408 validation and 6,528
+     test contexts (ms, peak, the blocked scorer's own peak);
+     ``cli.train`` for MV_STEPS steps under GradCache with top-1 async
+     saves, exporting params_best; ``cli.generate_multivec_embeddings`` and
+     ``cli.citadel_retrieval`` (host and bf16 device index) on the export:
+     the same top-100 as the exported model in memory, recall@RECALL_K
+     against the seeded encoder reported; ``cli.serve`` with only
+     ``serve_citadel``: ``/search_citadel`` answers as citadel_retrieval's
+     device-index run (the CLI's first query batch within
+     CITADEL_SAME_REL, other batch shapes within CITADEL_BF16_REL); two
+     SPLADE steps (conf/nq.yaml, ``task.model.family=splade``, the fused
+     FFN) at batch MV_SPLADE_BATCH; step ms by CUDA events, queries/s and
+     peaks, every loss finite, every peak under the card's memory; the
+     attention forward (with and without dropout), backward, fused FFN and
+     serial or streamed gather counters must rise.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -584,9 +603,9 @@ def write_tokenizer(path, vocab):
         }, f)
 
 
-def post(url, questions, k):
+def post(url, questions, k, path="/search"):
     req = urllib.request.Request(
-        url + "/search", data=json.dumps({"questions": questions, "k": k}).encode(),
+        url + path, data=json.dumps({"questions": questions, "k": k}).encode(),
         headers={"Content-Type": "application/json"},
     )
     with urllib.request.urlopen(req, timeout=300) as resp:
@@ -2622,12 +2641,12 @@ def phase_checkpoint(work, dev, batch_size=TRAIN_BATCH, steps=CKPT_STEPS,
 
     real_step = DenseRetrieverTask.train_step
 
-    def recording(self, state, batch):
+    def recording(self, state, batch, *args):
         h = hashlib.sha1()
         for key in ("query_ids", "contexts_ids", "pos_ctx_indices"):
             h.update(batch[key].cpu().numpy().tobytes())
         seen["batches"].setdefault(seen["run"], {})[state.step] = h.hexdigest()
-        return real_step(self, state, batch)
+        return real_step(self, state, batch, *args)
 
     counters = [(attention.attention_fwd_kernel, "launches"),
                 (attention.attention_fwd_kernel, "dropout_launches"),
@@ -2811,14 +2830,14 @@ def _cosine(a, b):
     return float(dot / (na * nb))
 
 
-def _gate_state(data, dev, overrides):
+def _gate_state(data, dev, overrides, config="nq.yaml"):
     """The task, its state from seed SEED and the first training batch of
-    conf/nq.yaml with ``overrides`` on phase 19's data."""
+    ``config`` with ``overrides`` on phase 19's (or 20's) data."""
     from dpr_scale_tpu_torch.cli.common import (build_datamodule, build_optimizer, build_task,
                                                 build_tokenizer)
     from dpr_scale_tpu_torch.config import load_config
 
-    cfg = load_config(os.path.join(ROOT, "conf", "nq.yaml"), [*data, *overrides])
+    cfg = load_config(os.path.join(ROOT, "conf", config), [*data, *overrides])
     dm = build_datamodule(cfg, build_tokenizer(cfg))
     batch = next(iter(dm.train_batches(0)))
     dm.close()
@@ -2826,24 +2845,28 @@ def _gate_state(data, dev, overrides):
     return task, task.init_state(SEED), task.to_device(batch)
 
 
-def check_grad_cache(data, dev, batch_size=GC_GATE_BATCH, chunks=GC_GATE_CHUNKS):
+def check_grad_cache(data, dev, batch_size=GC_GATE_BATCH, chunks=GC_GATE_CHUNKS,
+                     config="nq.yaml"):
     """Gate: at rate 0 the GradCache step's loss within GC_LOSS_REL of the
     monolithic step's and its gradient's cosine to it at least GC_COS, for
-    each chunk count. Returns {chunks: (loss relative, cosine)}."""
+    each chunk count, on ``config``. Returns {chunks: (loss relative,
+    cosine)}."""
     import torch
 
     from dpr_scale_tpu_torch.models.transformer import DropoutRng
 
     task, state, batch = _gate_state(data, dev, [
         f"datamodule.batch_size={batch_size}", "task.model.hidden_dropout=0",
-        "task.model.attention_dropout=0"])
+        "task.model.attention_dropout=0"], config)
     rng = DropoutRng(SEED, 0, dev)
-    loss, grads = task.loss_and_grads(state, batch, rng)
+    # the loss comes first and the gradients last (the multivec task's
+    # metrics lie between)
+    loss, *_, grads = task.loss_and_grads(state, batch, rng)
     loss = loss.item()
     out = {}
     for c in chunks:
         task.grad_cache_chunks = c
-        got, g = task.loss_and_grads(state, batch, rng)
+        got, *_, g = task.loss_and_grads(state, batch, rng)
         out[c] = (abs(got.item() - loss) / abs(loss), _cosine(g, grads))
         del g
         print(f"GradCache gate, {batch_size} queries + {2 * batch_size} contexts, rate 0: "
@@ -2897,6 +2920,39 @@ def trace_port_kernels(path):
     return len(kernels), {s: n for s, n in named.items() if n}
 
 
+def _timed_train_step(cls, ticks, dev):
+    """``cls.train_step`` timed by CUDA events (host clock on the CPU) into
+    ``ticks``; returns the real step to restore."""
+    import torch
+
+    real = cls.train_step
+
+    def timed(self, state, batch, *args):
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            out = real(self, state, batch, *args)
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(self, state, batch, *args)
+        end.record()
+        ticks.append((start, end))
+        return out
+
+    cls.train_step = timed
+    return real
+
+
+def _ticks_ms(ticks, dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in ticks]
+    return list(ticks)
+
+
 def phase_own_batch(work, dev, runs=OWN_RUNS, card="", gate_batches=None, n_val=OWN_VAL_ROWS,
                     extra=()):
     """Phase 19: the GradCache and remat gates, then each run of ``runs``
@@ -2929,32 +2985,17 @@ def phase_own_batch(work, dev, runs=OWN_RUNS, card="", gate_batches=None, n_val=
                 "ffn_fwd": (ffn.ffn_fwd_kernel, "launches")}
     total = dict.fromkeys(counters, 0)
     capacity = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
-    real_step = DenseRetrieverTask.train_step
     missing = []
     for name, config, batch, steps, overrides in runs:
         overrides = [o.format(work=work) for o in overrides]
         ticks = []
-
-        def timed(self, state, b):
-            if dev.type != "cuda":
-                t0 = time.perf_counter()
-                out = real_step(self, state, b)
-                ticks.append((time.perf_counter() - t0) * 1e3)
-                return out
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = real_step(self, state, b)
-            end.record()
-            ticks.append((start, end))
-            return out
-
         log = f"{work}/{name.replace(' ', '_')}.jsonl"
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        DenseRetrieverTask.train_step = timed
+        real_step = _timed_train_step(DenseRetrieverTask, ticks, dev)
         t0 = time.perf_counter()
         try:
             train.main(["--config", os.path.join(ROOT, "conf", config), "--device", str(dev),
@@ -2966,9 +3007,8 @@ def phase_own_batch(work, dev, runs=OWN_RUNS, card="", gate_batches=None, n_val=
         launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
         for k, n in launches.items():
             total[k] += n
+        ticks = _ticks_ms(ticks, dev)
         if dev.type == "cuda":
-            torch.cuda.synchronize()
-            ticks = [a.elapsed_time(b) for a, b in ticks]
             peak = torch.cuda.max_memory_allocated()
         with open(log) as f:
             lines = [json.loads(l) for l in f]
@@ -3000,6 +3040,492 @@ def phase_own_batch(work, dev, runs=OWN_RUNS, card="", gate_batches=None, n_val=
     print(f"own-batch launches: {total}")
     if missing:
         raise AssertionError(f"a kernel of a run's path never launched: {missing}")
+    return total
+
+
+# phase 20 (phase_multivec): the multi-vector slice on conf/citadel.yaml (a
+# bert_base trunk at L = 128, CITADEL routing 1 / 5 experts a token, a 32-d
+# token and 128-d CLS projection, every regulariser) at its own batch of 128
+# (+ 128 hard negatives), on phase 18's keyed data (MV_PASSAGES passages:
+# MV_STEPS / 2 steps an epoch), at phase 18's learning rate and warmup (the
+# conf's 3,000 warmup steps would hold a short run's LR near 0). The cut is
+# the steps. The main path is the conf as it stands: a monolithic step with
+# the trunk's attention on matmuls (the conf does not set
+# task.model.fused_attention), its export encoded, searched and served; the
+# CITADEL tower's kernels there are the gathers of the device index. The
+# attention kernels run in the opt-in variant (task.model.fused_attention
+# with task.grad_cache_chunks=MV_GC_CHUNKS, MV_VARIANT_STEPS steps) and in
+# the SPLADE run. The monolithic step is also tried alone and its peak or
+# its OOM reported; the GradCache gate compares it with MV_GC_CHUNKS chunks
+# at rate 0 and MV_GATE_BATCH queries. The serving gate's first request is
+# the citadel_retrieval CLI's first query batch (MV_SERVE_QUESTIONS
+# questions: the same batch shape, so the same bits); the other requests pad
+# to other shapes, whose bf16 GEMMs round otherwise (CITADEL_BF16_REL). The
+# SPLADE run trains conf/nq.yaml (which sets the fused attention) with
+# task.model.family=splade and the fused FFN (the phase's one run with the
+# flag) at a batch whose (B, 255, 30,522) router planes fit beside the trunk.
+MV_PASSAGES = 1280
+MV_QUESTIONS = 256
+MV_STEPS = 20
+MV_GATE_BATCH, MV_GC_CHUNKS = 64, 2
+MV_VARIANT_STEPS = 6
+MV_SERVE_QUESTIONS = 32  # citadel_retrieval's query batch (datamodule.encode_batch_size)
+MV_SPLADE_BATCH = 32
+
+
+def _questions(path):
+    """The question column of a DPR questions CSV (question \\t answers)."""
+    with open(path) as f:
+        return [line.split("\t")[0] for line in f]
+
+
+def _ranked(results):
+    return [[(c["id"], c["score"]) for c in row] for row in results]
+
+
+def _peak_gib(dev, reset=False):
+    import torch
+
+    if dev.type != "cuda":
+        return float("nan")
+    if reset:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _mv_monolithic(data, dev, card):
+    """(a) conf/citadel.yaml's monolithic step (dropout 0.1) at its own
+    batch: two steps, the second's ms and the peak, or the OOM."""
+    import torch
+
+    _peak_gib(dev, reset=True)
+    task, state, batch = _gate_state(data, dev, [], "citadel.yaml")
+    B, C, L = batch["query_ids"].shape[0], batch["contexts_ids"].shape[0], batch["query_ids"].shape[1]
+    ticks = []
+    real = _timed_train_step(type(task), ticks, dev)
+    try:
+        for _ in range(2):
+            state, m = task.train_step(state, batch, 0.0)
+            if not torch.isfinite(m["train_loss"]):
+                raise AssertionError(f"monolithic citadel step: loss {m['train_loss']}")
+        ms = _ticks_ms(ticks, dev)
+        print(f"multivec (a) monolithic step, {B} queries + {C} contexts at L = {L}, dropout "
+              f"0.1: step ms {[round(t, 2) for t in ms]} ({B * 1e3 / ms[-1]:.1f} queries/s), "
+              f"loss {float(m['train_loss']):.4f}, peak device memory {_peak_gib(dev):.2f} GiB; "
+              f"{card}")
+        out = {"ms": ms[-1], "peak_gib": _peak_gib(dev)}
+        _mv_scorer_in_step(task, state, batch, dev, card)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"multivec (a) monolithic step, {B} queries + {C} contexts: out of memory at "
+              f"{_peak_gib(dev):.2f} GiB allocated ({str(e).splitlines()[0][:160]}); {card}")
+        out = {"oom_at_gib": _peak_gib(dev)}
+    finally:
+        type(task).train_step = real
+    del task, state, batch
+    _peak_gib(dev, reset=True)
+    return out
+
+
+def _mv_scorer_in_step(task, state, batch, dev, card):
+    """The blocked scorer's share of a training step: expert_sim_score over
+    the batch's encoded reprs, forward and backward (with respect to the
+    token vectors and routing weights), timed alone, and its peak above the
+    reprs."""
+    import torch
+
+    from dpr_scale_tpu_torch.train.multivec import expert_sim_score
+
+    with torch.no_grad():
+        q, c = task._encode(state.model, batch, None)
+    for d in (q, c):
+        for key in ("expert_repr", "expert_weights"):
+            d[key] = d[key].detach().requires_grad_(True)
+    leaves = [d[k] for d in (q, c) for k in ("expert_repr", "expert_weights")]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if dev.type == "cuda" else None
+    _peak_gib(dev, reset=True)
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if ev:
+        ev[0].record()
+    scores = expert_sim_score(q, c, batch["ctx_mask"], query_pool=task.query_pool)
+    if ev:
+        ev[1].record()
+    torch.autograd.grad(scores.logsumexp(-1).sum(), leaves)
+    if ev:
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd, bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        above = (torch.cuda.max_memory_allocated() - base) / 2**30
+    else:
+        fwd = bwd = above = float("nan")  # no device clock on the CPU
+    n = scores.shape[0] * q["expert_ids"].shape[1] * q["expert_ids"].shape[2] * \
+        scores.shape[1] * c["expert_ids"].shape[1] * c["expert_ids"].shape[2]
+    print(f"multivec (a) the blocked scorer in the step: {n:.3g} gated products, forward "
+          f"{fwd:.2f} ms, backward (recomputing each block) {bwd:.2f} ms, peak above the "
+          f"reprs {above:.3f} GiB; {card}")
+
+
+def _mv_eval(data, dev, card):
+    """(b) validation and test batches at the conf's num_val_negative /
+    num_test_negative: run_eval's ms and peak, and the scorer's own peak
+    above the encoded batch."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli.common import (build_datamodule, build_optimizer, build_task,
+                                                build_tokenizer)
+    from dpr_scale_tpu_torch.config import load_config
+    from dpr_scale_tpu_torch.train.multivec import SCORE_BLOCK, expert_sim_score
+
+    cfg = load_config(os.path.join(ROOT, "conf", "citadel.yaml"), data)
+    dm = build_datamodule(cfg, build_tokenizer(cfg))
+    task = build_task(cfg, build_optimizer(cfg, 1), dev)
+    state = task.init_state(SEED)
+    out = {}
+    for split, batches in (("validation", dm.val_batches()), ("test", dm.test_batches())):
+        batch = next(iter(batches))
+        n_ctx = batch["contexts_ids"].shape[0]
+        _peak_gib(dev, reset=True)
+        t0 = time.perf_counter()
+        metrics = task.run_eval(state, [batch])
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = _peak_gib(dev)
+        with torch.no_grad():
+            b = task.to_device(batch)
+            q = task.encode_eval(state.model, b["query_ids"], b["query_mask"], task.query_topk)
+            c = task.encode_eval(state.model, b["contexts_ids"], b["contexts_mask"],
+                                 task.context_topk)
+            _peak_gib(dev, reset=True)
+            base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+            t0 = time.perf_counter()
+            scores = expert_sim_score(q, c, b["ctx_mask"], query_pool=task.query_pool)
+            float(scores.sum())
+            score_ms = (time.perf_counter() - t0) * 1e3
+            scorer_gib = (torch.cuda.max_memory_allocated() - base) / 2**30 \
+                if dev.type == "cuda" else float("nan")
+        del q, c, b, scores
+        print(f"multivec (b) {split}: {batch['query_ids'].shape[0]} queries x {n_ctx} contexts; "
+              f"run_eval {wall:.1f} ms wall, peak {peak:.2f} GiB; expert_sim_score {score_ms:.1f} "
+              f"ms, its peak above the encoded batch {scorer_gib:.3f} GiB (blocks of "
+              f"{SCORE_BLOCK} elements); mrr {metrics['mrr']:.4f}; {card}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{split} metrics {metrics}")
+        out[split] = {"contexts": n_ctx, "ms": wall, "peak_gib": peak, "scorer_gib": scorer_gib}
+    dm.close()
+    del task, state
+    _peak_gib(dev, reset=True)
+    return out
+
+
+def _mv_counters():
+    """{name: (wrapper object, count attribute)} of phase 20's kernels."""
+    from dpr_scale_tpu_torch.ops import attention, ffn
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    return {"attention_fwd": (attention.attention_fwd_kernel, "launches"),
+            "attention_fwd_dropout": (attention.attention_fwd_kernel, "dropout_launches"),
+            "attention_bwd": (attention.attention_bwd_kernel, "launches"),
+            "ffn_fwd": (ffn.ffn_fwd_kernel, "launches"),
+            "gather_score_serial": (gs.gather_score_serial_kernel, "launches"),
+            "gather_score_streamed": (gs.gather_score_streamed_kernel, "launches")}
+
+
+def _zero_counts():
+    for obj, attr in _mv_counters().values():
+        setattr(obj, attr, 0)
+
+
+def _read_counts():
+    """The launches since :func:`_zero_counts`; ``attention_fwd`` counts
+    the forward without dropout only."""
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in _mv_counters().items()}
+    launches["attention_fwd"] -= launches["attention_fwd_dropout"]
+    return launches
+
+
+def _mv_train(label, argv, steps, cls, dev, card):
+    """One ``cli.train`` run of ``argv`` (which names its batch and its
+    metrics file) with the counts set to 0 just before and read just after:
+    every loss and gradient norm finite; step ms by CUDA events, queries/s,
+    the peak and the launches printed. Returns (launches, peak GiB)."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.cli import train
+
+    def value(key):
+        return next(a.split("=", 1)[1] for a in reversed(argv) if a.startswith(key + "="))
+
+    log, batch = value("trainer.metrics_jsonl"), int(value("datamodule.batch_size"))
+    ticks = []
+    _peak_gib(dev, reset=True)
+    real = _timed_train_step(cls, ticks, dev)
+    t0 = time.perf_counter()
+    _zero_counts()
+    try:
+        test_metrics = train.main([*argv, f"trainer.max_steps={steps}", "trainer.log_every=1"])
+    finally:
+        launches = _read_counts()
+        cls.train_step = real
+    wall = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    ms = _ticks_ms(ticks, dev)
+    with open(log) as f:
+        lines = [json.loads(l) for l in f]
+    logged = [l for l in lines if "train_loss" in l]
+    numbers = [l[k] for l in logged for k in ("train_loss", "grad_norm")]
+    if len(logged) != steps or len(ms) != steps or not np.isfinite(numbers).all():
+        raise AssertionError(f"multivec {label}: steps {logged}")
+    step_ms = statistics.median(ms[1:] or ms)
+    valid = [(l["step"], round(l["valid_mrr"], 4)) for l in lines if "valid_mrr" in l]
+    print(f"multivec {label}: {steps} steps of {batch} queries + {2 * batch} contexts in "
+          f"{wall:.2f} s wall (CLI incl. init, data, validation, test, saves); step ms "
+          f"{[round(t, 2) for t in ms]}, median of steps 2.. {step_ms:.2f} ms = "
+          f"{batch * 1e3 / step_ms:.1f} queries/s; losses "
+          f"{[round(l['train_loss'], 4) for l in logged]}; grad_norms "
+          f"{[round(l['grad_norm'], 4) for l in logged]}; validation MRR by step {valid}; test "
+          f"{({k: round(v, 4) for k, v in test_metrics.items()})}; peak device memory "
+          f"{peak:.2f} GiB; launches {launches}; {card}")
+    return launches, peak
+
+
+def phase_multivec(work, dev, card="", batch_size=TRAIN_BATCH, steps=MV_STEPS,
+                   variant_steps=MV_VARIANT_STEPS, n_passages=MV_PASSAGES,
+                   n_questions=MV_QUESTIONS, gate_batch=MV_GATE_BATCH, splade_batch=MV_SPLADE_BATCH,
+                   serve_questions=MV_SERVE_QUESTIONS, extra=(), splade_extra=()):
+    """Phase 20, the multi-vector slice on ``dev``. Probes: (a) the
+    monolithic CITADEL step at conf/citadel.yaml's batch (peak or OOM) and
+    the GradCache gate; (b) run_eval at the conf's validation and test
+    batches. The main path, each run with the counts set to 0 just before it
+    and read just after: (c) ``cli.train`` on the conf as it stands for
+    ``steps`` steps with a top-1 async save, exporting params_best, and its
+    opt-in variant with the fused attention under GradCache; (d)
+    ``cli.generate_multivec_embeddings`` and ``cli.citadel_retrieval`` (host
+    index, device index) on the export, the same top-100 as the exported
+    model in memory, recall@RECALL_K against the seeded encoder (reported);
+    (e) ``cli.serve`` with only ``serve_citadel``, its ``/search_citadel``
+    answers against citadel_retrieval's device-index run; (f) two SPLADE
+    steps through ``cli.train`` with the fused FFN. The serial or streamed
+    gather must launch in (d) and in (e), the attention forward (with and
+    without dropout) and backward in the variant and in (f), the fused FFN
+    in (f).
+    Every other argument only shrinks it for a rehearsal on the CPU.
+    Returns the main path's launches."""
+    import torch
+
+    from dpr_scale_tpu_torch.cli import citadel_retrieval, generate_multivec_embeddings, serve
+    from dpr_scale_tpu_torch.cli import train
+    from dpr_scale_tpu_torch.train.checkpoint import save_params
+    from dpr_scale_tpu_torch.train.multivec import MultiVecRetrieverTask
+    from dpr_scale_tpu_torch.train.task import DenseRetrieverTask
+
+    t_phase = time.perf_counter()
+    capacity = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
+    peaks, by_run, missing = {}, {}, []
+    gather = ("gather_score_serial", "gather_score_streamed")
+
+    def needs(run, launches, kernels):
+        """Record a main-path run's launches; each of ``kernels`` (a name,
+        or a tuple of names of which one suffices) must have launched."""
+        by_run[run] = launches
+        for k in kernels:
+            names = (k,) if isinstance(k, str) else k
+            if not sum(launches[n] for n in names):
+                missing.append(f"{run}: {'/'.join(names)}")
+
+    tok_dir, gold = write_keyed_data(work, n_passages, n_questions, batch_size)
+    cfg_path = os.path.join(ROOT, "conf", "citadel.yaml")
+    data = [f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
+            f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
+            f"datamodule.batch_size={batch_size}", f"task.optim.lr={CKPT_LR}",
+            f"task.warmup_steps={CKPT_WARMUP}", *extra]
+
+    # (a) probe: the step at the conf's batch, monolithic, then the GradCache gate
+    mono = _mv_monolithic(data, dev, card)
+    peaks["a monolithic"] = mono.get("peak_gib", mono.get("oom_at_gib"))
+    print(f"multivec (a) GradCache gate on conf/citadel.yaml (router, expert and CLS losses, "
+          f"every regulariser):")
+    check_grad_cache(data, dev, gate_batch, (MV_GC_CHUNKS,), config="citadel.yaml")
+
+    # (b) probe: validation and test at the conf's own context counts
+    evals = _mv_eval(data, dev, card)
+    peaks.update({f"b {k}": v["peak_gib"] for k, v in evals.items()})
+
+    # (c) cli.train on the conf as it stands, top-1 async saves, params_best
+    # exported; then the opt-in variant (fused attention, GradCache)
+    ckpt = f"{work}/ckpt"
+    exported = {}
+
+    def keep_export(path, sd):
+        exported["sd"] = {k: v.detach().cpu().clone() for k, v in sd.items()}
+        return save_params(path, sd)
+
+    train.save_params = keep_export
+    try:
+        launches, peaks["c cli.train"] = _mv_train(
+            "(c) cli.train conf/citadel.yaml (monolithic, the conf's attention)",
+            ["--config", cfg_path, "--device", str(dev), *data,
+             f"trainer.metrics_jsonl={work}/train.jsonl.log", f"checkpoint_callback.dirpath={ckpt}",
+             "checkpoint_callback.save_top_k=1", "checkpoint_callback.async_save=true"],
+            steps, MultiVecRetrieverTask, dev, card)
+    finally:
+        train.save_params = save_params
+    needs("c cli.train", launches, [])
+    launches, peaks["c variant"] = _mv_train(
+        f"(c) opt-in variant, cli.train conf/citadel.yaml task.model.fused_attention=true "
+        f"task.grad_cache_chunks={MV_GC_CHUNKS}",
+        ["--config", cfg_path, "--device", str(dev), *data, "task.model.fused_attention=true",
+         f"task.grad_cache_chunks={MV_GC_CHUNKS}", f"trainer.metrics_jsonl={work}/variant.log"],
+        variant_steps, MultiVecRetrieverTask, dev, card)
+    needs("c variant", launches, ["attention_fwd", "attention_fwd_dropout", "attention_bwd"])
+
+    # (d) the export through the encode and retrieval CLIs (the in-memory and
+    # seeded runs are comparisons, outside the counts)
+    export = f"{ckpt}/params_best"
+    base = ["--config", cfg_path, "--device", str(dev), f"task.transform.model_path={tok_dir}",
+            f"datamodule.passages_path={work}/passages.tsv",
+            f"datamodule.test_path={work}/questions.csv", *extra]
+    runs, recalls = {}, {}
+    real_build = generate_multivec_embeddings.build_multivec_model
+    for name, weights, searches in (
+            ("export", [f"task.checkpoint_path={export}"], ("host", "device")),
+            ("memory", [], ("host",)), ("seeded", [], ("host",))):
+        if name == "memory":
+            def in_memory(cfg, device, seed=0):
+                model = real_build(cfg, "cpu", seed)
+                model.load_state_dict(exported["sd"])
+                return model.to(device).eval()
+            generate_multivec_embeddings.build_multivec_model = in_memory
+            citadel_retrieval.build_multivec_model = in_memory
+        argv = base + weights + [f"task.ctx_embeddings_dir={work}/index_{name}"]
+        if name == "export":
+            _zero_counts()
+        t0 = time.perf_counter()
+        try:
+            stats = generate_multivec_embeddings.main(argv)
+            gen_s = time.perf_counter() - t0
+            for search in searches:
+                dev_index = ["task.device_index=true"] if search == "device" else []
+                t1 = time.perf_counter()
+                res = citadel_retrieval.main(argv + dev_index +
+                                             [f"task.output_path={work}/{name}_{search}.json"])
+                runs[f"{name} {search}"] = _ranked(res)
+                recall, mrr = recall_of_run(f"{work}/{name}_{search}.json", gold, RECALL_K)
+                recalls[f"{name} {search}"] = recall
+                print(f"multivec (d) {name} weights: generate_multivec_embeddings ({n_passages} "
+                      f"passages) {gen_s:.2f} s; citadel_retrieval {search} index "
+                      f"({n_questions} questions, top-100) {time.perf_counter() - t1:.2f} s; "
+                      f"recall@{RECALL_K} {recall:.4f}, MRR@100 {mrr:.4f}; {stats}")
+        finally:
+            generate_multivec_embeddings.build_multivec_model = real_build
+            citadel_retrieval.build_multivec_model = real_build
+        if name == "export":
+            launches = _read_counts()
+            print(f"multivec (d) the export's encode and searches: launches {launches}")
+            needs("d encode and search", launches, [gather])
+    if [[d for d, _s in r] for r in runs["export host"]] != \
+            [[d for d, _s in r] for r in runs["memory host"]]:
+        raise AssertionError("the export's top-100 differs from the in-memory model's")
+    bad = _same_runs(runs["export host"], runs["export device"], _rel_tol(CITADEL_BF16_REL))
+    print(f"multivec (d): the export's top-100 ids equal the in-memory model's for all "
+          f"{n_questions} questions; bf16 device index vs host: {bad} of {n_questions} queries "
+          f"disagree beyond {CITADEL_BF16_REL} relative; recall@{RECALL_K} trained "
+          f"{recalls['export host']:.4f} vs seeded {recalls['seeded host']:.4f} (reported, "
+          f"not gated)")
+    if bad:
+        raise AssertionError(f"device-index run of the export: {bad} queries disagree")
+
+    # (e) cli.serve with only serve_citadel: /search_citadel
+    questions = _questions(f"{work}/questions.csv")
+    served = {}
+    real_make = serve.make_server
+
+    def capture(retriever, host, port, citadel_retriever=None):
+        server = real_make(retriever, host, port, citadel_retriever)
+        served["server"] = server
+        served["ready"].set()
+        return server
+
+    served["ready"] = threading.Event()
+    serve.make_server = capture
+    argv = ["--config", cfg_path, "--device", str(dev), f"task.transform.model_path={tok_dir}",
+            f"datamodule.passages_path={work}/passages.tsv", f"task.checkpoint_path={export}",
+            f"serve_citadel.ctx_embeddings_dir={work}/index_export", "serve_citadel.add_cls=true",
+            "serve_citadel.query_topk=1", "serve.host=127.0.0.1", "serve.port=0", *extra]
+    failure = []
+
+    def run_server():
+        try:
+            serve.main(argv)
+        except BaseException as e:  # handed to the phase's thread below
+            failure.append(e)
+            served["ready"].set()
+
+    thread = threading.Thread(target=run_server, daemon=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    thread.start()
+    served["ready"].wait(timeout=600)
+    serve.make_server = real_make
+    if failure or "server" not in served:
+        raise AssertionError(f"cli.serve did not start: {failure}")
+    build_s = time.perf_counter() - t0
+    server = served["server"]
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        if health["towers"] != ["/search_citadel"]:
+            raise AssertionError(f"healthz {health}")
+        requests = [(list(range(serve_questions)), 10, CITADEL_SAME_REL),
+                    ([serve_questions + 8], 10, CITADEL_BF16_REL),
+                    ([serve_questions + 1, serve_questions + 2, serve_questions + 3], 5,
+                     CITADEL_BF16_REL)]
+        report = []
+        for rows, k, rel in requests:
+            t1 = time.perf_counter()
+            got = _ranked(post(url, [questions[i] for i in rows], k, "/search_citadel"))
+            ms_req = (time.perf_counter() - t1) * 1e3
+            want = [runs["export device"][i][:k] for i in rows]
+            bad = _same_runs(want, got, _rel_tol(rel))
+            report.append(f"{len(rows)} questions k={k}: {ms_req:.1f} ms, {bad} disagree "
+                          f"beyond {rel} relative")
+            if bad:
+                raise AssertionError(f"/search_citadel ({len(rows)} questions) disagrees with "
+                                     f"citadel_retrieval's device-index run: {bad} queries")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        launches = _read_counts()
+    print(f"multivec (e) cli.serve (serve_citadel only, bf16 device index) built in "
+          f"{build_s:.2f} s; healthz {health}; /search_citadel: {'; '.join(report)}; launches "
+          f"{launches}; {card}")
+    needs("e serve", launches, [gather])
+
+    # (f) two SPLADE steps with the fused FFN (conf/nq.yaml sets the fused attention)
+    launches, peaks["f splade"] = _mv_train(
+        "(f) cli.train conf/nq.yaml task.model.family=splade task.model.fused_ffn=true, L = 256",
+        ["--config", os.path.join(ROOT, "conf", "nq.yaml"), "--device", str(dev),
+         f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
+         f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
+         *NQ_OWN, f"datamodule.batch_size={splade_batch}", f"trainer.metrics_jsonl={work}/splade.log",
+         "task.model.family=splade", "task.model.fused_ffn=true", *splade_extra],
+        2, DenseRetrieverTask, dev, card)
+    needs("f splade", launches, ["attention_fwd", "attention_fwd_dropout", "attention_bwd",
+                                  "ffn_fwd"])
+
+    if capacity is not None:
+        over = {k: v for k, v in peaks.items() if not v * 2**30 < capacity}
+        if over:
+            raise AssertionError(f"peaks above the card's memory: {over}")
+    total = {k: sum(r[k] for r in by_run.values()) for k in _mv_counters()}
+    print(f"multivec main-path launches by run: {by_run}; summed {total}; peaks GiB "
+          f"{({k: round(v, 2) for k, v in peaks.items()})}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if missing:
+        raise AssertionError(f"a kernel of the multi-vector path never launched: {missing}")
     return total
 
 
@@ -3095,22 +3621,30 @@ def main():
         own_launches = phase_own_batch(work, torch.device("cuda", 0), card=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        mv_launches = phase_multivec(work, torch.device("cuda", 0), card=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"
     kernels = [
         {"name": "attention_fwd", "route": "cuda", "source": source + "attention_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/attention.py:210",
-         "launches": launches["attention_fwd"] + ckpt_launches["attention_fwd"], **attn},
+         "launches": launches["attention_fwd"] + ckpt_launches["attention_fwd"]
+         + mv_launches["attention_fwd"], **attn},
         {"name": "attention_fwd_dropout", "route": "cuda", "source": source + "attention_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/attention.py:210",
          "launches": train_launches["attention_fwd_dropout"]
-         + ckpt_launches["attention_fwd_dropout"] + own_launches["attention_fwd_dropout"],
+         + ckpt_launches["attention_fwd_dropout"] + own_launches["attention_fwd_dropout"]
+         + mv_launches["attention_fwd_dropout"],
          **train_kernels["attention_fwd_dropout"]},
         {"name": "attention_bwd", "route": "cuda", "source": source + "attention_bwd.cu",
          "replaces": "dpr_scale_tpu/ops/attention.py:237",
          "launches": train_launches["attention_bwd"] + ckpt_launches["attention_bwd"]
-         + own_launches["attention_bwd"],
+         + own_launches["attention_bwd"] + mv_launches["attention_bwd"],
          **train_kernels["attention_bwd"]},
         {"name": "count_above_groups", "route": "cuda", "source": source + "count_groups.cu",
          "replaces": "dpr_scale_tpu/ops/mips_kernels.py:134",
@@ -3119,14 +3653,15 @@ def main():
          **count},
         {"name": "ffn_fwd", "route": "cuda", "source": source + "ffn_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/ffn.py:169",
-         "launches": ffn_train_launches["ffn_fwd"] + own_launches["ffn_fwd"],
+         "launches": ffn_train_launches["ffn_fwd"] + own_launches["ffn_fwd"]
+         + mv_launches["ffn_fwd"],
          **ffn_kernels["ffn_fwd"]},
         {"name": "ffn_ln_fwd", "route": "cuda", "source": source + "ffn_fwd.cu",
          "replaces": "dpr_scale_tpu/ops/ffn.py:387",
          "launches": ffn_launches["ffn_ln_fwd"], **ffn_kernels["ffn_ln_fwd"]},
         *({"name": name, "route": "cuda", "source": source + "gather_score.cu",
            "replaces": f"dpr_scale_tpu/index/inverted_device.py:{line}",
-           "launches": citadel_launches[name], **gather[name]}
+           "launches": citadel_launches[name] + mv_launches.get(name, 0), **gather[name]}
           for name, line in (("gather_score_serial", 431), ("gather_score_pipelined", 550),
                              ("gather_score_streamed", 648))),
         *({"name": name, "route": "cuda", "source": source + "mips_scan.cu",

@@ -1,7 +1,9 @@
 """Shared config -> object factories for the port's CLI entry points.
 
-Counterpart of :mod:`dpr_scale_tpu.cli.common` for the dense task. The
-tokenizer and the datamodule are the port's copies of the JAX package's
+Counterpart of :mod:`dpr_scale_tpu.cli.common`: the dense task (the CLS
+bi-encoder, or SPLADE with ``task.model.family=splade``) and the
+multi-vector task (``task.type=multivec``). The tokenizer and the
+datamodule are the port's copies of the JAX package's
 (``dpr_scale_tpu_torch.data``); batches come out as numpy and the task
 copies them to its device.
 """
@@ -19,6 +21,7 @@ from dpr_scale_tpu_torch.models.encoder import BiEncoder
 from dpr_scale_tpu_torch.models.transformer import TransformerConfig
 from dpr_scale_tpu_torch.optim.factory import make_optimizer
 from dpr_scale_tpu_torch.train.checkpoint import load_params
+from dpr_scale_tpu_torch.train.multivec import MultiVecRetrieverTask
 from dpr_scale_tpu_torch.train.schedule import linear_warmup_decay
 from dpr_scale_tpu_torch.train.task import DenseRetrieverTask
 
@@ -146,15 +149,40 @@ def build_optimizer(cfg, total_steps: int):
     )
 
 
-def build_task(cfg, optimizer, device) -> DenseRetrieverTask:
-    """The dense task (``task.type`` dense); other task types are not
-    ported yet (ROADMAP.md A7)."""
+def build_task(cfg, optimizer, device):
+    """The task of ``task.type``: dense (default) or multivec, with every
+    key the JAX registry reads; distill is not ported yet (ROADMAP.md A8)."""
     t = cfg.task
     task_type = t.get("type", "dense")
-    if task_type != "dense":
+    if task_type == "distill":
         raise NotImplementedError(
-            f"task.type={task_type!r} is not ported yet (ROADMAP.md A7); the port "
-            "trains the dense task"
+            "task.type=distill: the distillation task (DPRDistillTask and its "
+            "datamodule) is not ported yet (ROADMAP.md A8)"
+        )
+    if task_type == "multivec":
+        return MultiVecRetrieverTask(
+            cfg=build_model_config(cfg),
+            variant=t.get("variant", "citadel"),
+            tok_projection_dim=t.get("tok_projection_dim"),
+            cls_projection_dim=t.get("cls_projection_dim"),
+            add_cls=t.get("add_cls", False),
+            query_topk=t.get("query_topk", 1),
+            context_topk=t.get("context_topk", 1),
+            shared_model=t.get("shared_model", True),
+            query_pool=t.get("query_pool", "sum"),
+            in_batch=t.get("in_batch", True),
+            k=t.get("k", 1),
+            query_expert_load_loss_coef=t.get("query_expert_load_loss_coef", 0.0),
+            context_expert_load_loss_coef=t.get("context_expert_load_loss_coef", 0.0),
+            query_router_marg_load_loss_coef=t.get("query_router_marg_load_loss_coef", 0.0),
+            context_router_marg_load_loss_coef=t.get("context_router_marg_load_loss_coef", 0.0),
+            anneal_factor=t.get("anneal_factor", 0.0),
+            teacher_coef=t.get("teacher_coef", 0.0),
+            tau=t.get("tau", 1.0),
+            max_epochs=cfg.trainer.get("max_epochs", 1),
+            optimizer=optimizer,
+            device=device,
+            grad_cache_chunks=t.get("grad_cache_chunks", 1),
         )
     return DenseRetrieverTask(
         cfg=build_model_config(cfg),

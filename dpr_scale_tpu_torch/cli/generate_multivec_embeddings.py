@@ -11,9 +11,11 @@ Usage:
 
 Writes ``expert_{shard:04}/{expert}.pkl`` and ``cls_{shard:04}.pkl`` (numpy
 pickles, readable by the JAX package's loader) for the contiguous corpus
-rows of ``task.shard``. The weights come from ``task.checkpoint_path``, a
-params export (for a model trained in JAX: its ``.npz`` from
-``tools/orbax_params_to_npz.py``), or, when it is unset, from a seed.
+rows of ``task.shard``. The weights come from ``task.checkpoint_path``: the
+params export of the port's own training (``cli.train --config
+conf/citadel.yaml`` writes ``<checkpoint_callback.dirpath>/params_best``),
+or for a model trained in JAX its ``.npz`` from
+``tools/orbax_params_to_npz.py``; when it is unset, from a seed.
 """
 from __future__ import annotations
 
@@ -38,9 +40,7 @@ from dpr_scale_tpu_torch.models.multivec import MultiVecEncoder
 
 def build_multivec_model(cfg, device, seed: int = 0) -> MultiVecEncoder:
     """The task's MultiVecEncoder on ``device`` in eval mode, its weights
-    from ``task.checkpoint_path`` or ``seed`` (``cli.common.load_weights``).
-    The port trains no multi-vector model yet (ROADMAP A7): its weights come
-    from a JAX export through ``tools/orbax_params_to_npz.py``."""
+    from ``task.checkpoint_path`` or ``seed`` (``cli.common.load_weights``)."""
     t = cfg.task
     model = MultiVecEncoder(
         build_model_config(cfg),

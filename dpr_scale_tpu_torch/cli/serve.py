@@ -1,4 +1,5 @@
-"""Retrieval serving endpoint (dense tower, exact or approximate MIPS).
+"""Retrieval serving endpoint: the dense tower (exact or approximate MIPS)
+on ``/search`` and / or the CITADEL tower on ``/search_citadel``.
 
 Usage:
     python -m dpr_scale_tpu_torch.cli.serve --config conf/nq.yaml \
@@ -9,13 +10,27 @@ Usage:
 
     curl -XPOST localhost:8080/search -d '{"questions": ["who wrote hamlet"], "k": 5}'
 
+    python -m dpr_scale_tpu_torch.cli.serve --config conf/citadel.yaml \
+        task.checkpoint_path=/ckpt/params_best \
+        serve_citadel.ctx_embeddings_dir=/out/citadel_index \
+        datamodule.passages_path=psgs_w100.tsv [serve_citadel.device_index=false]
+
+    curl -XPOST localhost:8080/search_citadel -d '{"questions": ["who wrote hamlet"]}'
+
 ``serve.method`` defaults to ``approx``, as in the JAX CLI; ``fused``,
 ``groupmax`` and ``auto`` serve verified-exact results; ``int8`` / ``int4``
 quantise the corpus (the exact top-k of the dequantised scores), with
 ``serve.int8_query_planes=2`` for two-plane queries. The query tower's
 weights come from ``task.checkpoint_path`` (a params export) or, when it is
-unset, from a seed. The CITADEL tower (``serve_citadel``) is not ported and
-raises (ROADMAP A7).
+unset, from a seed. The dense tower is built when ``task.ctx_embeddings_dir``
+is set; the CITADEL tower when the ``serve_citadel`` group is (its
+``ctx_embeddings_dir``, ``portion``, ``quantizer``, ``device_index``
+(default true: a ``DeviceExpertIndex`` on the device, of
+``device_index_dtype``), ``query_topk``, ``add_cls``, ``k``, ``max_batch``,
+``pipelined``), its encoder the task's ``MultiVecEncoder`` with the same
+weights keys. ``serve_citadel.expert_parallel`` (several devices) is not
+ported and raises (ROADMAP A12). Both run on ``cuda:0`` unless ``--device``
+says otherwise.
 """
 from __future__ import annotations
 
@@ -32,18 +47,13 @@ from dpr_scale_tpu_torch.data.datasets import CSVDataset
 from dpr_scale_tpu_torch.device import resolve_device
 from dpr_scale_tpu_torch.encode.embeddings import CorpusEncoder
 from dpr_scale_tpu_torch.retrieve.retrieval import build_index
-from dpr_scale_tpu_torch.retrieve.server import Retriever, make_server
+from dpr_scale_tpu_torch.retrieve.server import CitadelRetriever, Retriever, make_server
 
 
 def build_retriever(cfg, device=None) -> Retriever:
-    """All the serving wiring short of binding the socket. ``device``
-    defaults to ``cuda:0``."""
+    """The dense tower: all its serving wiring short of binding the socket.
+    ``device`` defaults to ``cuda:0``."""
     s = cfg.get("serve", {})
-    if cfg.get("serve_citadel"):
-        raise NotImplementedError(
-            "serve_citadel: the CITADEL serving tower (CitadelRetriever) is not ported "
-            "(ROADMAP A7)"
-        )
     device = resolve_device(device)
     tokenizer = build_tokenizer(cfg)
     check_vocab_compat(tokenizer, build_model_config(cfg))
@@ -73,6 +83,51 @@ def build_retriever(cfg, device=None) -> Retriever:
     return retriever
 
 
+def build_citadel_retriever(cfg, device=None) -> CitadelRetriever:
+    """The CITADEL tower from the ``serve_citadel`` group (the keys of
+    ``cli.citadel_retrieval``'s task group), warmed at its default k.
+    ``device`` defaults to ``cuda:0``."""
+    from dpr_scale_tpu_torch.cli.generate_multivec_embeddings import build_multivec_model
+    from dpr_scale_tpu_torch.index.inverted import InvertedExpertIndex
+
+    sc = cfg["serve_citadel"]
+    if sc.get("expert_parallel", False):
+        raise NotImplementedError(
+            "serve_citadel.expert_parallel: the expert-parallel device search over "
+            "several devices is not ported (ROADMAP.md A12); unset it to serve on one device"
+        )
+    device = resolve_device(device)
+    tokenizer = build_tokenizer(cfg)
+    check_vocab_compat(tokenizer, build_model_config(cfg))
+    model = build_multivec_model(cfg, device)
+    passages = CSVDataset(cfg.datamodule["passages_path"])
+    index = InvertedExpertIndex.load(
+        sc["ctx_embeddings_dir"],
+        num_docs=len(passages),
+        portion=sc.get("portion", 1.0),
+        quantizer=sc.get("quantizer"),
+    )
+    if sc.get("device_index", True):  # serving default: on the device
+        from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
+
+        index = DeviceExpertIndex.from_host_index(
+            index, dtype=sc.get("device_index_dtype", "bfloat16"), device=device
+        )
+    retriever = CitadelRetriever(
+        model,
+        tokenizer,
+        index,
+        passages,
+        topk_route=sc.get("query_topk", 1),
+        add_cls=sc.get("add_cls", False),
+        default_k=sc.get("k", 10),
+        max_batch=sc.get("max_batch", 64),
+        serialized=not sc.get("pipelined", False),
+    )
+    retriever.search(["warmup"], k=retriever.default_k)
+    return retriever
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", required=True)
@@ -81,10 +136,17 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     s = cfg.get("serve", {})
-    retriever = build_retriever(cfg, args.device)
+    dense_configured = bool(cfg.get("task", {}).get("ctx_embeddings_dir"))
+    retriever = build_retriever(cfg, args.device) if dense_configured else None
+    citadel = build_citadel_retriever(cfg, args.device) if cfg.get("serve_citadel") else None
     host, port = s.get("host", "0.0.0.0"), s.get("port", 8080)
-    server = make_server(retriever, host, port)
-    print(f"Serving retrieval (dense) on {host}:{port} over {retriever.num_rows} passages")
+    server = make_server(retriever, host, port, citadel_retriever=citadel)
+    towers = [t for t, r in (("dense", retriever), ("citadel", citadel)) if r]
+    primary = retriever or citadel
+    print(
+        f"Serving retrieval ({'+'.join(towers)}) on {host}:{server.server_address[1]} over "
+        f"{primary.num_rows} passages"
+    )
     server.serve_forever()
 
 

@@ -5,20 +5,25 @@ Usage:
         datamodule.train_path=nq-train.jsonl datamodule.val_path=nq-dev.jsonl \\
         trainer.max_steps=100 datamodule.batch_size=128
 
-One device. Weights start from ``init_params`` (seed ``seed``, default 0),
+One device. ``task.type`` dense (the CLS bi-encoder, or SPLADE with
+``task.model.family=splade``) or multivec (CITADEL / COIL / ColBERT, e.g.
+``--config conf/citadel.yaml``). Weights start from ``init_params`` (seed
+``seed``, default 0),
 or from the params export ``task.pretrained_checkpoint_path``. With
 ``checkpoint_callback.dirpath`` each validation saves a checkpoint (top
 ``save_top_k`` on ``monitor`` / ``mode``, ``save_last``, ``async_save``),
 ``--resume`` continues from ``<dirpath>/last``, the test runs on the best
 step, and the best step's params are exported to
 ``checkpoint_callback.params_export`` (default ``<dirpath>/params_best``),
-which ``task.checkpoint_path`` of the encode / retrieve / serve CLIs reads.
+which ``task.checkpoint_path`` of the encode / retrieve / serve CLIs reads
+(``cli.generate_multivec_embeddings``, ``cli.citadel_retrieval`` and the
+``serve_citadel`` tower for a multi-vector model).
 ``trainer.profile_dir`` records the training in a torch.profiler trace.
 ``task.grad_cache_chunks``, ``task.model.remat``, ``task.optim.name``
 (adamw, adam, lamb, madgrad) and ``trainer.accumulate_grad_batches`` train
 as in the JAX CLI. More than one device (``trainer.num_devices``, ROADMAP
-A5), ``datamodule.num_workers`` (A8) and task types other than dense (A7)
-are refused.
+A5), ``datamodule.num_workers`` (A8) and ``task.type=distill`` (A8) are
+refused.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Online retrieval serving: query text -> encoded -> index search -> passages.
 
-Counterpart of the dense tower of :mod:`dpr_scale_tpu.retrieve.server`,
-with the same HTTP API and JSON:
+Counterpart of :mod:`dpr_scale_tpu.retrieve.server` (the dense tower and
+the CITADEL tower), with the same HTTP API and JSON:
 
-    POST /search   {"questions": [...], "k": 10}
+    POST /search           {"questions": [...], "k": 10}   (dense)
+    POST /search_citadel   {"questions": [...], "k": 10}   (multi-vector)
       -> {"results": [[{"id", "title", "text", "score"}, ...], ...]}
     GET /healthz   -> {"status": "ok", "corpus_rows": N, "towers": [...]}
 
@@ -212,14 +213,76 @@ class Retriever(_CoalescingPipeline):
         return self.index.search(payload, k)
 
 
+class CitadelRetriever(_CoalescingPipeline):
+    """Multi-vector (CITADEL / COIL / ColBERT) serving behind the same
+    coalescing pipeline: the encoder routes the queries' tokens to experts
+    and the inverted expert index (host or device) scores them; thread-safe.
+    The index routes on host numpy, so the encoder's outputs are fetched on
+    the encode worker, pad rows trimmed."""
+
+    def __init__(
+        self,
+        model,  # MultiVecEncoder, on its device in eval mode
+        tokenizer,
+        index,  # InvertedExpertIndex or DeviceExpertIndex
+        passages,
+        topk_route: int = 1,
+        add_cls: bool = False,
+        **kwargs,
+    ):
+        super().__init__(passages, **kwargs)
+        self.model = model
+        self.tokenizer = tokenizer
+        self.index = index
+        self.topk_route = topk_route
+        self.add_cls = add_cls
+        self.device = next(model.parameters()).device
+
+    @property
+    def num_rows(self) -> int:
+        return self.index.num_docs
+
+    def _encode_chunk(self, texts: List[str]):
+        import torch
+
+        pad_b = self._pad_batch(len(texts))
+        ids, mask = self.tokenizer(texts + [""] * (pad_b - len(texts)))
+        with torch.inference_mode():
+            out = self.model(
+                torch.from_numpy(np.asarray(ids)).to(self.device),
+                torch.from_numpy(np.asarray(mask)).to(self.device),
+                topk=self.topk_route, add_cls=self.add_cls,
+                routing_stats=False,  # training-only (B, vocab) planes
+            )
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        n = len(texts)
+        return {k: (v[:n] if v.ndim > 0 else v) for k, v in out.items()}
+
+    def _search_payload(self, payload, k: int):
+        scores, rows = self.index.search(payload, topk=k)
+        return np.asarray(scores), np.asarray(rows)
+
+
 MAX_QUESTIONS_PER_REQUEST = 1024
 MAX_BODY_BYTES = 16 * 1024 * 1024
 
 
-def make_server(retriever: _CoalescingPipeline, host: str = "0.0.0.0", port: int = 8080):
-    if retriever is None:
-        raise ValueError("a retriever is required")
-    routes = {"/search": retriever}
+def make_server(
+    retriever: Optional[_CoalescingPipeline],
+    host: str = "0.0.0.0",
+    port: int = 8080,
+    citadel_retriever: Optional[CitadelRetriever] = None,
+):
+    """An HTTP server with ``/search`` (``retriever``) and / or
+    ``/search_citadel`` (``citadel_retriever``); at least one is needed."""
+    routes = {}
+    if retriever is not None:
+        routes["/search"] = retriever
+    if citadel_retriever is not None:
+        routes["/search_citadel"] = citadel_retriever
+    if not routes:
+        raise ValueError("at least one retriever required")
+    primary = retriever if retriever is not None else citadel_retriever
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):  # quiet
@@ -239,7 +302,7 @@ def make_server(retriever: _CoalescingPipeline, host: str = "0.0.0.0", port: int
                     200,
                     {
                         "status": "ok",
-                        "corpus_rows": retriever.num_rows,
+                        "corpus_rows": primary.num_rows,
                         "towers": sorted(routes),
                     },
                 )

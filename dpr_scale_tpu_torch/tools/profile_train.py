@@ -6,10 +6,11 @@
 Run from the repository root, on one CUDA GPU (``--device cpu`` with a tiny
 model only checks the script). At the config's model width (conf/nq.yaml:
 bert_base, L = 256, bf16, fused attention, dropout 0.1; random weights from
-a seed) it times and profiles ``DenseRetrieverTask.train_step`` on random
-token sequences with ragged masks: ``--batch`` queries of 8-32 tokens and
-two contexts per query of 40 tokens to L, as the datamodule lays them out
-(num_negative 1). It prints, as ``profile_serve`` does, the host-clock wall
+a seed) it times and profiles the task's ``train_step`` on random token
+sequences with ragged masks: ``--batch`` queries of 8-32 tokens and two
+contexts per query of 40 tokens to L, as the datamodule lays them out
+(num_negative 1), teacher scores 0. ``--config conf/citadel.yaml``
+profiles the multi-vector task's step (L = 128). It prints, as ``profile_serve`` does, the host-clock wall
 time of one step, the device kernel time of one step, the busy share and
 the kernel time by class, then the peak device memory; a step that does not
 fit the card prints the allocator's out-of-memory message and the peak
@@ -61,6 +62,7 @@ def main(argv=None):
         "contexts_ids": c_ids, "contexts_mask": c_mask,
         "pos_ctx_indices": torch.arange(B, device=dev) * 2,
         "ctx_mask": torch.zeros(2 * B, dtype=torch.bool, device=dev),
+        "scores": torch.zeros(B, 2, device=dev),
     }
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

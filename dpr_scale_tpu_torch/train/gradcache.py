@@ -22,10 +22,14 @@ Chunking is strided, as in JAX: chunk ``g`` takes the queries
 ``{g, C+g, 2C+g, ...}`` and each one's contexts.
 
 Encoder outputs are dicts a side, so that a multi-vector task can reuse
-this: every float leaf with a batch axis is differentiated through,
-integer leaves ride along as constants of the loss, and per-chunk scalars
-(0-d leaves) are dropped (the loss recomputes batch statistics from the
-whole planes when it needs them).
+this: the loss is differentiated with respect to every float leaf with a
+batch axis, integer leaves ride along as constants of the loss, and
+per-chunk scalars (0-d leaves) are dropped (the loss recomputes batch
+statistics from the whole planes when it needs them). Phase 3
+back-propagates only the leaves that carry a gradient: a float leaf the
+encoder makes from constants (a token mask, the CITADEL router's usage
+counts) has no graph, and its cotangent goes nowhere, as in JAX, where
+such a leaf's VJP is zero.
 """
 from __future__ import annotations
 
@@ -118,10 +122,14 @@ def grad_cache_grads(
             with torch.enable_grad():
                 q_repr, c_repr = encode(g)
                 q_out, c_out = _diff_part(q_repr), _diff_part(c_repr)
-                outputs = [*q_out.values(), *c_out.values()]
-                grads_out = [q_chunk(dq[k], g) for k in q_out] + [c_chunk(dc[k], g) for k in c_out]
-                torch.autograd.backward(outputs, grads_out, inputs=params)
-            del q_repr, c_repr, q_out, c_out, outputs, grads_out
+                pairs = [(v, q_chunk(dq[k], g)) for k, v in q_out.items()]
+                pairs += [(v, c_chunk(dc[k], g)) for k, v in c_out.items()]
+                pairs = [(v, d) for v, d in pairs if v.requires_grad]
+                outputs = [v for v, _ in pairs]
+                grads_out = [d for _, d in pairs]
+                if outputs:
+                    torch.autograd.backward(outputs, grads_out, inputs=params)
+            del q_repr, c_repr, q_out, c_out, pairs, outputs, grads_out
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     finally:
         for p, s in zip(params, saved):

@@ -8,7 +8,9 @@ skipped, and an epoch left in the middle resumes at its next batch through
 the datamodule's ``start_batch=`` (batches are pure functions of seed,
 epoch and position, so the batches are those of an unbroken run).
 ``profile_dir`` records ``fit`` in a torch.profiler trace
-(:func:`~dpr_scale_tpu_torch.utils.profiling.trace_if`).
+(:func:`~dpr_scale_tpu_torch.utils.profiling.trace_if`). Each step gets
+its epoch as a float, as in JAX: the multi-vector task anneals its
+regularisers by it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import time
 from typing import Dict, Optional
 
 from dpr_scale_tpu_torch.train.checkpoint import CheckpointManager
-from dpr_scale_tpu_torch.train.task import DenseRetrieverTask, TrainState
+from dpr_scale_tpu_torch.train.task import TrainState
 from dpr_scale_tpu_torch.utils.logging import MetricLogger
 from dpr_scale_tpu_torch.utils.profiling import trace_if
 
@@ -24,7 +26,7 @@ from dpr_scale_tpu_torch.utils.profiling import trace_if
 class Trainer:
     def __init__(
         self,
-        task: DenseRetrieverTask,
+        task,  # DenseRetrieverTask or MultiVecRetrieverTask
         datamodule,
         checkpoint: Optional[CheckpointManager] = None,
         max_epochs: int = 1,
@@ -64,7 +66,9 @@ class Trainer:
             batches, skip = self.dm.train_batches(epoch, start_batch=skip), 0
             for batch in batches:
                 examples += len(batch["pos_ctx_indices"])
-                state, metrics = self.task.train_step(state, self.task.to_device(batch))
+                state, metrics = self.task.train_step(
+                    state, self.task.to_device(batch), float(epoch)
+                )
                 global_step += 1
                 if global_step % self.log_every == 0:
                     scalars = {

@@ -2,7 +2,9 @@
 
 Counterpart of :class:`dpr_scale_tpu.train.task.DenseRetrieverTask`:
 
-    encode queries + contexts -> similarity -> masked temperature CE
+    encode queries + contexts (the CLS bi-encoder, or with
+    ``encoder_family="splade"`` the SPLADE vocab vectors) -> similarity
+    -> masked temperature CE
     -> gradients -> the optimizer (clip, then adamw / adam / lamb / madgrad,
     with or without accumulation) on fp32 master parameters.
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from dpr_scale_tpu_torch.models.convert import init_params
-from dpr_scale_tpu_torch.models.encoder import BiEncoder
+from dpr_scale_tpu_torch.models.encoder import BiEncoder, SpladeBiEncoder
 from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig
 from dpr_scale_tpu_torch.optim.factory import AdamW, Optimizer, global_norm
 from dpr_scale_tpu_torch.train.gradcache import grad_cache_grads
@@ -35,7 +37,7 @@ _INT_KEYS = ("query_ids", "query_mask", "contexts_ids", "contexts_mask")
 
 @dataclasses.dataclass
 class TrainState:
-    model: BiEncoder
+    model: torch.nn.Module  # BiEncoder, SpladeBiEncoder or MultiVecEncoder
     opt_state: Dict
     step: int
     dropout_seed: int
@@ -91,6 +93,57 @@ class TrainState:
         self.dropout_seed = int(state["dropout_seed"])
 
 
+def new_state(model, optimizer: Optimizer, seed: int, state_dict, device) -> TrainState:
+    """A fresh state of ``model``: parameters from ``state_dict`` (e.g. the
+    output of ``models.convert.from_jax_params``) or the JAX init's
+    distributions drawn from ``seed``; zero optimizer moments; step 0."""
+    if state_dict is None:
+        state_dict = init_params(model, torch.Generator().manual_seed(seed))
+    model.load_state_dict(state_dict)
+    model.to(device)
+    return TrainState(model, optimizer.init(list(model.parameters())), 0, seed)
+
+
+def batch_to_device(batch: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch from the datamodule -> tensors on ``device`` (pinned,
+    non-blocking copies on a GPU), the teacher ``scores`` too where the
+    batch has them."""
+    out = {}
+    for key in _INT_KEYS + ("pos_ctx_indices", "ctx_mask", "scores"):
+        if key not in batch:
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(batch[key]))
+        if key == "pos_ctx_indices":
+            t = t.long()
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[key] = t.to(device, non_blocking=True)
+    return out
+
+
+def summed_eval(task, state: TrainState, batches: Iterable) -> Dict[str, float]:
+    """Epoch metrics of per-batch scoring: ``task.eval_step``'s summed
+    counts over ``batches``, as the JAX tasks' ``run_eval`` reports them."""
+    totals: Dict[str, float] = {}
+    n_batches = 0
+    for batch in batches:
+        m = task.eval_step(state, task.to_device(batch))
+        n_batches += 1
+        for key, val in m.items():
+            totals[key] = totals.get(key, 0.0) + float(val)
+    if not n_batches:
+        return {}
+    nq = totals["query_count"]
+    return {
+        "avg_rank": totals["rank_sum"] / nq,
+        "mrr": totals["mrr_sum"] / nq,
+        f"accuracy@{task.k}": totals["hits_at_k"] / nq,
+        "ctx_count": totals["ctx_count"] / n_batches,
+        "loss": totals["loss_sum"] / nq,
+        "query_count": nq,
+    }
+
+
 @dataclasses.dataclass
 class DenseRetrieverTask:
     """Owns the BiEncoder's construction, the optimizer and the steps."""
@@ -102,17 +155,12 @@ class DenseRetrieverTask:
     k: int = 1  # accuracy@k
     in_batch_negatives: bool = True
     in_batch_eval: bool = True
-    encoder_family: str = "dense"
+    encoder_family: str = "dense"  # "splade": SpladeBiEncoder; else BiEncoder
     optimizer: Optional[Optimizer] = None
     device: torch.device = torch.device("cpu")
     grad_cache_chunks: int = 1
 
     def __post_init__(self):
-        if self.encoder_family != "dense":
-            raise NotImplementedError(
-                f"encoder_family={self.encoder_family!r} is not ported yet "
-                "(ROADMAP.md A7); the port trains the dense CLS bi-encoder"
-            )
         if self.optimizer is None:
             self.optimizer = AdamW(1e-5, weight_decay=1e-4)  # optax.adamw(1e-5)
         self.device = torch.device(self.device)
@@ -123,15 +171,13 @@ class DenseRetrieverTask:
         """A fresh state: parameters from ``state_dict`` (e.g. the output of
         ``models.convert.from_jax_params``) or the JAX init's distributions
         drawn from ``seed``; zero optimizer moments; step 0."""
-        model = BiEncoder(
-            self.cfg, projection_dim=self.projection_dim, shared=self.shared_model
-        )
-        if state_dict is None:
-            state_dict = init_params(model, torch.Generator().manual_seed(seed))
-        model.load_state_dict(state_dict)
-        model.to(self.device)
-        params = list(model.parameters())
-        return TrainState(model, self.optimizer.init(params), 0, seed)
+        if self.encoder_family == "splade":
+            model = SpladeBiEncoder(self.cfg, shared=self.shared_model)
+        else:
+            model = BiEncoder(
+                self.cfg, projection_dim=self.projection_dim, shared=self.shared_model
+            )
+        return new_state(model, self.optimizer, seed, state_dict, self.device)
 
     def load_params(self, state: TrainState, state_dict: Mapping[str, torch.Tensor]) -> TrainState:
         """Warm start (``task.pretrained_checkpoint_path``): the parameters
@@ -142,17 +188,7 @@ class DenseRetrieverTask:
         return state
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A numpy batch from the datamodule -> tensors on the task's device
-        (pinned, non-blocking copies on a GPU)."""
-        out = {}
-        for key in _INT_KEYS + ("pos_ctx_indices", "ctx_mask"):
-            t = torch.from_numpy(np.ascontiguousarray(batch[key]))
-            if key == "pos_ctx_indices":
-                t = t.long()
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            out[key] = t.to(self.device, non_blocking=True)
-        return out
+        return batch_to_device(batch, self.device)
 
     def _loss(self, model, batch, rng: Optional[DropoutRng], in_batch_negatives: bool):
         q, c = model(*(batch[k] for k in _INT_KEYS), rng)
@@ -195,10 +231,11 @@ class DenseRetrieverTask:
         )
         return loss, grads
 
-    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def train_step(self, state: TrainState, batch, epoch: float = 0) -> Tuple[TrainState, Dict]:
         """One step (an update, or with accumulation a micro-step). Metrics
         stay on the device (no host sync): the loss and the PRE-clip global
-        norm of this step's gradient."""
+        norm of this step's gradient. ``epoch`` is unused (the loop passes
+        it to every task)."""
         rng = DropoutRng(state.dropout_seed, state.step, self.device)
         loss, grads = self.loss_and_grads(state, batch, rng)
         params = list(state.model.parameters())
@@ -222,24 +259,7 @@ class DenseRetrieverTask:
         otherwise every query is ranked against ALL eval contexts."""
         if not self.in_batch_eval:
             return self._run_eval_full(state, batches)
-        totals: Dict[str, float] = {}
-        n_batches = 0
-        for batch in batches:
-            m = self.eval_step(state, self.to_device(batch))
-            n_batches += 1
-            for key, val in m.items():
-                totals[key] = totals.get(key, 0.0) + float(val)
-        if not n_batches:
-            return {}
-        nq = totals["query_count"]
-        return {
-            "avg_rank": totals["rank_sum"] / nq,
-            "mrr": totals["mrr_sum"] / nq,
-            f"accuracy@{self.k}": totals["hits_at_k"] / nq,
-            "ctx_count": totals["ctx_count"] / n_batches,
-            "loss": totals["loss_sum"] / nq,
-            "query_count": nq,
-        }
+        return summed_eval(self, state, batches)
 
     @torch.no_grad()
     def _run_eval_full(self, state: TrainState, batches: Iterable) -> Dict[str, float]:

@@ -264,9 +264,9 @@ def test_resume_equals_the_unbroken_run_bit_for_bit(tiny_bert_dir, dpr10_jsonl, 
     batches = []
     real_step = DenseRetrieverTask.train_step
 
-    def recording(self, state, batch):
+    def recording(self, state, batch, *args):
         batches.append((state.step, {k: v.clone() for k, v in batch.items()}))
-        return real_step(self, state, batch)
+        return real_step(self, state, batch, *args)
 
     monkeypatch.setattr(DenseRetrieverTask, "train_step", recording)
     log = lambda name: f"trainer.metrics_jsonl={tmp_path / name}"

@@ -144,3 +144,33 @@ def test_grad_cache_keeps_integer_leaves_and_drops_chunk_scalars():
     torch.testing.assert_close(loss, want_loss.detach(), rtol=1e-6, atol=0)
     torch.testing.assert_close(grads[0], want, rtol=1e-5, atol=1e-6)
     assert torch.equal(w.grad, torch.full_like(w, 7.0))
+
+
+def test_grad_cache_takes_float_leaves_without_a_gradient():
+    """A float leaf with a batch axis that the encoder makes from constants
+    (a token mask; the CITADEL router's usage counts) has no graph: the loss
+    still sees it and differentiates it in phase 2, and phase 3 skips it, as
+    JAX's VJP gives it a zero cotangent. Loss and gradients equal autograd's
+    through the unchunked computation."""
+    gen = torch.Generator().manual_seed(1)
+    w = torch.randn(5, 3, generator=gen).requires_grad_(True)
+    B, ratio, C = 4, 3, 2
+    batch = {"query_ids": torch.randint(0, 5, (B, 6), generator=gen),
+             "query_mask": torch.ones(B, 6, dtype=torch.int32),
+             "contexts_ids": torch.randint(0, 5, (B * ratio, 6), generator=gen),
+             "contexts_mask": torch.ones(B * ratio, 6, dtype=torch.int32)}
+
+    def side(ids):
+        mask = (ids > 1).float()  # no grad_fn
+        return {"repr": (w[ids] * mask[..., None]).sum(1), "mask": mask}
+
+    def loss_on_reprs(q, c):
+        scores = q["repr"] @ c["repr"].T + q["mask"].sum(1, keepdim=True) * c["mask"].mean(1)
+        return scores.logsumexp(-1).mean(), {}
+
+    loss, _aux, grads = grad_cache_grads(
+        [w], batch, None, C, lambda qi, qm, ci, cm, rng: (side(qi), side(ci)), loss_on_reprs)
+    want_loss, _ = loss_on_reprs(side(batch["query_ids"]), side(batch["contexts_ids"]))
+    (want,) = torch.autograd.grad(want_loss, [w])
+    torch.testing.assert_close(loss, want_loss.detach(), rtol=1e-6, atol=0)
+    torch.testing.assert_close(grads[0], want, rtol=1e-5, atol=1e-6)

@@ -46,6 +46,15 @@ def test_profile_train_runs_on_cpu(fused_ffn, monkeypatch, capsys):
     assert calls[ffn.FusedFFNLN] == 0  # training forwards
 
 
+def test_profile_train_runs_the_multivec_step_on_cpu(capsys):
+    """``--config conf/citadel.yaml`` profiles the multi-vector task's step
+    on its teacher-less batch."""
+    assert profile_train.main(["--config", "conf/citadel.yaml", "--device", "cpu", "--batch", "4",
+                               *_TINY, "task.tok_projection_dim=8",
+                               "task.cls_projection_dim=8"]) == 0
+    assert "== train step, 4 queries + 8 contexts, L=32" in capsys.readouterr().out
+
+
 def test_bench_sweeps_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench_sweeps.main() == 1

@@ -8,14 +8,15 @@
   ``task.quantized_checkpoint_path`` and wrote shards from seeded weights;
   it now raises (their readers are ROADMAP A8);
 * ``cli.serve`` ignored ``serve_citadel`` and served the dense tower alone;
-  it now raises (the CITADEL tower is ROADMAP A7);
+  it now builds the CITADEL tower (``/search_citadel``) and refuses only
+  ``serve_citadel.expert_parallel`` (ROADMAP A12);
 * ``cli.train`` dropped ``trainer.tensorboard_dir`` (now handed to the
   logger, as JAX does), ``trainer.profile_dir`` (now handed to the
   trainer's profiler) and ``trainer.num_devices`` (now more than one device is
   refused, and so is an absent or null key while more than one CUDA device
   is visible: multi-GPU training is ROADMAP A5);
 * refusals named the wrong ROADMAP item; those that remain name A5 (more
-  than one device), A7 (other task types) and A8 (worker processes).
+  than one device) and A8 (the distillation task, worker processes).
 """
 import os
 import pickle
@@ -91,13 +92,27 @@ def test_generate_embeddings_refuses_the_encoders_it_cannot_read(tiny_bert_dir, 
     assert not (tmp_path / "out").exists()
 
 
-def test_serve_refuses_the_citadel_tower(tiny_bert_dir, tmp_path):
-    cfg = load_config(os.path.join(CONF, "tiny_smoke.yaml"), [
-        f"task.transform.model_path={tiny_bert_dir}", "task.model.vocab_size=32",
-        f"task.ctx_embeddings_dir={tmp_path}",
-        f"serve_citadel.ctx_embeddings_dir={tmp_path}/citadel"])
-    with pytest.raises(NotImplementedError, match="serve_citadel.*A7"):
-        serve.build_retriever(cfg, device="cpu")
+def test_serve_refuses_the_citadel_tower(tiny_bert_dir, passages, tmp_path):
+    """``serve_citadel`` is no longer ignored: it builds the CITADEL tower,
+    which answers; of its keys only ``expert_parallel`` (several devices,
+    ROADMAP A12) is refused."""
+    from dpr_scale_tpu_torch.cli import generate_multivec_embeddings
+
+    multivec = [f"task.transform.model_path={tiny_bert_dir}", "task.model.vocab_size=32",
+                "task.transform.max_seq_len=12", "task.type=multivec",
+                "task.tok_projection_dim=8", "task.context_topk=2",
+                f"datamodule.passages_path={passages}", "datamodule.encode_batch_size=4"]
+    generate_multivec_embeddings.main(["--config", os.path.join(CONF, "tiny_smoke.yaml"),
+                                       "--device", "cpu", *multivec,
+                                       f"task.ctx_embeddings_dir={tmp_path}/citadel"])
+    tower = [*multivec, f"serve_citadel.ctx_embeddings_dir={tmp_path}/citadel", "serve_citadel.k=3"]
+    with pytest.raises(NotImplementedError, match="serve_citadel.expert_parallel.*A12"):
+        serve.build_citadel_retriever(load_config(os.path.join(CONF, "tiny_smoke.yaml"), [
+            *tower, "serve_citadel.expert_parallel=true"]), device="cpu")
+    retriever = serve.build_citadel_retriever(
+        load_config(os.path.join(CONF, "tiny_smoke.yaml"), tower), device="cpu")
+    (results,) = retriever.search(["what a book"])
+    assert len(results) == 3 and {"id", "title", "text", "score"} == set(results[0])
 
 
 def _train_argv(tiny_bert_dir, dpr10_jsonl, *extra):
@@ -128,7 +143,8 @@ def test_cli_train_hands_tensorboard_dir_to_the_logger(tiny_bert_dir, dpr10_json
 
 @pytest.mark.parametrize("extra,item", [
     (["trainer.num_devices=2"], "num_devices=2.*A5"),
-], ids=["num_devices"])
+    (["task.type=distill"], "distill.*A8"),
+], ids=["num_devices", "distill"])
 def test_cli_train_refusals_name_their_roadmap_item(tiny_bert_dir, dpr10_jsonl, extra, item):
     """C6-C8: each refusal of ``cli.train`` names the item that ports it,
     and none names the exporter of A1."""

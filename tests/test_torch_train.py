@@ -260,13 +260,18 @@ def test_dropout_is_a_function_of_seed_and_step(fused_attention):
 
 
 def test_unported_task_options_raise():
-    """The splade family stays refused (A7); GradCache and remat train: a
-    step of each gives a finite loss and moves the parameters."""
+    """Only the distillation task stays refused (A8); the splade family,
+    GradCache and remat train: a step of each gives a finite loss and moves
+    the parameters."""
+    from dpr_scale_tpu_torch.cli.common import build_task
+    from dpr_scale_tpu_torch.config import load_config
+
     _, ttask = _tasks(True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        DenseRetrieverTask(cfg=ttask.cfg, encoder_family="splade")
+    with pytest.raises(NotImplementedError, match="distill.*A8"):
+        build_task(load_config("conf/nq.yaml", ["task.type=distill"]), make_optimizer(), "cpu")
     batch = _fake_batch(4, 2, seed=3)
-    for task in (DenseRetrieverTask(cfg=ttask.cfg, grad_cache_chunks=2),
+    for task in (DenseRetrieverTask(cfg=ttask.cfg, encoder_family="splade"),
+                 DenseRetrieverTask(cfg=ttask.cfg, grad_cache_chunks=2),
                  DenseRetrieverTask(cfg=dataclasses.replace(ttask.cfg, remat=True))):
         state = task.init_state(0)
         before = [p.detach().clone() for p in state.model.parameters()]
