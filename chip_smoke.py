@@ -199,7 +199,34 @@ save, a resume and an export into encoding and retrieval. Phases:
      FFN) at batch MV_SPLADE_BATCH; step ms by CUDA events, queries/s and
      peaks, every loss finite, every peak under the card's memory; the
      attention forward (with and without dropout), backward, fused FFN and
-     serial or streamed gather counters must rise.
+     serial or streamed gather counters must rise; the SPLADE run exports
+     its params for phase 21.
+ 21. the rest of the reference surface (phase_rest), on phase 18's keyed
+     data, vocab and export and phase 20's CITADEL and SPLADE exports, at
+     bert_base width: (a) the export's teacher vectors for phase 18's
+     questions and positives, ``cli.train --config conf/distill.yaml`` as
+     the conf stands for DISTILL_STEPS steps (the MSE must fall) and with
+     ``task.model.fused_attention=true``; the attention kernels held against
+     their plain versions at its shape (B = 32, L = 64, rate 0.1) beside
+     SDPA; (b) a TREC run of ``cli.run_retrieval`` (fused, top 20) for
+     RERANK_QUESTIONS questions and ``cli.rerank`` of each type (dense on
+     the export, within RERANK_BF16_REL of the retrieval's scores; the
+     cross-encoder seeded at L = 256; multivec on the CITADEL export),
+     pairs/s; (c) the export and a seeded encoder over REST_PASSAGES keyed
+     passages plus fp16 distractors (REST_ROWS rows at D = 768 + 768),
+     ``tools.spar_retrieval`` for REST_QUESTIONS questions at k = 100 against
+     a brute force of the combined vectors; count_above_groups, count_above,
+     groupmax and tile_max held at D = 1,536; ``tools.tune_spar_weights``;
+     (d) the export as a ``torch.export`` program (its vectors the eager
+     encode's within EXPORT_REL, the attention kernel launched inside it)
+     and as int8 weights (cosine >= QUANT_COS, bytes, recall@RECALL_K);
+     passages/s of each; (e) ``datamodule.num_workers=REST_WORKERS``: a shard
+     byte-equal to the serial one; (f) the SPLADE export through
+     ``generate_embeddings``, ``run_retrieval`` (fused) and ``/search``,
+     against a brute force, the sweeps' routes at D = 30,522 and the sweeps
+     held there on that path's vectors and on random mixed-sign ones. Each
+     main-path run with the counts
+     set to 0 just before it and read just after.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -211,10 +238,12 @@ exists) and a JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -355,6 +384,32 @@ def host_ms(fn, reps=5, warmup=1):
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def stop_started_processes():
+    """Stop what this process started: the worker pools' helper processes
+    (each waited for), then any other child still running, killed and
+    reaped. Returns ``pid cmdline`` of each process of the second kind."""
+    parallel = sys.modules.get("dpr_scale_tpu_torch.data.parallel")
+    if parallel is not None:
+        parallel.stop_worker_processes()
+    left, me = [], str(os.getpid())
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]
+            with open(f"/proc/{pid}/cmdline") as f:
+                cmd = f.read().replace("\0", " ").strip()
+        except OSError:
+            continue
+        if ppid == me:
+            left.append(f"{pid} {cmd}")
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+                os.waitpid(int(pid), 0)
+            except (ProcessLookupError, ChildProcessError):
+                pass
+    return left
 
 
 def phase_device():
@@ -522,10 +577,14 @@ def phase_count(dev, cases=COUNT_CASES, group=256):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     entry = {"max_abs_err": 0.0}
-    for B, N, D in cases:
+    for case in cases:  # (B, N, D), or (B, N, D, (queries, rows)) of a path's own vectors
+        B, N, D = case[:3]
         kernel = mk.count_above_groups_kernel  # looked up now: a rehearsal patches it
-        q = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
-        corpus = torch.randn(N, D, generator=g, device=dev).to(torch.bfloat16)
+        if len(case) > 3:
+            q, corpus = (t.to(torch.bfloat16) for t in case[3])
+        else:
+            q = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
+            corpus = torch.randn(N, D, generator=g, device=dev).to(torch.bfloat16)
         tau = _top_scores(q, corpus, N // 10000 + 1)[:, -1].contiguous()  # p99.99
         what = f"B={B} N={N} D={D} bf16, tau p99.99"
         routes = dict(getattr(kernel, "launches_by_route", {}))
@@ -1308,6 +1367,14 @@ def _ffn_split(x, w, lnp, seed, rate, eps=1e-12):
             "gemm2": device_ms(gemm2), "ln2": device_ms(ln(x, y, *lnp[2:]))}
 
 
+@functools.lru_cache(maxsize=1)
+def _sass_dump(tool, library):
+    """The library's SASS, dumped once a run (every report reads the same
+    build)."""
+    return subprocess.run([tool, "--dump-sass", library], capture_output=True, text=True,
+                          timeout=600).stdout
+
+
 def sass_check(prefix, label, ops=None):
     """Whether ``cuobjdump --dump-sass`` of the kernel library shows HGMMA
     (wgmma; IGMMA for its integer form) and UTMALDG (TMA loads), or the
@@ -1319,8 +1386,7 @@ def sass_check(prefix, label, ops=None):
     tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return f"cuobjdump not found beside nvcc: {label} SASS not checked"
-    sass = subprocess.run([tool, "--dump-sass", cuda_lib.build()], capture_output=True,
-                          text=True, timeout=600).stdout
+    sass = _sass_dump(tool, cuda_lib.build())
     found = []
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
@@ -1902,10 +1968,14 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
     kernels = _mips_kernels()
     entries = {n: {"max_abs_err": 0.0} for n in kernels}
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
-    for B, N, D, dtype_name, tile, timed in cases:
+    for case in cases:  # a 7th item: (queries, rows), a path's own vectors
+        B, N, D, dtype_name, tile, timed = case[:6]
         dtype = getattr(torch, dtype_name)
-        corpus = torch.randn(N, D, generator=g, device=dev).to(dtype)
-        q = torch.randn(B, D, generator=g, device=dev)
+        if len(case) > 6:
+            q, corpus = case[6][0].float(), case[6][1].to(dtype)
+        else:
+            corpus = torch.randn(N, D, generator=g, device=dev).to(dtype)
+            q = torch.randn(B, D, generator=g, device=dev)
         k = RETRIEVAL_K
         best = _top_scores(q, corpus, k + 1)
         tau = ((best[:, k - 1] + best[:, k]) / 2).contiguous()
@@ -3306,7 +3376,9 @@ def phase_multivec(work, dev, card="", batch_size=TRAIN_BATCH, steps=MV_STEPS,
     model in memory, recall@RECALL_K against the seeded encoder (reported);
     (e) ``cli.serve`` with only ``serve_citadel``, its ``/search_citadel``
     answers against citadel_retrieval's device-index run; (f) two SPLADE
-    steps through ``cli.train`` with the fused FFN. The serial or streamed
+    steps through ``cli.train`` with the fused FFN, exporting params_best
+    (phase 21 encodes and searches it: ``<work>/splade_ckpt/params_best``;
+    the CITADEL export is ``<work>/ckpt/params_best``). The serial or streamed
     gather must launch in (d) and in (e), the attention forward (with and
     without dropout) and backward in the variant and in (f), the fused FFN
     in (f).
@@ -3511,7 +3583,9 @@ def phase_multivec(work, dev, card="", batch_size=TRAIN_BATCH, steps=MV_STEPS,
          f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
          f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
          *NQ_OWN, f"datamodule.batch_size={splade_batch}", f"trainer.metrics_jsonl={work}/splade.log",
-         "task.model.family=splade", "task.model.fused_ffn=true", *splade_extra],
+         "task.model.family=splade", "task.model.fused_ffn=true",
+         f"checkpoint_callback.dirpath={work}/splade_ckpt", "checkpoint_callback.save_top_k=1",
+         "checkpoint_callback.async_save=true", *splade_extra],
         2, DenseRetrieverTask, dev, card)
     needs("f splade", launches, ["attention_fwd", "attention_fwd_dropout", "attention_bwd",
                                   "ffn_fwd"])
@@ -3527,6 +3601,554 @@ def phase_multivec(work, dev, card="", batch_size=TRAIN_BATCH, steps=MV_STEPS,
     if missing:
         raise AssertionError(f"a kernel of the multi-vector path never launched: {missing}")
     return total
+
+
+# phase 21 (phase_rest): the rest of the reference surface on phase 18's keyed
+# data and vocab at bert_base width: distillation, rerank, SPAR, the
+# exporter, the worker pool and the SPLADE CLIs (C9)
+REST_PASSAGES, REST_QUESTIONS = 4096, 1024
+REST_ROWS = 1 << 20  # SPAR's rows with fp16 distractors: 1,048,576 x (768 + 768)
+DISTILL_STEPS, DISTILL_VARIANT_STEPS = 20, 6
+DISTILL_L, DISTILL_ROWS = 64, 32  # conf/distill.yaml: 16 questions, two target rows each
+RERANK_QUESTIONS, RERANK_K, RERANK_BATCH = 256, 20, 256
+RERANK_BF16_REL = 1e-2  # dense rerank vs retrieval score of a pair, of the query's top |score|
+EXPORT_REL = 1e-2  # exported vs eager embeddings: max |diff| over max |ref| (bf16)
+QUANT_COS = 0.99
+REST_WORKERS = 4
+SPAR_WEIGHT = 0.5
+TUNE_QUESTIONS = 256
+SERVE_QUESTIONS = 40
+
+
+def _rest_counters():
+    """{name: (wrapper object, count attribute)} of phase 21's kernels."""
+    from dpr_scale_tpu_torch.ops import attention, ffn
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    return {"attention_fwd": (attention.attention_fwd_kernel, "launches"),
+            "attention_fwd_dropout": (attention.attention_fwd_kernel, "dropout_launches"),
+            "attention_bwd": (attention.attention_bwd_kernel, "launches"),
+            "ffn_ln_fwd": (ffn.ffn_ln_fwd_kernel, "launches"),
+            "count_above_groups": (mk.count_above_groups_kernel, "launches"),
+            "count_above": (mk.count_above_kernel, "launches"),
+            "groupmax": (mk.groupmax_kernel, "launches")}
+
+
+class _RestRuns:
+    """Each main-path run of phase 21 with the counts set to 0 just before
+    it and read just after (``attention_fwd``: the forward without
+    dropout); ``needs`` names the kernels (or tuples, one of which
+    suffices) the run must launch."""
+
+    def __init__(self):
+        self.by_run, self.missing = {}, []
+
+    def __call__(self, label, fn, needs=()):
+        counters = _rest_counters()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+            launches["attention_fwd"] -= launches["attention_fwd_dropout"]
+            self.by_run[label] = launches
+            print(f"rest {label}: {time.perf_counter() - t0:.2f} s wall; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            for k in needs:
+                names = (k,) if isinstance(k, str) else k
+                if not sum(launches[n] for n in names):
+                    self.missing.append(f"{label}: {'/'.join(names)}")
+
+    def total(self):
+        return {k: sum(r[k] for r in self.by_run.values()) for k in _rest_counters()}
+
+
+class _EncodeTimer:
+    """Host time of each ``CorpusEncoder.encode_batches`` (it ends with the
+    embeddings on the host, so the device work is done) while active."""
+
+    def __enter__(self):
+        from dpr_scale_tpu_torch.encode import embeddings
+
+        self.cls, self.real, self.runs = embeddings.CorpusEncoder, \
+            embeddings.CorpusEncoder.encode_batches, []
+        real, runs = self.real, self.runs
+
+        def timed(enc, batches):
+            t0 = time.perf_counter()
+            out = real(enc, batches)
+            runs.append((out[0].shape[0], time.perf_counter() - t0))
+            return out
+
+        self.cls.encode_batches = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.encode_batches = self.real
+
+    def rate(self):
+        rows, secs = self.runs[-1]
+        return rows / secs
+
+
+def _load_reps(path):
+    from dpr_scale_tpu_torch.encode.embeddings import load_embedding_shard
+
+    return load_embedding_shard(path).astype("float32")
+
+
+def _distill_rows(d18, teacher, out):
+    """Phase 18's train / val rows with the teacher's vectors: the positive
+    passage's context vector and the question's query vector."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.data.datasets import CSVDataset
+
+    ps = CSVDataset(f"{d18}/passages.tsv")
+    row_of = {(ps[i]["title"], ps[i]["text"]): i for i in range(len(ps))}
+    P = _load_reps(f"{teacher}/passages/reps_0000.pkl")
+    Q = _load_reps(f"{teacher}/queries/query_reps.pkl")
+    j = 0
+    for split in ("train", "val"):
+        with open(f"{d18}/{split}.jsonl") as f, open(f"{out}/distill_{split}.jsonl", "w") as o:
+            for line in f:
+                row = json.loads(line)
+                pos = row["positive_ctxs"][0]
+                o.write(json.dumps({"question": row["question"],
+                                    "ctx_target_vectors": [P[row_of[(pos["title"], pos["text"])]].tolist()],
+                                    "qry_target_vector": Q[j].tolist()}) + "\n")
+                j += 1
+    if j != Q.shape[0] or not np.isfinite(P).all():
+        raise AssertionError(f"teacher vectors: {j} questions vs {Q.shape[0]} query vectors")
+
+
+def _rest_train(label, argv, steps, cls, dev, card, rows):
+    """One ``cli.train`` run (argv names its metrics file): every loss and
+    gradient norm finite; step ms by CUDA events, rows/s, the peak and the
+    losses printed. Returns (logged train steps, test metrics, peak GiB)."""
+    import numpy as np
+
+    from dpr_scale_tpu_torch.cli import train
+
+    log = next(a.split("=", 1)[1] for a in reversed(argv) if a.startswith("trainer.metrics_jsonl="))
+    ticks = []
+    _peak_gib(dev, reset=True)
+    real = _timed_train_step(cls, ticks, dev)
+    try:
+        test_metrics = train.main([*argv, f"trainer.max_steps={steps}", "trainer.log_every=1"])
+    finally:
+        cls.train_step = real
+    peak = _peak_gib(dev)
+    ms = _ticks_ms(ticks, dev)
+    with open(log) as f:
+        lines = [json.loads(l) for l in f]
+    logged = [l for l in lines if "train_loss" in l]
+    numbers = [l[k] for l in logged for k in ("train_loss", "grad_norm")]
+    if len(logged) != steps or len(ms) != steps or not np.isfinite(numbers).all():
+        raise AssertionError(f"rest {label}: steps {logged}")
+    step_ms = statistics.median(ms[1:] or ms)
+    print(f"rest {label}: {steps} steps of {rows} rows; step ms {[round(t, 2) for t in ms]}, "
+          f"median of steps 2.. {step_ms:.2f} ms = {rows * 1e3 / step_ms:.1f} rows/s "
+          f"({rows // 2 * 1e3 / step_ms:.1f} questions/s); losses "
+          f"{[round(l['train_loss'], 6) for l in logged]}; validation "
+          f"{[(l['step'], round(l['valid_loss'], 6)) for l in lines if 'valid_loss' in l]}; test "
+          f"{({k: round(v, 6) for k, v in test_metrics.items()})}; peak device memory "
+          f"{peak:.2f} GiB; {card}")
+    return logged, test_metrics, peak
+
+
+def _rerank_pairs_per_s(main, argv):
+    """(output, pairs/s of the scoring loop, pairs/s of the whole CLI)."""
+    from dpr_scale_tpu_torch.retrieve import rerank
+
+    real, spent = rerank._run_rerank, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    rerank._run_rerank = timed
+    t0 = time.perf_counter()
+    try:
+        out = main(argv)
+    finally:
+        rerank._run_rerank = real
+    n = len(out["scores"])
+    return out, n / spent[0], n / (time.perf_counter() - t0)
+
+
+def _distractors(reps_dir, n_rows, seed, dev):
+    """fp16 rows around the encoded rows' mean (their std), up to ``n_rows``
+    in all, as ``reps_0001.npy`` (phase 15's distractors)."""
+    import numpy as np
+    import torch
+
+    e = torch.from_numpy(_load_reps(f"{reps_dir}/reps_0000.pkl")).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(n_rows - e.shape[0], e.shape[1], generator=g, device=dev)
+    np.save(f"{reps_dir}/reps_0001.npy", (e.mean(0) + noise * e.std(0)).half().cpu().numpy())
+
+
+def _rows_index(rows, dtype):
+    """check_exact's view of brute-force rows: one block of all of them."""
+    import types
+
+    return types.SimpleNamespace(dtype=dtype, _blocks=[(rows, rows.shape[0], 0)])
+
+
+def _route_delta(before):
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    now = {n: dict(getattr(mk, f"{n}_kernel").launches_by_route)
+           for n in ("count_above_groups", "count_above", "groupmax")}
+    return {n: {r: c - before.get(n, {}).get(r, 0) for r, c in routes.items()}
+            for n, routes in now.items()}
+
+
+def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export, card="",
+               n_passages=REST_PASSAGES, n_questions=REST_QUESTIONS, n_rows=REST_ROWS,
+               distill_steps=DISTILL_STEPS, variant_steps=DISTILL_VARIANT_STEPS,
+               rerank_questions=RERANK_QUESTIONS, workers=REST_WORKERS, extra=(), mv_extra=(),
+               splade_extra=(), distill_extra=(), rerank_batch=RERANK_BATCH, encode_batch=128):
+    """Phase 21 on ``dev``: (a) teacher vectors from phase 18's export
+    (``d18`` its data, ``dense_export`` its params), ``cli.train --config
+    conf/distill.yaml`` as the conf stands (its MSE must fall) and with the
+    fused attention; (b) a TREC run from ``cli.run_retrieval`` and
+    ``cli.rerank`` of each type (dense on the export, its scores the
+    retrieval's within RERANK_BF16_REL; the cross-encoder seeded; multivec
+    on ``citadel_export``); (c) two encoders over the same passages plus
+    fp16 distractors, ``tools.spar_retrieval`` against a brute force of the
+    combined vectors, ``tools.tune_spar_weights``; (d) the export as a
+    ``torch.export`` program (the same vectors as the eager encode, the
+    attention kernel inside it) and as int8 weights (cosine >= QUANT_COS,
+    bytes, recall@RECALL_K); (e) the encode with ``workers`` processes,
+    shards byte-equal to the serial ones; (f) ``splade_export`` (data
+    ``d20``) through generate_embeddings, run_retrieval and ``/search``
+    against a brute force, the sweeps' routes at D = 30,522. On the card the
+    kernels are held against their plain versions at the new shapes (the
+    attention kernels at L = 64, the sweeps at D = 1,536 and 30,522). The
+    other arguments only shrink it for a rehearsal on the CPU. Returns (the
+    main path's launches, the new shapes' kernel entries)."""
+    import glob
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli import generate_embeddings, generate_query_embeddings, rerank
+    from dpr_scale_tpu_torch.cli import run_retrieval, serve
+    from dpr_scale_tpu_torch.cli.common import build_biencoder
+    from dpr_scale_tpu_torch.config import load_config
+    from dpr_scale_tpu_torch.retrieve import spar
+    from dpr_scale_tpu_torch.retrieve.server import make_server
+    from dpr_scale_tpu_torch.tools import spar_retrieval, tune_spar_weights
+    from dpr_scale_tpu_torch.train.distill import DPRDistillTask
+    from dpr_scale_tpu_torch.utils import export
+
+    t_phase = time.perf_counter()
+    runs, shapes = _RestRuns(), {}
+    cuda = dev.type == "cuda"
+    nq, tok18 = os.path.join(ROOT, "conf", "nq.yaml"), f"{d18}/tok"
+    dense = ["--config", nq, "--device", str(dev), f"task.transform.model_path={tok18}",
+             f"datamodule.encode_batch_size={encode_batch}", *extra]
+    ckpt18 = f"task.checkpoint_path={dense_export}"
+
+    def shape(name, what, entry):
+        shapes.setdefault(name, []).append({"shape": what, **entry})
+
+    # ---- (a) distillation ----
+    os.makedirs(f"{work}/teacher/queries", exist_ok=True)
+    with open(f"{work}/teacher/questions.csv", "w") as o:
+        for split in ("train", "val"):
+            with open(f"{d18}/{split}.jsonl") as f:
+                o.writelines(f"{json.loads(l)['question']}\t[]\n" for l in f)
+    runs("a teacher passages", lambda: generate_embeddings.main(dense + [
+        ckpt18, f"datamodule.passages_path={d18}/passages.tsv",
+        f"task.ctx_embeddings_dir={work}/teacher/passages"]))
+    runs("a teacher questions", lambda: generate_embeddings.main(["--queries", *dense, ckpt18, (
+        f"datamodule.test_path={work}/teacher/questions.csv"),
+        f"task.ctx_embeddings_dir={work}/teacher/queries"]))
+    _distill_rows(d18, f"{work}/teacher", work)
+    distill = ["--config", os.path.join(ROOT, "conf", "distill.yaml"), "--device", str(dev),
+               f"task.transform.model_path={tok18}", f"datamodule.train_path={work}/distill_train.jsonl",
+               f"datamodule.val_path={work}/distill_val.jsonl",
+               f"datamodule.test_path={work}/distill_val.jsonl", *distill_extra]
+    logged, _m, peak = runs("a cli.train conf/distill.yaml", lambda: _rest_train(
+        "(a) cli.train conf/distill.yaml (the conf's attention)",
+        distill + [f"trainer.metrics_jsonl={work}/distill.log"], distill_steps, DPRDistillTask, dev,
+        card, DISTILL_ROWS))
+    losses = [l["train_loss"] for l in logged]
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"rest (a) the distillation MSE: mean of the first 5 steps {head:.6f}, of the last 5 "
+          f"{tail:.6f} ({tail / head - 1:+.2%})")
+    if not tail < head:
+        raise AssertionError(f"the distillation MSE did not fall: {head} -> {tail}")
+    runs("a variant fused_attention", lambda: _rest_train(
+        "(a) variant task.model.fused_attention=true",
+        distill + ["task.model.fused_attention=true", f"trainer.metrics_jsonl={work}/variant.log"],
+        variant_steps, DPRDistillTask, dev, card, DISTILL_ROWS),
+        needs=("attention_fwd_dropout", "attention_bwd"))
+    if cuda:
+        held = _check_train_kernels(DISTILL_ROWS, L=DISTILL_L)
+        for name, entry in held.items():
+            shape(name, f"B={DISTILL_ROWS} nh=12 L={DISTILL_L} hd=64 rate 0.1", entry)
+        torch.cuda.empty_cache()
+
+    # ---- (b) rerank ----
+    questions18 = _questions(f"{d18}/questions.csv")[:rerank_questions]
+    with open(f"{work}/rerank_questions.csv", "w") as f:
+        f.writelines(f"{q}\t[]\n" for q in questions18)
+    with open(f"{work}/rerank_queries.tsv", "w") as f:
+        f.writelines(f"{i}\t{q}\n" for i, q in enumerate(questions18))
+    runs("b run_retrieval candidates", lambda: run_retrieval.main(dense + [
+        ckpt18, f"datamodule.passages_path={d18}/passages.tsv",
+        f"datamodule.test_path={work}/rerank_questions.csv",
+        f"task.ctx_embeddings_dir={work}/teacher/passages", "task.mips_method=fused",
+        f"task.topk={RERANK_K}", f"task.output_path={work}/cand.json",
+        f"task.output_trec_path={work}/cand.trec"]), needs=("count_above_groups",))
+    with open(f"{work}/cand.json") as f:
+        retrieved = {(str(i), c["id"]): c["score"] for i, row in enumerate(json.load(f))
+                     for c in row["ctxs"]}
+    rr = ["--device", str(dev), f"task.transform.model_path={tok18}",
+          f"datamodule.trec_path={work}/cand.trec", f"datamodule.queries_path={work}/rerank_queries.tsv",
+          f"datamodule.passages_path={d18}/passages.tsv", f"datamodule.batch_size={rerank_batch}"]
+    rates = {}
+    for kind, config, weights, needs, more in (
+            ("dense", "nq.yaml", [ckpt18], ("attention_fwd",), extra),
+            ("cross_encoder", "nq.yaml", [], ("attention_fwd",), extra),
+            ("multivec", "citadel.yaml", [f"task.checkpoint_path={citadel_export}"], (), mv_extra)):
+        argv = ["--config", os.path.join(ROOT, "conf", config), *rr, f"task.rerank_type={kind}",
+                *weights, f"task.output_trec_path={work}/rerank_{kind}.trec",
+                f"task.output_pickle_dir={work}/rerank_{kind}", *more]
+        out, loop_rate, cli_rate = runs(f"b cli.rerank {kind}",
+                                        lambda: _rerank_pairs_per_s(rerank.main, argv), needs=needs)
+        rates[kind] = (loop_rate, cli_rate)
+        if len(out["scores"]) != len(retrieved) or not np.isfinite(out["scores"]).all():
+            raise AssertionError(f"rerank {kind}: {len(out['scores'])} scores for {len(retrieved)} pairs")
+        print(f"rest (b) cli.rerank {kind} ({config}): {len(out['scores'])} pairs, {loop_rate:.1f} "
+              f"pairs/s scoring ({cli_rate:.1f} pairs/s the whole CLI); {card}")
+        if kind == "dense":
+            top = {}
+            for (qid, _d), s in retrieved.items():
+                top[qid] = max(top.get(qid, 0.0), abs(s))
+            rel = max(abs(s - retrieved[(q, d)]) / top[q]
+                      for q, d, s in zip(out["qids"], out["ctx_ids"], out["scores"]))
+            print(f"rest (b) dense rerank vs the retrieval's scores of the same {len(out['scores'])} "
+                  f"pairs: max |diff| {rel:.3g} of the query's top |score| (tolerance "
+                  f"{RERANK_BF16_REL}: the index holds bf16 rows)")
+            if not rel <= RERANK_BF16_REL:
+                raise AssertionError(f"dense rerank scores differ from the retrieval's: {rel}")
+
+    # ---- (c) SPAR over two encoders, with fp16 distractors ----
+    keyed = f"{work}/keyed"
+    os.makedirs(keyed, exist_ok=True)
+    tok21, gold = write_keyed_data(keyed, n_passages, n_questions, 8)
+    with open(f"{keyed}/passages.tsv", "a") as f:
+        f.writelines(f"{i}\tdistractor {i}\tdistractor\n" for i in range(n_passages, n_rows))
+    kbase = ["--config", nq, "--device", str(dev), f"task.transform.model_path={tok21}",
+             f"datamodule.passages_path={keyed}/passages.tsv",
+             f"datamodule.test_path={keyed}/questions.csv", "task.shard=0",
+             f"task.num_shards={n_rows // n_passages}",
+             f"datamodule.encode_batch_size={encode_batch}", *extra]
+    with _EncodeTimer() as timer:
+        runs("c encode export", lambda: generate_embeddings.main(
+            kbase + [ckpt18, f"task.ctx_embeddings_dir={work}/spar_1"]), needs=("attention_fwd",))
+        eager_rate = timer.rate()
+    runs("c encode seeded", lambda: generate_embeddings.main(
+        kbase + [f"task.ctx_embeddings_dir={work}/spar_2"]), needs=("attention_fwd",))
+    runs("c queries export", lambda: generate_embeddings.main(
+        ["--queries", *kbase, ckpt18, f"task.ctx_embeddings_dir={work}/spar_1"]))
+    runs("c queries seeded", lambda: generate_query_embeddings.main(
+        kbase + [f"task.ctx_embeddings_dir={work}/spar_2"]))
+    for name in ("spar_1", "spar_2"):  # the encoded rows alone, for the tuning and recall
+        os.makedirs(f"{work}/{name}_only", exist_ok=True)
+        os.symlink(f"{work}/{name}/reps_0000.pkl", f"{work}/{name}_only/reps_0000.pkl")
+        with open(f"{work}/{name}_only/query_reps.pkl", "wb") as f:
+            pickle.dump(_load_reps(f"{work}/{name}/query_reps.pkl")[:TUNE_QUESTIONS], f, protocol=4)
+    for i, name in enumerate(("spar_1", "spar_2")):
+        _distractors(f"{work}/{name}", n_rows, SEED + 41 + i, dev)
+    t0 = time.perf_counter()
+    runs("c tools.spar_retrieval", lambda: spar_retrieval.main([
+        "--jsonl_dataset_paths", f"{keyed}/questions.csv",
+        "--tsv_passages_path", f"{keyed}/passages.tsv",
+        "--ctx_embeddings_dir_1", f"{work}/spar_1", "--ctx_embeddings_dir_2", f"{work}/spar_2",
+        "--output_dir", f"{work}/spar_out", "--output_filenames", "spar.json",
+        "--weights", str(SPAR_WEIGHT), "--topk", str(RETRIEVAL_K), "--device", str(dev)]),
+        needs=("count_above_groups",))
+    spar_s = time.perf_counter() - t0
+    p = np.concatenate([spar.load_dir_embeddings(f"{work}/{n}") for n in ("spar_1", "spar_2")], 1)
+    q = spar.combine_query_vectors(spar.load_query_embeddings(f"{work}/spar_1"),
+                                   spar.load_query_embeddings(f"{work}/spar_2"), SPAR_WEIGHT)
+    rows = torch.from_numpy(p).to(dev).to(torch.bfloat16)
+    del p
+    with open(f"{work}/spar_out/spar.json") as f:
+        results = [row["ctxs"] for row in json.load(f)]
+    check_exact(_rows_index(rows, torch.bfloat16), torch.from_numpy(q).to(dev), results, RETRIEVAL_K)
+    print(f"rest (c) tools.spar_retrieval: {len(results)} questions over {rows.shape[0]} rows at "
+          f"D = {rows.shape[1]} (weight {SPAR_WEIGHT}) in {spar_s:.2f} s wall; each top-"
+          f"{RETRIEVAL_K} equals the brute-force top-{RETRIEVAL_K} of the combined vectors within "
+          f"{TOPK_REL} (near-tie swaps allowed); {card}")
+    del rows
+    if cuda:
+        torch.cuda.empty_cache()
+        shape("count_above_groups", f"B={QUERY_BATCH} N={n_rows} D=1536 bf16",
+              phase_count(dev, cases=((QUERY_BATCH, n_rows, 1536),)))
+        for name, entry in phase_mips_kernels(
+                dev, cases=((QUERY_BATCH, n_rows, 1536, "bfloat16", 4096, True),)).items():
+            shape(name, f"B={QUERY_BATCH} N={n_rows} D=1536 bf16", entry)
+        torch.cuda.empty_cache()
+    with open(f"{work}/tune_questions.csv", "w") as o, open(f"{keyed}/questions.csv") as f:
+        o.writelines(f.readlines()[:TUNE_QUESTIONS])
+    t0 = time.perf_counter()
+    tune_spar_weights.main([
+        "--queries", f"{work}/tune_questions.csv", "--tsv_passages_path", f"{keyed}/passages.tsv",
+        "--ctx_embeddings_dir_1", f"{work}/spar_1_only", "--ctx_embeddings_dir_2",
+        f"{work}/spar_2_only", "--weights", "0.25", "0.5", "1.0", "--topk", "100",
+        "--eval_on_ks", "10", "100", "--output_json", f"{work}/tune.json"])
+    with open(f"{work}/tune.json") as f:
+        tuned = json.load(f)
+    print(f"rest (c) tools.tune_spar_weights over {n_passages} passages, {TUNE_QUESTIONS} questions: "
+          f"{tuned} in {time.perf_counter() - t0:.2f} s wall")
+
+    # ---- (d) the exporter ----
+    cfg = load_config(nq, [f"task.transform.model_path={tok21}", ckpt18, *extra])
+    model = build_biencoder(cfg, dev)
+    t0 = time.perf_counter()
+    export.export_encoder(export.EncoderTower(model), encode_batch,
+                          cfg.task.transform.max_seq_len, f"{work}/exported")
+    export_s = time.perf_counter() - t0
+    qpath = export.save_quantized(f"{work}/int8.pt", model)
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    state_pt = sorted(glob.glob(f"{os.path.dirname(dense_export)}/[0-9]*/state.pt"))
+    with _EncodeTimer() as timer:
+        runs("d encode exported", lambda: generate_embeddings.main(
+            kbase + [f"task.exported_encoder_path={work}/exported",
+                     f"task.ctx_embeddings_dir={work}/exported_reps"]), needs=("attention_fwd",))
+        exported_rate = timer.rate()
+        runs("d encode int8", lambda: generate_embeddings.main(
+            kbase + [f"task.quantized_checkpoint_path={qpath}",
+                     f"task.ctx_embeddings_dir={work}/int8_reps"]), needs=("attention_fwd",))
+        int8_rate = timer.rate()
+    runs("d queries int8", lambda: generate_embeddings.main(
+        ["--queries", *kbase, f"task.quantized_checkpoint_path={qpath}",
+         f"task.ctx_embeddings_dir={work}/int8_reps"]))
+    eager = _load_reps(f"{work}/spar_1/reps_0000.pkl")
+    got = _load_reps(f"{work}/exported_reps/reps_0000.pkl")
+    int8 = _load_reps(f"{work}/int8_reps/reps_0000.pkl")
+    diff = float(np.abs(got - eager).max() / np.abs(eager).max())
+    cos = (int8 * eager).sum(1) / np.linalg.norm(int8, axis=1) / np.linalg.norm(eager, axis=1)
+    recalls = {}
+    for name, dirname in (("eager", "spar_1_only"), ("int8", "int8_reps")):
+        qpath_name = f"{work}/{'spar_1' if name == 'eager' else 'int8_reps'}/query_reps.pkl"
+        out = f"{work}/recall_{name}.json"
+        run_retrieval.main(kbase + [f"task.ctx_embeddings_dir={work}/{dirname}",
+                                    f"task.query_emb_path={qpath_name}", "task.mips_method=fused",
+                                    f"task.topk={min(RETRIEVAL_K, n_passages)}",
+                                    f"task.output_path={out}"])
+        recalls[name] = recall_of_run(out, gold, RECALL_K)[0]
+    sizes = (os.path.getsize(qpath), os.path.getsize(state_pt[0]) if state_pt else None)
+    print(f"rest (d) export: torch.export of the encoder at ({encode_batch}, "
+          f"{cfg.task.transform.max_seq_len}) in {export_s:.2f} s; exported vs eager embeddings "
+          f"max |diff| {diff:.3g} of max |ref| (tolerance {EXPORT_REL}); int8 weights {sizes[0]} "
+          f"bytes vs state.pt {sizes[1]} bytes, cosine to the fp32 weights' embeddings min "
+          f"{cos.min():.6f} mean {cos.mean():.6f} (gate {QUANT_COS}); recall@{RECALL_K} eager "
+          f"{recalls['eager']:.4f}, int8 {recalls['int8']:.4f}; passages/s eager {eager_rate:.1f}, "
+          f"exported {exported_rate:.1f}, int8 {int8_rate:.1f}; {card}")
+    if not diff <= EXPORT_REL or got.shape != eager.shape:
+        raise AssertionError(f"the exported encoder's vectors differ from the eager ones: {diff}")
+    if not cos.min() >= QUANT_COS:
+        raise AssertionError(f"int8 weights' embeddings: cosine {cos.min()} < {QUANT_COS}")
+
+    # ---- (e) the worker pool ----
+    with _EncodeTimer() as timer:
+        t0 = time.perf_counter()
+        runs("e encode workers", lambda: generate_embeddings.main(
+            kbase + [ckpt18, f"datamodule.num_workers={workers}",
+                     f"task.ctx_embeddings_dir={work}/workers"]), needs=("attention_fwd",))
+        workers_wall, workers_rate = time.perf_counter() - t0, timer.rate()
+    same = open(f"{work}/workers/reps_0000.pkl", "rb").read() == \
+        open(f"{work}/spar_1/reps_0000.pkl", "rb").read()
+    print(f"rest (e) generate_embeddings datamodule.num_workers={workers}: shard byte-equal to "
+          f"num_workers=0's: {same}; passages/s {workers_rate:.1f} (serial {eager_rate:.1f}); the "
+          f"CLI {workers_wall:.2f} s wall with the pool's start; {card}")
+    if not same:
+        raise AssertionError("the worker pool's shard differs from the serial one")
+
+    # ---- (f) C9: the SPLADE export through the dense CLIs ----
+    splade = ["--config", nq, "--device", str(dev), f"task.transform.model_path={d20}/tok",
+              f"datamodule.passages_path={d20}/passages.tsv", f"datamodule.test_path={d20}/questions.csv",
+              "task.model.family=splade", f"task.checkpoint_path={splade_export}",
+              f"task.ctx_embeddings_dir={work}/splade", f"datamodule.encode_batch_size={encode_batch}",
+              *splade_extra]
+    runs("f splade generate_embeddings", lambda: generate_embeddings.main(splade),
+         needs=("attention_fwd",))
+    runs("f splade queries", lambda: generate_embeddings.main(["--queries", *splade]),
+         needs=("attention_fwd",))
+    before = _route_delta({})
+    with open(f"{d20}/passages.tsv") as f:
+        kf = min(RETRIEVAL_K, sum(1 for _ in f) - 1)
+    runs("f splade run_retrieval", lambda: run_retrieval.main(splade + [
+        "task.mips_method=fused", f"task.topk={kf}", f"task.output_path={work}/splade.json"]),
+        needs=("count_above_groups",))
+    routes = _route_delta(before)
+    with open(f"{work}/splade.json") as f:
+        results = [row["ctxs"] for row in json.load(f)]
+    from dpr_scale_tpu_torch.retrieve.retrieval import build_index
+
+    index = build_index(f"{work}/splade", dev)
+    q_splade = torch.from_numpy(_load_reps(f"{work}/splade/query_reps.pkl")).to(dev)
+    check_exact(index, q_splade, results, kf)
+    rows_splade, n_splade, _off = index._blocks[0]
+    rows_splade = rows_splade[:n_splade]
+    dim = rows_splade.shape[1]
+    del index
+    cfg = load_config(nq, splade[4:] + ["serve.method=fused"])
+    retriever = runs("f splade /search build", lambda: serve.build_retriever(cfg, dev))
+    server = make_server(retriever, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    qs = _questions(f"{d20}/questions.csv")[:SERVE_QUESTIONS]
+    try:
+        served = runs("f splade /search", lambda: post(url, qs, kf),
+                      needs=("count_above_groups",))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    bad = _same_runs(_ranked(results[:len(qs)]), _ranked(served), _rel_tol(TOPK_REL))
+    print(f"rest (f) SPLADE (D = {dim}): generate_embeddings, run_retrieval (fused, top-"
+          f"{kf}) equal to the brute force; /search ({len(qs)} questions in one request): "
+          f"{bad} disagree with run_retrieval beyond {TOPK_REL} relative (near-tie swaps "
+          f"allowed); the sweeps' launches by route in run_retrieval {routes}; {card}")
+    if bad:
+        raise AssertionError(f"/search disagrees with run_retrieval on {bad} SPLADE questions")
+    if cuda:  # the sweeps held on this path's own vectors (non-negative), then on
+        # random mixed-sign ones of the same shape
+        torch.cuda.empty_cache()
+        B, N = q_splade.shape[0], rows_splade.shape[0] // 256 * 256
+        for what, data in ((f"B={B} N={N} D={dim} bf16, the SPLADE path's vectors",
+                            (q_splade, rows_splade[:N])), (f"B={B} N={N} D={dim} bf16", None)):
+            shape("count_above_groups", what, phase_count(
+                dev, cases=((B, N, dim) + ((data,) if data else ()),)))
+            for name, entry in phase_mips_kernels(dev, cases=(
+                    (B, N, dim, "bfloat16", 256, True) + ((data,) if data else ()),)).items():
+                shape(name, what, entry)
+    for name, entries in shapes.items():
+        for e in entries:
+            e.pop("single_ms", None)
+    total = runs.total()
+    print(f"rest main-path launches by run: {runs.by_run}; summed {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if runs.missing:
+        raise AssertionError(f"a kernel of the rest of the surface never launched: {runs.missing}")
+    return total, shapes
 
 
 def main():
@@ -3610,23 +4232,26 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    # phase 18's and phase 20's data and exports stay for phase 21
+    work18, work20, work19, work21 = (
+        tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) for _ in range(4))
     try:
-        ckpt_launches = phase_checkpoint(work, torch.device("cuda", 0))
+        ckpt_launches = phase_checkpoint(work18, torch.device("cuda", 0))
+        torch.cuda.empty_cache()
+        own_launches = phase_own_batch(work19, torch.device("cuda", 0), card=smi)
+        shutil.rmtree(work19, ignore_errors=True)
+        torch.cuda.empty_cache()
+        mv_launches = phase_multivec(work20, torch.device("cuda", 0), card=smi)
+        torch.cuda.empty_cache()
+        rest_launches, rest_shapes = phase_rest(
+            work21, torch.device("cuda", 0), work18, f"{work18}/ckpt_b/params_best",
+            f"{work20}/ckpt/params_best", work20, f"{work20}/splade_ckpt/params_best", card=smi)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
-    try:
-        own_launches = phase_own_batch(work, torch.device("cuda", 0), card=smi)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
-    try:
-        mv_launches = phase_multivec(work, torch.device("cuda", 0), card=smi)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for path in (work18, work19, work20, work21):
+            shutil.rmtree(path, ignore_errors=True)
+    left = stop_started_processes()
+    if left:
+        raise RuntimeError(f"processes left running after the phases: {left}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"
@@ -3673,6 +4298,12 @@ def main():
            "launches": int_launches[name], **int_entries[name]}
           for name, line in (("int8_tile_max", 111), ("int_groupmax", 160))),
     ]
+    for entry in kernels:  # phase 21: its launches, and the kernels held at its shapes
+        entry["launches"] += rest_launches.get(entry["name"], 0)
+        if entry["name"] in rest_shapes:
+            entry["shapes"] = rest_shapes[entry["name"]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(e["max_abs_err"] for e in rest_shapes[entry["name"]]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3681,4 +4312,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_started_processes()
+    sys.exit(rc)

@@ -1,11 +1,13 @@
 """Shared config -> object factories for the port's CLI entry points.
 
 Counterpart of :mod:`dpr_scale_tpu.cli.common`: the dense task (the CLS
-bi-encoder, or SPLADE with ``task.model.family=splade``) and the
-multi-vector task (``task.type=multivec``). The tokenizer and the
-datamodule are the port's copies of the JAX package's
-(``dpr_scale_tpu_torch.data``); batches come out as numpy and the task
-copies them to its device.
+bi-encoder, or SPLADE with ``task.model.family=splade``), the multi-vector
+task (``task.type=multivec``) and the distillation task
+(``task.type=distill``). The encode / retrieve / serve CLIs build the model
+of ``task.model.family`` (:func:`build_biencoder`), as the JAX CLIs do
+through their task. The tokenizer and the datamodules are the port's copies
+of the JAX package's (``dpr_scale_tpu_torch.data``); batches come out as
+numpy and the task copies them to its device.
 """
 from __future__ import annotations
 
@@ -14,13 +16,14 @@ import warnings
 
 import torch
 
-from dpr_scale_tpu_torch.data.datamodule import DenseRetrieverDataModule
+from dpr_scale_tpu_torch.data.datamodule import DenseRetrieverDataModule, DistillDataModule
 from dpr_scale_tpu_torch.data.tokenize import HFTokenizer
 from dpr_scale_tpu_torch.models.convert import init_params
-from dpr_scale_tpu_torch.models.encoder import BiEncoder
+from dpr_scale_tpu_torch.models.encoder import BiEncoder, SpladeBiEncoder
 from dpr_scale_tpu_torch.models.transformer import TransformerConfig
 from dpr_scale_tpu_torch.optim.factory import make_optimizer
 from dpr_scale_tpu_torch.train.checkpoint import load_params
+from dpr_scale_tpu_torch.train.distill import DPRDistillTask
 from dpr_scale_tpu_torch.train.multivec import MultiVecRetrieverTask
 from dpr_scale_tpu_torch.train.schedule import linear_warmup_decay
 from dpr_scale_tpu_torch.train.task import DenseRetrieverTask
@@ -97,14 +100,18 @@ def check_vocab_compat(tokenizer, model_cfg) -> None:
         )
 
 
-def load_weights(model: torch.nn.Module, cfg, seed: int = 0) -> torch.nn.Module:
-    """``model`` with the params export ``task.checkpoint_path`` (a
+def load_weights(model: torch.nn.Module, cfg, seed: int = 0,
+                 state_dict=None) -> torch.nn.Module:
+    """``model`` with ``state_dict`` where one is given (e.g. dequantized
+    weights), else with the params export ``task.checkpoint_path`` (a
     ``train.checkpoint.save_params`` directory or a bridged ``.npz``; a path
     that is missing, unreadable or of another model raises), or, when the
     key is unset, with weights drawn from ``seed`` with the JAX init's
     distributions (``models.convert.init_params``) and a warning."""
     path = cfg.task.get("checkpoint_path")
-    if path:
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    elif path:
         model.load_state_dict(load_params(path))
         print(f"Loaded params from {path}")
     else:
@@ -117,16 +124,18 @@ def load_weights(model: torch.nn.Module, cfg, seed: int = 0) -> torch.nn.Module:
     return model
 
 
-def build_biencoder(cfg, device, seed: int = 0) -> BiEncoder:
-    """The task's BiEncoder on ``device`` in eval mode, its weights from
+def build_biencoder(cfg, device, seed: int = 0, state_dict=None):
+    """The bi-encoder of ``task.model.family`` (``SpladeBiEncoder``'s
+    vocab-sized vectors for ``splade``, the CLS ``BiEncoder`` otherwise) on
+    ``device`` in eval mode, its weights from ``state_dict``,
     ``task.checkpoint_path`` or ``seed`` (:func:`load_weights`)."""
     t = cfg.task
-    model = BiEncoder(
-        build_model_config(cfg),
-        projection_dim=t.model.get("projection_dim", 0),
-        shared=t.get("shared_model", True),
-    )
-    return load_weights(model, cfg, seed).to(device).eval()
+    if t.model.get("family", "dense") == "splade":
+        model = SpladeBiEncoder(build_model_config(cfg), shared=t.get("shared_model", True))
+    else:
+        model = BiEncoder(build_model_config(cfg), projection_dim=t.model.get("projection_dim", 0),
+                          shared=t.get("shared_model", True))
+    return load_weights(model, cfg, seed, state_dict).to(device).eval()
 
 
 def build_lr_schedule(cfg, total_steps: int):
@@ -150,14 +159,17 @@ def build_optimizer(cfg, total_steps: int):
 
 
 def build_task(cfg, optimizer, device):
-    """The task of ``task.type``: dense (default) or multivec, with every
-    key the JAX registry reads; distill is not ported yet (ROADMAP.md A8)."""
+    """The task of ``task.type``: dense (default), multivec or distill, with
+    every key the JAX registry reads."""
     t = cfg.task
     task_type = t.get("type", "dense")
     if task_type == "distill":
-        raise NotImplementedError(
-            "task.type=distill: the distillation task (DPRDistillTask and its "
-            "datamodule) is not ported yet (ROADMAP.md A8)"
+        return DPRDistillTask(
+            cfg=build_model_config(cfg),
+            projection_dim=t.model.get("projection_dim", 0),
+            k=t.get("k", 1),
+            optimizer=optimizer,
+            device=device,
         )
     if task_type == "multivec":
         return MultiVecRetrieverTask(
@@ -199,18 +211,22 @@ def build_task(cfg, optimizer, device):
     )
 
 
-def refuse_worker_processes(cfg) -> None:
-    if cfg.datamodule.get("num_workers", 0):
-        raise NotImplementedError(
-            "datamodule.num_workers > 0: the port builds batches on one "
-            "prefetch thread; the JAX package's worker-process pool is not "
-            "ported (ROADMAP.md A8). Set datamodule.num_workers=0"
-        )
-
-
-def build_datamodule(cfg, tokenizer: HFTokenizer) -> DenseRetrieverDataModule:
+def build_datamodule(cfg, tokenizer: HFTokenizer):
+    """The datamodule of ``task.type``: the distillation rows for distill,
+    the DPR rows otherwise (``datamodule.num_workers`` worker processes
+    build its batches)."""
     d = cfg.datamodule
-    refuse_worker_processes(cfg)
+    if cfg.task.get("type") == "distill":
+        return DistillDataModule(
+            tokenizer=tokenizer,
+            train_path=d.get("train_path"),
+            val_path=d.get("val_path"),
+            test_path=d.get("test_path"),
+            batch_size=d.get("batch_size", 8),
+            pos_ctx_sample=d.get("pos_ctx_sample", True),
+            drop_last=d.get("drop_last", True),
+            seed=d.get("seed", 0),
+        )
     return DenseRetrieverDataModule(
         tokenizer=tokenizer,
         train_path=d.get("train_path"),
@@ -232,6 +248,7 @@ def build_datamodule(cfg, tokenizer: HFTokenizer) -> DenseRetrieverDataModule:
         drop_last=d.get("drop_last", True),
         seed=d.get("seed", 0),
         prefetch_batches=d.get("prefetch_batches", 2),
+        num_workers=d.get("num_workers", 0),
         contiguous_chunks=d.get("contiguous_chunks", 0),
         query_max_seq_len=d.get("query_max_seq_len"),
         ctx_max_seq_len=d.get("ctx_max_seq_len"),

@@ -29,7 +29,6 @@ from dpr_scale_tpu_torch.cli.common import (
     build_tokenizer,
     check_vocab_compat,
     load_weights,
-    refuse_worker_processes,
 )
 from dpr_scale_tpu_torch.config import load_config
 from dpr_scale_tpu_torch.data.datamodule import PassagesDataModule, contiguous_shard
@@ -78,13 +77,13 @@ def main(argv=None):
     check_vocab_compat(tokenizer, build_model_config(cfg))
     model = build_multivec_model(cfg, device)
     d = cfg.datamodule
-    refuse_worker_processes(cfg)
     dm = PassagesDataModule(
         tokenizer,
         d["passages_path"],
         batch_size=d.get("encode_batch_size", 64),
         use_title=d.get("use_title", True),
         sep_token=d.get("sep_token"),
+        num_workers=d.get("num_workers", 0),
     )
     shard = cfg.task.get("shard", 0)
     num_shards = cfg.task.get("num_shards", 1)
@@ -96,11 +95,14 @@ def main(argv=None):
     index = InvertedExpertIndex(dim=dim, num_docs=len(dm))
     row_cursor = rows.start
     threshold = cfg.task.get("weight_threshold", 0.0)
-    for batch in dm.batches(shard, num_shards):
-        out = encode_batch(model, batch, device, topk, add_cls)
-        n = len(out["attention_mask"])
-        index.add_batch(range(row_cursor, row_cursor + n), out, threshold)
-        row_cursor += n
+    try:
+        for batch in dm.batches(shard, num_shards):
+            out = encode_batch(model, batch, device, topk, add_cls)
+            n = len(out["attention_mask"])
+            index.add_batch(range(row_cursor, row_cursor + n), out, threshold)
+            row_cursor += n
+    finally:
+        dm.close()
 
     index.finalize(quantizer=cfg.task.get("quantizer"))
     index.save(cfg.task["ctx_embeddings_dir"], shard_id=shard)

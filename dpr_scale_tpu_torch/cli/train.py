@@ -6,8 +6,9 @@ Usage:
         trainer.max_steps=100 datamodule.batch_size=128
 
 One device. ``task.type`` dense (the CLS bi-encoder, or SPLADE with
-``task.model.family=splade``) or multivec (CITADEL / COIL / ColBERT, e.g.
-``--config conf/citadel.yaml``). Weights start from ``init_params`` (seed
+``task.model.family=splade``), multivec (CITADEL / COIL / ColBERT, e.g.
+``--config conf/citadel.yaml``) or distill (a query encoder regressing onto
+teacher vectors, ``--config conf/distill.yaml``). Weights start from ``init_params`` (seed
 ``seed``, default 0),
 or from the params export ``task.pretrained_checkpoint_path``. With
 ``checkpoint_callback.dirpath`` each validation saves a checkpoint (top
@@ -21,8 +22,8 @@ which ``task.checkpoint_path`` of the encode / retrieve / serve CLIs reads
 ``trainer.profile_dir`` records the training in a torch.profiler trace.
 ``task.grad_cache_chunks``, ``task.model.remat``, ``task.optim.name``
 (adamw, adam, lamb, madgrad) and ``trainer.accumulate_grad_batches`` train
-as in the JAX CLI. More than one device (``trainer.num_devices``, ROADMAP
-A5), ``datamodule.num_workers`` (A8) and ``task.type=distill`` (A8) are
+as in the JAX CLI; ``datamodule.num_workers`` worker processes build the
+batches. More than one device (``trainer.num_devices``, ROADMAP A5) is
 refused.
 """
 from __future__ import annotations

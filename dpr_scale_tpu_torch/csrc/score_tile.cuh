@@ -4,7 +4,12 @@
 // score_tile() once per tile and reduces the tile in its own epilogue, so the
 // (B, N) scores never reach device memory.
 //
-// bf16 inputs go through the tensor cores (wmma 16x16x16, fp32 accumulators);
+// bf16 inputs go through the tensor cores (wmma 16x16x16, fp32 accumulators),
+// each KC-column stage summed from zero and added to the running score with
+// fp32 adds on the CUDA cores: the tensor cores' accumulation truncates its
+// addends to the accumulator's exponent, so a sum carried through them over
+// all of D drifts by about (D / 16) x 2^-24 of its size, one-sided (1e-4 at
+// D = 30,522, five times the verified methods' margin, COUNT_MARGIN_REL);
 // fp32 inputs through scalar fmaf on the CUDA cores, never TF32, so an fp32
 // corpus scores as an fp32 matmul does.  Corpus and query slices of KC
 // columns are staged through shared memory; no cp.async/TMA pipelining yet:
@@ -96,14 +101,16 @@ __device__ inline void score_tile(const Smem<T>& sm, const T* cbase, const T* qb
   constexpr int LD = Tile<T>::LD;
   const int tid = threadIdx.x, warp = tid / 32;
   if constexpr (std::is_same<T, bf16>::value) {
-    // warp w: rows [16w, 16w + 16) x all QT queries, 4 accumulator tiles
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[QT / 16];
+    // warp w: rows [16w, 16w + 16) x all QT queries, 4 accumulator tiles;
+    // part: this stage's sums, added into acc with round-to-nearest
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[QT / 16], part[QT / 16];
     for (int j = 0; j < QT / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
     for (int d0 = 0; d0 < D; d0 += KC) {
       __syncthreads();
       stage(sm.c, cbase, r_valid, ROWS, D, d0, vec_ok);
       stage(sm.q, qbase, q_valid, QT, D, d0, vec_ok);
       __syncthreads();
+      for (int j = 0; j < QT / 16; ++j) wmma::fill_fragment(part[j], 0.0f);
       for (int kk = 0; kk < KC / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::load_matrix_sync(fa, sm.c + warp * 16 * LD + kk * 16, LD);
@@ -111,9 +118,12 @@ __device__ inline void score_tile(const Smem<T>& sm, const T* cbase, const T* qb
           // queries row-major (QT, KC) are the column-major (KC, QT) B operand
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
           wmma::load_matrix_sync(fb, sm.q + j * 16 * LD + kk * 16, LD);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+          wmma::mma_sync(part[j], fa, fb, part[j]);
         }
       }
+      // both fragments have one element layout, so they add element by element
+      for (int j = 0; j < QT / 16; ++j)
+        for (int t = 0; t < acc[j].num_elements; ++t) acc[j].x[t] += part[j].x[t];
     }
     for (int j = 0; j < QT / 16; ++j)
       wmma::store_matrix_sync(sm.s + warp * 16 * LDS + j * 16, acc[j], LDS,

@@ -10,10 +10,15 @@ batches (reference: dpr_scale/datamodule/dpr.py:162-479):
   * ``PassagesDataModule`` — corpus TSV -> context batches for embedding
     generation, with contiguous sharding;
   * ``QueriesDataModule`` — query file (CSV answers or TREC TSV) -> query
-    batches for retrieval.
+    batches for retrieval;
+  * ``DistillDataModule`` — JSONL rows with teacher vectors ->
+    distillation batches (``data.distill``).
 
-Batches are built on one background thread (``utils.prefetch``); the JAX
-package's worker-process pool (``num_workers > 0``) is not ported.
+Batches are built on one background thread (``utils.prefetch``), or with
+``num_workers > 0`` in a forkserver pool of worker processes
+(``data.parallel.WorkerPool``), each of which rebuilds a serial datamodule
+from the spec; a batch is a pure function of its key either way, so both
+give the same bytes.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ class DenseRetrieverDataModule:
         contiguous_chunks: int = 0,
         query_max_seq_len: Optional[int] = None,
         ctx_max_seq_len: Optional[int] = None,
+        num_workers: int = 0,
     ):
         self.tokenizer = tokenizer
         corpus = MemoryMappedDataset(corpus_path, header=True) if corpus_path else None
@@ -100,6 +106,23 @@ class DenseRetrieverDataModule:
         self.seed = seed
         self.prefetch_batches = prefetch_batches
         self.contiguous_chunks = contiguous_chunks
+        # workers rebuild this datamodule from the spec below
+        self.num_workers = num_workers
+        self._pool = None
+        self._worker_spec = {
+            "tokenizer": tokenizer.spec,
+            "kwargs": dict(
+                train_path=train_path, val_path=val_path, test_path=test_path,
+                corpus_path=corpus_path, batch_size=batch_size,
+                val_batch_size=val_batch_size, test_batch_size=test_batch_size,
+                num_positive=num_positive, num_negative=num_negative,
+                neg_ctx_sample=neg_ctx_sample, pos_ctx_sample=pos_ctx_sample,
+                num_val_negative=num_val_negative, num_test_negative=num_test_negative,
+                use_title=use_title, sep_token=sep_token, rel_sample=rel_sample,
+                drop_last=drop_last, seed=seed, query_max_seq_len=query_max_seq_len,
+                ctx_max_seq_len=ctx_max_seq_len,
+            ),
+        }
 
         def open_train(path):
             if path is None:
@@ -123,9 +146,9 @@ class DenseRetrieverDataModule:
     def build_batch_for(
         self, stage: str, idx: Sequence[int], reseed=None
     ) -> Dict[str, np.ndarray]:
-        """Assemble one batch by dataset indices. ``reseed`` (a per-batch
-        entropy tuple) pins the sampling RNG so the batch is a pure function
-        of its key — see DPRExampleBuilder.reseed."""
+        """Assemble one batch by dataset indices (also the worker entry).
+        ``reseed`` (a per-batch entropy tuple) pins the sampling RNG so the
+        batch is a pure function of its key — see DPRExampleBuilder.reseed."""
         dataset = {
             "train": self.train_dataset,
             "eval": self.val_dataset,
@@ -136,9 +159,19 @@ class DenseRetrieverDataModule:
         rows = [dataset[int(i)] for i in idx]
         return self.batcher(self.builder.build_batch(rows, stage))
 
+    def _get_pool(self):
+        if self._pool is None:
+            from dpr_scale_tpu_torch.data.parallel import WorkerPool
+
+            self._pool = WorkerPool(self.num_workers, _rebuild_dense_dm, self._worker_spec)
+        return self._pool
+
     def close(self):
-        """Nothing to release: batches are built on a prefetch thread that
-        ends with its iterator (kept for the JAX datamodule's interface)."""
+        """Stop the worker processes, if any (the prefetch thread ends with
+        its iterator)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
     def _batch_indices(self, order, batch_size, stage):
         for lo in range(0, len(order), batch_size):
@@ -152,7 +185,7 @@ class DenseRetrieverDataModule:
     ) -> Iterator[Dict[str, np.ndarray]]:
         stage_id = {"train": 0, "eval": 1, "test": 2}[stage]
 
-        def gen():
+        def keyed_batches():
             # resume support: slice the epoch order at the batch level and
             # offset the position in the RNG key, so batch `start_batch + i`
             # is byte-identical to the unskipped stream without paying
@@ -162,10 +195,17 @@ class DenseRetrieverDataModule:
                 self._batch_indices(sliced, batch_size, stage), start=start_batch
             ):
                 # per-batch RNG key: batch content is a pure function of
-                # (seed, epoch, stage, position)
-                yield self.build_batch_for(
-                    stage, idx, (int(self.seed), int(epoch), stage_id, bi)
-                )
+                # (seed, epoch, stage, position), in the serial and the
+                # worker paths alike
+                yield stage, idx, (int(self.seed), int(epoch), stage_id, bi)
+
+        if self.num_workers > 0:
+            gen = self._get_pool().imap("build_batch_for", keyed_batches())
+            return prefetch(gen, self.prefetch_batches)
+
+        def gen():
+            for args in keyed_batches():
+                yield self.build_batch_for(*args)
 
         return prefetch(gen(), self.prefetch_batches)
 
@@ -220,17 +260,26 @@ class PassagesDataModule:
         use_title: bool = True,
         sep_token: Optional[str] = None,
         prefetch_batches: int = 2,
+        num_workers: int = 0,
     ):
         self.dataset = CSVDataset(passages_path)
         self.batcher = TextBatcher(tokenizer, use_title=use_title, sep_token=sep_token)
         self.batch_size = batch_size
         self.prefetch_batches = prefetch_batches
+        self.num_workers = num_workers
+        self._pool = None
+        self._worker_spec = {
+            "tokenizer": tokenizer.spec,
+            "kwargs": dict(passages_path=passages_path, batch_size=batch_size,
+                           use_title=use_title, sep_token=sep_token),
+        }
 
     def __len__(self):
         return len(self.dataset)
 
     def passages_batch_for(self, lo: int, hi: int) -> Dict[str, np.ndarray]:
-        """Build one padded batch from dataset rows [lo, hi)."""
+        """Build one padded batch from dataset rows [lo, hi) (also the
+        worker entry)."""
         buf = [self.dataset[i] for i in range(lo, hi)]
         pad = self.batch_size - len(buf)
         out = self.batcher.passages(buf + [buf[-1]] * pad if pad else buf)
@@ -238,7 +287,9 @@ class PassagesDataModule:
         return out
 
     def close(self):
-        """Nothing to release (kept for the JAX datamodule's interface)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
     def batches(
         self, shard: int = 0, num_shards: int = 1
@@ -248,6 +299,12 @@ class PassagesDataModule:
             (lo, min(lo + self.batch_size, rows_range.stop))
             for lo in range(rows_range.start, rows_range.stop, self.batch_size)
         ]
+        if self.num_workers > 0:
+            if self._pool is None:
+                from dpr_scale_tpu_torch.data.parallel import WorkerPool
+
+                self._pool = WorkerPool(self.num_workers, _rebuild_passages_dm, self._worker_spec)
+            return prefetch(self._pool.imap("passages_batch_for", spans), self.prefetch_batches)
 
         def gen():
             for lo, hi in spans:
@@ -300,3 +357,91 @@ class QueriesDataModule:
                 yield out
 
         return prefetch(gen(), self.prefetch_batches)
+
+
+class DistillDataModule:
+    """JSONL rows with teacher vectors -> distillation batches (the
+    reference's DPRDistillTransform pipeline); train batches are keyed by
+    (seed, epoch, position), so ``start_batch`` resumes the stream."""
+
+    def __init__(
+        self,
+        tokenizer: HFTokenizer,
+        train_path: Optional[str] = None,
+        val_path: Optional[str] = None,
+        test_path: Optional[str] = None,
+        batch_size: int = 8,
+        pos_ctx_sample: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+        prefetch_batches: int = 2,
+    ):
+        from dpr_scale_tpu_torch.data.distill import DistillBatcher, DistillExampleBuilder
+
+        self.builder = DistillExampleBuilder(pos_ctx_sample=pos_ctx_sample, seed=seed)
+        self.batcher = DistillBatcher(tokenizer)
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch_batches = prefetch_batches
+        opn = lambda p: MemoryMappedDataset(p) if p else None
+        self.train_dataset = opn(train_path)
+        self.val_dataset = opn(val_path)
+        self.test_dataset = opn(test_path)
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.train_dataset)
+        return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+
+    def close(self):
+        """Nothing to release (the prefetch thread ends with its iterator)."""
+
+    def _iter(self, dataset, order, stage, epoch: int = 0, start_batch: int = 0):
+        def gen():
+            sliced = order[start_batch * self.batch_size :]
+            for bi in range(0, len(sliced), self.batch_size):
+                idx = sliced[bi : bi + self.batch_size]
+                if stage == "train" and self.drop_last and len(idx) < self.batch_size:
+                    return
+                # per-batch RNG key: batches are pure functions of their
+                # position, so skipping to start_batch reproduces the stream
+                self.builder.reseed(
+                    (int(self.seed), int(epoch), bi // self.batch_size + start_batch)
+                )
+                rows = [dataset[int(i)] for i in idx]
+                yield self.batcher(self.builder.build_batch(rows, stage))
+
+        return prefetch(gen(), self.prefetch_batches)
+
+    def example_batch(self, stage: str = "train") -> Dict[str, np.ndarray]:
+        dataset = self.train_dataset or self.test_dataset or self.val_dataset
+        rows = [dataset[i % len(dataset)] for i in range(self.batch_size)]
+        return self.batcher(self.builder.build_batch(rows, stage))
+
+    def train_batches(self, epoch: int = 0, start_batch: int = 0):
+        rng = np.random.default_rng(self.seed + epoch)
+        return self._iter(
+            self.train_dataset, rng.permutation(len(self.train_dataset)), "train", epoch,
+            start_batch,
+        )
+
+    def val_batches(self):
+        if self.val_dataset is None:
+            return iter(())
+        return self._iter(self.val_dataset, np.arange(len(self.val_dataset)), "eval")
+
+    def test_batches(self):
+        if self.test_dataset is None:
+            return iter(())
+        return self._iter(self.test_dataset, np.arange(len(self.test_dataset)), "test")
+
+
+def _rebuild_dense_dm(spec: dict) -> DenseRetrieverDataModule:
+    """Worker-side factory: a serial datamodule rebuilt from its spec."""
+    tok = HFTokenizer(**spec["tokenizer"])
+    return DenseRetrieverDataModule(tok, **spec["kwargs"], num_workers=0, prefetch_batches=0)
+
+
+def _rebuild_passages_dm(spec: dict) -> PassagesDataModule:
+    tok = HFTokenizer(**spec["tokenizer"])
+    return PassagesDataModule(tok, **spec["kwargs"], num_workers=0, prefetch_batches=0)

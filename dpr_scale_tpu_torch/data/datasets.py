@@ -1,14 +1,19 @@
 """Memory-mapped random-access datasets over JSONL / TSV files.
 
 The port's copy of the datasets of ``dpr_scale_tpu/data/datasets.py`` that
-its dense train / encode / serve paths and the CITADEL retrieval CLI read
-(reference: dpr_scale/datamodule/dpr.py:23-159):
+its dense train / encode / serve paths, the CITADEL retrieval CLI and the
+rerank CLI read (reference: dpr_scale/datamodule/dpr.py:23-159,
+dpr_scale/datamodule/citadel.py:17-135):
 
   * ``MemoryMappedDataset``      — line-offset random access over an mmap'd file
   * ``MultiSourceDataset``       — sample a random source per index
   * ``CSVDataset``               — TSV with header -> dict rows
   * ``QueryCSVDataset``          — question \\t [answers] eval query files
   * ``QueryTSVDataset``          — TREC-style ``qid \\t query``
+  * ``IDMemoryMappedDataset``, ``IDCSVDataset``, ``QueryTRECDataset`` —
+    rows addressed by the id in their first column
+  * ``TRECCandidateDataset``     — a TREC run joined with its queries and
+    passages (the rerank candidates)
 
 The offset index is a packed ``numpy.uint64`` array (~8 bytes/row), scanned
 by the native C++ scanner (:mod:`dpr_scale_tpu_torch.utils.native`) when it
@@ -184,3 +189,75 @@ class QueryTSVDataset(MemoryMappedDataset):
     def process_line(self, line: bytes) -> Dict[str, str]:
         parts = parse_tsv_line(line.decode("utf-8"))
         return {"id": parts[0], "question": parts[1] if len(parts) > 1 else ""}
+
+
+class IDMemoryMappedDataset(MemoryMappedDataset):
+    """mmap dataset addressable by the id in the row's first column: an id ->
+    row-number map built at init on top of the offset array.
+    Reference behavior: dpr_scale/datamodule/citadel.py:17-52.
+    """
+
+    def __init__(self, path: str, header: bool = False):
+        super().__init__(path, header=header)
+        self._id_to_row: Dict[str, int] = {}
+        for i in range(len(self.offsets)):
+            line = self._line_at(i).decode("utf-8")
+            self._id_to_row[line.split("\t", 1)[0]] = i
+
+    def ids(self):
+        return self._id_to_row.keys()
+
+    def __getitem__(self, key):
+        row = self._id_to_row[key] if isinstance(key, str) else key
+        return super().__getitem__(row)
+
+
+class IDCSVDataset(IDMemoryMappedDataset):
+    """Id-keyed TSV rows with a header (citadel.py:55-80)."""
+
+    def __init__(self, path: str, sep: str = "\t"):
+        self.sep = sep
+        self.columns: List[str] = []
+        super().__init__(path, header=True)
+        if self.header:
+            self.columns = parse_tsv_line(self.header, sep)
+
+    def process_line(self, line: bytes) -> Dict[str, str]:
+        return dict(zip(self.columns, parse_tsv_line(line.decode("utf-8"), self.sep)))
+
+
+class QueryTRECDataset(IDMemoryMappedDataset):
+    """Id-keyed query TSV ``qid \\t query`` (citadel.py:83-110)."""
+
+    def process_line(self, line: bytes) -> Dict[str, str]:
+        parts = parse_tsv_line(line.decode("utf-8"))
+        return {"id": parts[0], "question": parts[1] if len(parts) > 1 else ""}
+
+
+class TRECCandidateDataset:
+    """A TREC run file joined with query and passage datasets for reranking:
+    element ``i`` is the (question, passage) pair of line ``i`` (``qid Q0
+    docid rank score runname``). Reference behavior:
+    dpr_scale/datamodule/citadel.py:113-135 (the intended ``TRECDataset``).
+    """
+
+    def __init__(self, trec_path: str, query_dataset: QueryTRECDataset,
+                 passage_dataset: IDCSVDataset):
+        self.run = MemoryMappedDataset(trec_path)
+        self.queries = query_dataset
+        self.passages = passage_dataset
+
+    def __len__(self) -> int:
+        return len(self.run)
+
+    def __getitem__(self, index: int) -> Dict[str, object]:
+        parts = self.run[index].decode("utf-8").split()
+        qid, docid, rank, score = parts[0], parts[2], parts[3], parts[4]
+        return {
+            "qid": qid,
+            "docid": docid,
+            "rank": int(rank),
+            "score": float(score),
+            "question": self.queries[qid]["question"],
+            "ctx": self.passages[docid],
+        }

@@ -67,6 +67,17 @@ class HFTokenizer:
         return tok
 
     @property
+    def spec(self) -> dict:
+        """Constructor kwargs for rebuilding in a worker process (the
+        wrapper holds a ``threading.local`` and cannot be pickled)."""
+        return {
+            "model_path": self.model_path,
+            "max_seq_len": self.max_seq_len,
+            "add_special_tokens": self.add_special_tokens,
+            "pad_to_multiple": self.pad_to_multiple,
+        }
+
+    @property
     def sep_token(self) -> str:
         return self.tokenizer.sep_token or "[SEP]"
 

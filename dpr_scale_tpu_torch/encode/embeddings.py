@@ -133,7 +133,36 @@ class CorpusEncoder:
         self.device = torch.device(device)
         self.out_dtype = np.dtype(out_dtype)
         self._torch_out = torch.float16 if self.out_dtype == np.float16 else torch.float32
-        self._tower = model.encode_query if use_query_tower else model.encode_context
+        self.exported_meta = None
+        if model is not None:
+            self._tower = model.encode_query if use_query_tower else model.encode_context
+
+    @classmethod
+    def from_exported(cls, exported_path: str, device=None, out_dtype=np.float32) -> "CorpusEncoder":
+        """Drive encoding from an encoder exported by
+        ``utils.export.export_encoder`` (the reference's jit-checkpoint path,
+        dpr_jit_eval_task.py), on the device it was exported on. The
+        program has fixed batch and sequence shapes; batches must match."""
+        from dpr_scale_tpu_torch.utils.export import load_exported_encoder
+
+        program, _params, meta = load_exported_encoder(exported_path)
+        if device is not None and torch.device(device) != torch.device(meta["device"]):
+            raise ValueError(f"{exported_path} was exported on {meta['device']}, not {device}")
+        self = cls(None, meta["device"], out_dtype=out_dtype)
+        shape = (meta["batch_size"], meta["seq_len"])
+
+        def tower(ids, mask):
+            if tuple(ids.shape) != shape:
+                raise ValueError(
+                    f"the exported encoder takes batches of shape {shape}, got "
+                    f"{tuple(ids.shape)}: set the batch size and max_seq_len it was "
+                    "exported with"
+                )
+            return program(ids.to(torch.int32), mask.to(torch.int32))
+
+        self._tower = tower
+        self.exported_meta = meta
+        return self
 
     def encode(self, input_ids, attention_mask) -> torch.Tensor:
         """(B, L) int token ids and mask (numpy or tensors) -> (B, D) embeddings

@@ -15,8 +15,10 @@ Counterpart of :mod:`dpr_scale_tpu.models.multivec` (``MLMHead`` and
 
 The output dicts are the JAX module's: position 0 ([CLS]) dropped from the
 token planes, pad positions zeroed (``expert_repr``) or given expert id -1.
-Submodules carry the Flax names (``transformer``, ``mlm_head.{transform,
-transform_ln,decoder}``, ``tok_project``, ``cls_project``), so
+``CrossEncoder`` scores concatenated (question, passage) pairs for the
+rerank CLI. Submodules carry the Flax names (``transformer``,
+``mlm_head.{transform,transform_ln,decoder}``, ``tok_project``,
+``cls_project``; the cross-encoder's ``pooler`` and ``classifier``), so
 :func:`~dpr_scale_tpu_torch.models.convert.from_jax_params` carries a Flax
 ``MultiVecEncoder`` tree across unchanged and ``init_params`` seeds it.
 """
@@ -34,6 +36,8 @@ from dpr_scale_tpu_torch.models.transformer import (
     LayerNorm,
     TransformerConfig,
     TransformerEncoder,
+    dropout,
+    fold,
 )
 
 VARIANTS = ("citadel", "coil", "colbert", "splade")
@@ -174,3 +178,25 @@ class MultiVecEncoder(nn.Module):
         ret["avg_cond_num_experts"] = router_mask.sum(dim=1).mean()
         ret["avg_marg_num_experts"] = router_mask.amax(dim=0).sum()
         return ret
+
+
+class CrossEncoder(nn.Module):
+    """Question + passage concatenated scoring (the reference's
+    cross_encoder.py:11-26): the transformer's [CLS] -> tanh pooler ->
+    dropout -> classifier; logits in fp32 (the rerank scores their max,
+    cross_encoder_eval_task.py:21-26)."""
+
+    def __init__(self, cfg: TransformerConfig, num_labels: int = 2):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.transformer = TransformerEncoder(cfg)
+        self.pooler = Dense(h, h, cfg.dtype)
+        self.classifier = Dense(h, num_labels, cfg.dtype)
+
+    def forward(self, input_ids, attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None):
+        hidden = self.transformer(input_ids, attention_mask, fold(rng, 0))
+        pooled = torch.tanh(self.pooler(hidden[:, 0]))
+        pooled = dropout(pooled, self.cfg.hidden_dropout, fold(rng, 1))
+        return self.classifier(pooled).float()

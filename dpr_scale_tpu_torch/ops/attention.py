@@ -18,9 +18,14 @@ TPU's PRNG stream by design, as the JAX module's docstring allows.
 * :func:`attention_fwd_kernel`, :func:`attention_bwd_kernel` — the
   hand-written CUDA kernels (``csrc/attention_fwd.cu``,
   ``csrc/attention_bwd.cu``), bf16 only, L <= 512;
+* ``torch.ops.dpr_scale_tpu_torch.attention_fwd`` — the forward as a
+  ``torch.library`` custom op (with a fake kernel for tracing), so that
+  ``torch.export`` keeps it in an exported encoder's graph: a ``ctypes``
+  launch cannot be traced. CPU tensors take the plain version, CUDA tensors
+  launch the kernel or raise;
 * :func:`fused_attention` — differentiable dispatch
-  (:class:`FusedAttention`): CPU tensors take the plain versions, CUDA
-  tensors launch the kernels or raise.
+  (:class:`FusedAttention`, whose forward is that op): CPU tensors take the
+  plain versions, CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -207,6 +212,19 @@ def _dispatch(q, kernel, plain):
     raise ValueError(f"fused_attention: unsupported device {q.device}")
 
 
+@torch.library.custom_op("dpr_scale_tpu_torch::attention_fwd", mutates_args=())
+def attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                     seed: int, rate: float) -> torch.Tensor:
+    """The forward: the kernel on CUDA tensors, the plain version on CPU
+    ones."""
+    return _dispatch(q, attention_fwd_kernel, attention_plain)(q, k, v, bias, seed, rate)
+
+
+@attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v, bias, seed, rate):
+    return torch.empty_like(q)
+
+
 class FusedAttention(torch.autograd.Function):
     """The JAX ``custom_vjp``: saves only q, k, v, bias and the seed, and
     recomputes the softmax and the dropout bits in the backward. The bias
@@ -216,7 +234,7 @@ class FusedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, seed, rate):
         ctx.save_for_backward(q, k, v, bias)
         ctx.seed, ctx.rate = seed, rate
-        return _dispatch(q, attention_fwd_kernel, attention_plain)(q, k, v, bias, seed, rate)
+        return attention_fwd_op(q, k, v, bias, seed, rate)
 
     @staticmethod
     def backward(ctx, g):

@@ -45,8 +45,12 @@ gradients in fp32.
   CPU path and the oracles;
 * :func:`ffn_fwd_kernel`, :func:`ffn_ln_fwd_kernel` — ``csrc/ffn_fwd.cu``,
   bf16 only, H and F multiples of 128;
+* ``torch.ops.dpr_scale_tpu_torch.ffn_ln_fwd`` — the LN-fused forward as a
+  ``torch.library`` custom op (with a fake kernel for tracing), so that
+  ``torch.export`` keeps it in an exported encoder's graph;
 * :func:`fused_ffn`, :func:`fused_ffn_ln` — differentiable dispatch: CPU
-  tensors take the plain versions, CUDA tensors launch the kernel or raise.
+  tensors take the plain versions, CUDA tensors launch the kernel or raise
+  (:class:`FusedFFNLN`'s forward is the op above).
 """
 from __future__ import annotations
 
@@ -243,6 +247,23 @@ class FusedFFN(torch.autograd.Function):
         return dx.to(dt), dw1, db1, dw2, db2, None, None
 
 
+@torch.library.custom_op("dpr_scale_tpu_torch::ffn_ln_fwd", mutates_args=())
+def ffn_ln_fwd_op(r: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, g1: torch.Tensor, be1: torch.Tensor, g2: torch.Tensor,
+                  be2: torch.Tensor, seed: int, rate: float,
+                  eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LN-fused forward, ``(out, x1, pre, z)``: the kernel on CUDA
+    tensors, the plain version on CPU ones."""
+    fwd = _dispatch(r, ffn_ln_fwd_kernel, ffn_ln_fwd_plain)
+    return fwd(r, w1, b1, w2, b2, g1, be1, g2, be2, seed, rate, eps)
+
+
+@ffn_ln_fwd_op.register_fake
+def _ffn_ln_fwd_fake(r, w1, b1, w2, b2, g1, be1, g2, be2, seed, rate, eps):
+    pre = r.new_empty((r.shape[0], w1.shape[1]))
+    return torch.empty_like(r), torch.empty_like(r), pre, torch.empty_like(r)
+
+
 class FusedFFNLN(torch.autograd.Function):
     """The JAX ``custom_vjp`` of ``fused_ffn_ln``: saves r, the weights, the
     LN scales, x1, pre and z; the backward runs LN2, dropout, the FFN and
@@ -251,8 +272,7 @@ class FusedFFNLN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, w1, b1, w2, b2, g1, be1, g2, be2, seed, rate, eps):
         dt = r.dtype
-        fwd = _dispatch(r, ffn_ln_fwd_kernel, ffn_ln_fwd_plain)
-        out, x1, pre, z = fwd(
+        out, x1, pre, z = ffn_ln_fwd_op(
             r.contiguous(), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt), g1.float(),
             be1.float(), g2.float(), be2.float(), seed, rate, eps,
         )

@@ -65,7 +65,7 @@ class Trainer:
         for epoch in range(start_epoch, self.max_epochs):
             batches, skip = self.dm.train_batches(epoch, start_batch=skip), 0
             for batch in batches:
-                examples += len(batch["pos_ctx_indices"])
+                examples += len(batch.get("pos_ctx_indices", batch["query_ids"]))
                 state, metrics = self.task.train_step(
                     state, self.task.to_device(batch), float(epoch)
                 )

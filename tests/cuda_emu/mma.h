@@ -1,6 +1,8 @@
 // nvcuda::wmma on the host (cuda_emu.h), for score_tile.cuh's bf16 tiles:
-// every lane of a warp holds the whole 16 x 16 fragment and computes the
-// whole product (fp32 sums of exact bf16 products); lane 0 stores it.
+// every lane of a warp holds the whole 16 x 16 fragment (row-major in
+// x[num_elements], so two accumulators add element by element as on the
+// card) and computes the whole product (fp32 sums of exact bf16 products);
+// lane 0 stores it.
 #pragma once
 
 #include "cuda_emu.h"
@@ -17,7 +19,8 @@ enum layout_t { mem_row_major, mem_col_major };
 
 template <typename Use, int M, int N, int K, typename T, typename Layout = void>
 struct fragment {
-  float x[16][16];  // (row, column) of the fragment's matrix
+  static constexpr int num_elements = 256;
+  float x[num_elements];  // (row, column) of the fragment's matrix at row * 16 + column
 };
 
 template <typename Use, typename T, typename Layout>
@@ -25,13 +28,12 @@ inline void load_matrix_sync(fragment<Use, 16, 16, 16, T, Layout>& f, const __nv
                              unsigned ld) {
   for (int r = 0; r < 16; ++r)
     for (int c = 0; c < 16; ++c)
-      f.x[r][c] = __bfloat162float(std::is_same<Layout, col_major>::value ? p[c * ld + r]
-                                                                          : p[r * ld + c]);
+      f.x[r * 16 + c] = __bfloat162float(std::is_same<Layout, col_major>::value ? p[c * ld + r]
+                                                                                : p[r * ld + c]);
 }
 
 inline void fill_fragment(fragment<accumulator, 16, 16, 16, float>& f, float v) {
-  for (auto& row : f.x)
-    for (float& e : row) e = v;
+  for (float& e : f.x) e = v;
 }
 
 template <typename LA, typename LB>
@@ -43,8 +45,8 @@ inline void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
   for (int r = 0; r < 16; ++r)
     for (int n = 0; n < 16; ++n) {
       double acc = 0.0;
-      for (int k = 0; k < 16; ++k) acc += (double)a.x[r][k] * b.x[k][n];
-      out.x[r][n] = c.x[r][n] + (float)acc;
+      for (int k = 0; k < 16; ++k) acc += (double)a.x[r * 16 + k] * b.x[k * 16 + n];
+      out.x[r * 16 + n] = c.x[r * 16 + n] + (float)acc;
     }
   d = out;
 }
@@ -53,7 +55,7 @@ inline void store_matrix_sync(float* p, const fragment<accumulator, 16, 16, 16, 
                               unsigned ld, layout_t) {
   if (emu_lane() == 0)
     for (int r = 0; r < 16; ++r)
-      for (int c = 0; c < 16; ++c) p[r * ld + c] = f.x[r][c];
+      for (int c = 0; c < 16; ++c) p[r * ld + c] = f.x[r * 16 + c];
   __syncwarp();
 }
 

@@ -877,3 +877,31 @@ def test_quantised_search_launches_the_kernel_and_equals_plain(cuda_device, meth
     for row in range(len(queries)):
         above = s[row] > s[row, -1]  # rows tied with the k-th may differ
         assert set(i[row][above]) == set(wi[row][above])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense_non_negative", "normal"])
+def test_score_tile_counts_at_splade_width_equal_plain(cuda_device, kind):
+    """D = 30,522 (SPLADE's vocab, not a multiple of 8: the score-tile
+    route): the counts equal plain wherever the threshold is clear of every
+    score by twice COUNT_MARGIN_REL x |tau|. Carried through the tensor
+    cores over all of D, the sums drifted ~1e-4 of their size, one-sided,
+    and every count of dense non-negative vectors differed; each 64-column
+    stage now adds into the running sum with fp32 adds."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, N, D, k, margin = 64, 1280, 30522, 100, 2e-5
+
+    def make(n):
+        x = torch.randn(n, D, generator=g, device=cuda_device)
+        return torch.relu(x) * 2 + 0.1 * (x > 0) if kind == "dense_non_negative" else x
+
+    q, c = make(B).to(torch.bfloat16), make(N).to(torch.bfloat16)
+    best = torch.topk(q.float() @ c.float().T, k + 1, dim=1).values
+    tau = ((best[:, k - 1] + best[:, k]) / 2).contiguous()
+    clear = (best[:, k - 1] - best[:, k]) > 2 * margin * tau.abs()
+    out = mips_kernels.count_above_kernel(q, c, tau)
+    torch.cuda.synchronize()
+    assert mips_kernels.count_above_kernel.launches_by_route["score_tile"] > 0
+    ref = mips_kernels.count_above_plain(q, c, tau)
+    assert clear.sum() > B // 2 and (ref[clear] == k).all()
+    torch.testing.assert_close(out[clear], ref[clear], atol=0, rtol=0)
