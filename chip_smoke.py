@@ -227,6 +227,24 @@ save, a resume and an export into encoding and retrieval. Phases:
      held there on that path's vectors and on random mixed-sign ones. Each
      main-path run with the counts
      set to 0 just before it and read just after.
+ 22. the index store, the host tiers and data-parallel training
+     (phase_scale): (a) the four bf16 sweeps at D = 30,528 on the wgmma
+     route (each 64-column stage's sums promoted into fp32 adds past 1,536
+     columns) on dense non-negative and normal vectors, clear counts equal to
+     plain, tile and group maxima against fp64 beside cuBLAS's, the kernels
+     timed there; (b) 4,194,304 x 768 seeded fp16 shards, build_int8_store,
+     a fresh int8 MipsIndex filled by load_int8_store with half the rows on
+     the device and half streamed from the host: the cold start (load and
+     the first search of 1,024 questions at k = 100, B = 256) against
+     building the index from the shards, q/s streamed against all blocks on
+     the device, the card's busy share while streaming, the peak memory;
+     the streamed top-100 equal to the all-on-device one; fused and groupmax
+     with every block host-resident equal to a brute force; (c) cli.train on
+     conf/nq.yaml at batch 256 under GradCache c = 2, without a process
+     group and in a world-size-1 NCCL group with trainer.strategy=
+     ddp_sharded (ZeRO-1): the same losses and parameters, and the ZeRO-1
+     checkpoint loaded without a group; (d) cli.sweep over two one-step
+     runs. Each main-path run counted alone.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -3640,11 +3658,12 @@ class _RestRuns:
     dropout); ``needs`` names the kernels (or tuples, one of which
     suffices) the run must launch."""
 
-    def __init__(self):
+    def __init__(self, counters=None, prefix="rest"):
         self.by_run, self.missing = {}, []
+        self.counters, self.prefix = counters or _rest_counters, prefix
 
     def __call__(self, label, fn, needs=()):
-        counters = _rest_counters()
+        counters = self.counters()
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         t0 = time.perf_counter()
@@ -3654,7 +3673,7 @@ class _RestRuns:
             launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
             launches["attention_fwd"] -= launches["attention_fwd_dropout"]
             self.by_run[label] = launches
-            print(f"rest {label}: {time.perf_counter() - t0:.2f} s wall; launches "
+            print(f"{self.prefix} {label}: {time.perf_counter() - t0:.2f} s wall; launches "
                   f"{ {k: v for k, v in launches.items() if v} }")
             for k in needs:
                 names = (k,) if isinstance(k, str) else k
@@ -3662,7 +3681,7 @@ class _RestRuns:
                     self.missing.append(f"{label}: {'/'.join(names)}")
 
     def total(self):
-        return {k: sum(r[k] for r in self.by_run.values()) for k in _rest_counters()}
+        return {k: sum(r[k] for r in self.by_run.values()) for k in self.counters()}
 
 
 class _EncodeTimer:
@@ -4151,6 +4170,360 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
     return total, shapes
 
 
+# phase 22 (phase_scale): the slice that ports the index store, the host
+# tiers and data-parallel training (ROADMAP A1, A5), after the wgmma sweeps'
+# two-level sums (C11). (a) The four bf16 sweeps at D = WIDE_D (a multiple
+# of 8: the wgmma route, which promotes each 64-column stage's sums past
+# 1,536 columns) on dense non-negative and on normal vectors: clear counts
+# equal plain, maxima against fp64 beside cuBLAS's, then the kernels timed
+# there. (b) STREAM_ROWS x 768 rows (phase 16's geometry) of seeded fp16
+# shards: build_int8_store, then a fresh MipsIndex filled by load_int8_store
+# with device_rows half the rows (half the blocks streamed from the host),
+# the first search of STREAM_QUERIES questions at k = RETRIEVAL_K, batches
+# of STREAM_BATCH; cold start against building the index from the shards;
+# q/s streamed against all blocks on the device; the card's busy share in
+# the streamed search; peak device memory; fused and groupmax with every
+# block host-resident against a brute force. (c) cli.train on conf/nq.yaml
+# at phase 19's batch under GradCache with trainer.strategy=ddp_sharded, in
+# a world-size-1 NCCL group (DPR_* variables), against the same run
+# without a group: the same losses and parameters, and its ZeRO-1
+# checkpoint loaded without a group. (d) cli.sweep over two one-step runs.
+# The cut: the corpus (the JAX tool's 21M rows need ~64 GB of fp32 shards
+# and 16 GB of store), the steps. Two ranks need two cards: their parity
+# is a CPU test (tests/test_torch_data_parallel.py).
+WIDE_D = 30528
+WIDE_ROWS, WIDE_TIMED_ROWS, WIDE_BATCH = 4096, 65536, 256
+STREAM_ROWS, STREAM_SHARD_ROWS, STREAM_DIM = 1 << 22, 1 << 20, 768
+STREAM_QUERIES, STREAM_BATCH = 1024, 256
+DP_BATCH, DP_STEPS, DP_LR, DP_WARMUP = 256, 3, 1e-5, 2
+DP_OVERRIDES = (*NQ_OWN, "task.grad_cache_chunks=2")
+SWEEP_BATCH, SWEEP_LAYERS = 16, 2  # the sweep's runs: bert_base's width, 2 layers
+
+
+def _scale_counters():
+    """{name: (wrapper object, count attribute)} of phase 22's kernels."""
+    from dpr_scale_tpu_torch.ops import attention
+    from dpr_scale_tpu_torch.ops import int_kernels as ik
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    return {"attention_fwd": (attention.attention_fwd_kernel, "launches"),
+            "attention_fwd_dropout": (attention.attention_fwd_kernel, "dropout_launches"),
+            "attention_bwd": (attention.attention_bwd_kernel, "launches"),
+            "count_above_groups": (mk.count_above_groups_kernel, "launches"),
+            "groupmax": (mk.groupmax_kernel, "launches"),
+            "int_groupmax": (ik.int_groupmax_kernel, "launches")}
+
+
+def _search_all(index, q, batch, k):
+    """Every batch of ``q`` searched; (scores, rows) numpy, stacked."""
+    import numpy as np
+
+    parts = [index.search(q[lo : lo + batch], k) for lo in range(0, q.shape[0], batch)]
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+def _as_ctxs(scores, rows):
+    return [[{"id": str(int(r)), "score": float(s)} for s, r in zip(ss, rr)]
+            for ss, rr in zip(scores, rows)]
+
+
+def _wide_sweeps(dev, card, shape):
+    """Phase 22 (a): C11's sweeps at D = WIDE_D."""
+    import torch
+
+    from dpr_scale_tpu_torch.tools import sweep_accuracy
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    for kind in ("dense_nonneg", "normal"):
+        before = _route_delta({})
+        got = sweep_accuracy.case(kind, WIDE_BATCH, WIDE_ROWS, WIDE_D, RETRIEVAL_K, g, dev)
+        routes = _route_delta(before)
+        print(f"scale (a) D = {WIDE_D} {kind}, B = {WIDE_BATCH}, N = {WIDE_ROWS}: {json.dumps(got)}; "
+              f"routes {routes}; {card}")
+        if got["route"] != "wgmma" or any(r.get("score_tile") for r in routes.values()):
+            raise AssertionError(f"the D = {WIDE_D} sweeps left the wgmma route: {routes}")
+        if got["clear_counts_differing"] or got["clear_group_counts_differing"]:
+            raise AssertionError(f"D = {WIDE_D} {kind}: counts differ from plain at clear "
+                                 "thresholds")
+        if got["tile_max_err_kernel"] > 8 * got["tile_max_err_plain"] + MAX_REL * got["max_score"]:
+            raise AssertionError(f"D = {WIDE_D} {kind}: tile maxima {got['tile_max_err_kernel']} "
+                                 f"from fp64, cuBLAS {got['tile_max_err_plain']}")
+    torch.cuda.empty_cache()
+    what = f"B={WIDE_BATCH} N={WIDE_TIMED_ROWS} D={WIDE_D} bf16"
+    shape("count_above_groups", what, phase_count(dev, cases=((WIDE_BATCH, WIDE_TIMED_ROWS,
+                                                                WIDE_D),)))
+    for name, entry in phase_mips_kernels(dev, cases=(
+            (WIDE_BATCH, WIDE_TIMED_ROWS, WIDE_D, "bfloat16", 4096, True),)).items():
+        shape(name, what, entry)
+
+
+def _write_stream_shards(embs, n_rows, shard_rows, dim, dev):
+    """Seeded normal rows as fp16 ``reps_*.npy`` shards, made on ``dev``."""
+    import numpy as np
+    import torch
+
+    os.makedirs(embs, exist_ok=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    for i, lo in enumerate(range(0, n_rows, shard_rows)):
+        n = min(shard_rows, n_rows - lo)
+        np.save(f"{embs}/reps_{i:04}.npy",
+                torch.randn(n, dim, generator=g, device=dev).half().cpu().numpy())
+
+
+def _stream(work, dev, card, runs, n_rows, shard_rows, dim, n_queries, batch, k):
+    """Phase 22 (b): the store, cold start and streaming."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.index import store
+    from dpr_scale_tpu_torch.index.mips import HostBlock, MipsIndex
+    from dpr_scale_tpu_torch.retrieve.retrieval import build_index
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    embs, st = f"{work}/stream_embs", f"{work}/stream_store"
+    t0 = time.perf_counter()
+    _write_stream_shards(embs, n_rows, shard_rows, dim, dev)
+    t_write = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(SEED + 63)
+    q = torch.randn(n_queries, dim, generator=g, device=dev)
+    t0 = time.perf_counter()
+    manifest = store.build_int8_store(embs, st, max_block_rows=shard_rows)
+    t_store = time.perf_counter() - t0
+    n_pad = manifest["blocks"][0]["n_pad"]
+    half = n_pad * (len(manifest["blocks"]) // 2)
+    warm = MipsIndex(dev, method="int8")  # the first search's one-time costs, paid here
+    warm.add(np.zeros((2048, dim), np.float32))
+    warm.search(q[:batch], k)
+    del warm
+
+    def cold(label, make):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = make()
+        sync()
+        t_load = time.perf_counter() - t0
+        out = runs(label, lambda: _search_all(index, q, batch, k), needs=("int_groupmax",))
+        sync()
+        return index, out, t_load, time.perf_counter() - t0
+
+    streamed, (s_str, i_str), load_str, first_str = cold("b store, half streamed, first search",
+        lambda: _load(MipsIndex(dev, method="int8"), st, half))
+    on_host = [isinstance(b, HostBlock) for b, _n, _o in streamed._blocks]
+    if on_host.count(True) != len(manifest["blocks"]) - half // n_pad:
+        raise AssertionError(f"device_rows={half}: host blocks {on_host}")
+    built, (s_b, i_b), load_b, first_b = cold(
+        "b from the shards, first search", lambda: build_index(embs, dev, method="int8",
+                                                               max_block_rows=shard_rows))
+    del built
+    resident = _load(MipsIndex(dev, method="int8"), st, None)
+    s_dev, i_dev = _search_all(resident, q, batch, k)
+    _same_topk("streamed int8 vs all on the device", _as_ctxs(s_str, i_str), s_dev, i_dev)
+    _same_topk("store vs built from the shards", _as_ctxs(s_b, i_b), s_dev, i_dev)
+
+    def rate(index):
+        ticks = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            _search_all(index, q, batch, k)
+            sync()
+            ticks.append(time.perf_counter() - t0)
+        return statistics.median(ticks)
+
+    t_dev = rate(resident)
+    del resident
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_str = rate(streamed)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    host = [b for b, _n, _o in streamed._blocks if isinstance(b, HostBlock)]
+    t0 = time.perf_counter()
+    for b in host:  # the uploads alone, one after another
+        streamed._stream.take(streamed._stream.start(b), b)
+    sync()
+    t_up = time.perf_counter() - t0
+    # per query batch (each search call uploads every host block once): the
+    # busy share is the resident search's share of the streamed one (the
+    # uploads' copies run on their own engine); "hidden" is the share of the
+    # shorter of upload and search that overlapped the other (0: serial)
+    n_batches = -(-n_queries // batch)
+    t_dev_b, t_str_b = t_dev / n_batches, t_str / n_batches
+    busy = min(t_dev_b / t_str_b, 1.0)
+    hidden = max(0.0, t_dev_b + t_up - t_str_b) / max(min(t_dev_b, t_up), 1e-9)
+    host_bytes = sum(b.rows.nbytes + b.row_scales.nbytes + b.col_scales.nbytes for b in host)
+    print(f"scale (b) {n_rows} x {dim} rows in {len(manifest['blocks'])} blocks of {n_pad}: "
+          f"shards written in {t_write:.2f} s, build_int8_store {t_store:.2f} s; cold start "
+          f"(load_int8_store with device_rows={half}, then the first {n_queries} questions at "
+          f"k={k}, B={batch}): {load_str:.3f} s load + {first_str - load_str:.3f} s search = "
+          f"{first_str:.3f} s, against build_index from the shards {load_b:.3f} s + "
+          f"{first_b - load_b:.3f} s = {first_b:.3f} s; warm search {n_queries / t_str:.1f} q/s "
+          f"streamed ({len(host)} of {len(manifest['blocks'])} blocks from the host), "
+          f"{n_queries / t_dev:.1f} q/s all on the device; per batch of {batch}: streamed "
+          f"{t_str_b * 1e3:.2f} ms, all on the device {t_dev_b * 1e3:.2f} ms, the host blocks' "
+          f"uploads alone {t_up * 1e3:.2f} ms ({host_bytes / t_up / 1e9:.2f} GB/s, staged "
+          f"from a warm page cache); busy share of the streamed search (resident / streamed) "
+          f"{busy:.3f}, overlap {min(hidden, 1.0):.3f} of the shorter of upload and search; peak "
+          f"device memory of the streamed search {peak:.2f} GiB; streamed top-{k} equal to "
+          f"all-on-device; {card}")
+    del streamed
+    # fused and groupmax with every block host-resident, against a brute force
+    rows = torch.cat([torch.from_numpy(np.load(f"{embs}/{n}")).to(dev, torch.bfloat16)
+                      for n in sorted(os.listdir(embs))])
+    for method in ("fused", "groupmax"):
+        index = build_index(embs, dev, method=method, host_resident=True,
+                            max_block_rows=shard_rows)
+        need = "count_above_groups" if method == "fused" else "groupmax"
+        t0 = time.perf_counter()
+        s, i = runs(f"b host-resident {method}", lambda: _search_all(index, q, batch, k),
+                    needs=(need,))
+        sync()
+        wall = time.perf_counter() - t0
+        check_exact(_rows_index(rows, torch.bfloat16), q, _as_ctxs(s, i), k)
+        print(f"scale (b) host-resident {method}, {n_rows} rows bf16 streamed: "
+              f"{n_queries / wall:.1f} q/s (first search), top-{k} equal to a brute force, "
+              f"fallbacks {index.last_repair}; {card}")
+        del index
+    del rows
+    shutil.rmtree(embs, ignore_errors=True)
+    shutil.rmtree(st, ignore_errors=True)
+
+
+def _load(index, st, device_rows):
+    from dpr_scale_tpu_torch.index import store
+
+    store.load_int8_store(index, st, device_rows=device_rows)
+    return index
+
+
+def _train_dp(work, dev, card, runs, batch, steps, extra):
+    """Phase 22 (c): cli.train with and without a world-size-1 group."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.cli import train
+    from dpr_scale_tpu_torch.train.checkpoint import CheckpointManager
+
+    tok_dir, _gold = write_keyed_data(work, batch * steps, 8, min(OWN_VAL_ROWS, batch * steps))
+    base = ["--config", os.path.join(ROOT, "conf", "nq.yaml"), "--device", str(dev),
+            f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
+            f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
+            f"datamodule.batch_size={batch}", f"trainer.max_steps={steps}", "trainer.log_every=1",
+            f"task.optim.lr={DP_LR}", f"task.warmup_steps={DP_WARMUP}", *DP_OVERRIDES, *extra]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    walls = {}
+    for name, env, more in (("plain", {}, []),
+                            ("nccl", {"DPR_COORDINATOR": f"127.0.0.1:{port}",
+                                      "DPR_NUM_PROCESSES": "1", "DPR_PROCESS_ID": "0"},
+                             ["trainer.strategy=ddp_sharded"])):
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            runs(f"c cli.train {name}", lambda: train.main(base + more + [
+                f"trainer.metrics_jsonl={work}/{name}.jsonl",
+                f"checkpoint_callback.dirpath={work}/ckpt_{name}"]),
+                needs=("attention_fwd_dropout", "attention_bwd"))
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+        walls[name] = time.perf_counter() - t0
+    if torch.distributed.is_initialized():
+        raise AssertionError("cli.train left its process group running")
+    logs = {}
+    for name in walls:
+        with open(f"{work}/{name}.jsonl") as f:
+            logs[name] = [json.loads(l)["train_loss"] for l in f if "train_loss" in l]
+    states = {name: CheckpointManager(f"{work}/ckpt_{name}").restore_last() for name in walls}
+    # the ZeRO-1 run's checkpoint, loaded into a state built without a group
+    from dpr_scale_tpu_torch.cli.common import build_optimizer, build_task
+    from dpr_scale_tpu_torch.config import load_config
+
+    cfg = load_config(base[1], base[4:])
+    task = build_task(cfg, build_optimizer(cfg, steps), dev)
+    state = task.init_state(0)
+    state.load_state_dict(states["nccl"])
+    diffs = [(states["nccl"]["params"][n] - states["plain"]["params"][n]).abs()
+             for n in states["plain"]["params"]]
+    max_diff = max(d.max().item() for d in diffs)
+    n_diff = sum(int((d > 0).sum()) for d in diffs)
+    n_all = sum(d.numel() for d in diffs)
+    moments = max((states["nccl"]["mu"][n] - states["plain"]["mu"][n]).abs().max().item()
+                  for n in states["plain"]["mu"])
+    print(f"scale (c) cli.train conf/nq.yaml, batch {batch}, {steps} steps, "
+          f"{' '.join(DP_OVERRIDES)}: without a group {walls['plain']:.2f} s wall, losses "
+          f"{logs['plain']}; NCCL world size 1 with trainer.strategy=ddp_sharded "
+          f"{walls['nccl']:.2f} s, losses {logs['nccl']}; parameters after {steps} steps: "
+          f"{n_diff} of {n_all} differ, max |diff| {max_diff:.3g} (lr {DP_LR}); first "
+          f"moments max |diff| {moments:.3g}; the ZeRO-1 checkpoint (step "
+          f"{states['nccl']['step']}) loads without a group; {card}")
+    if len(logs["nccl"]) != steps or not np.allclose(logs["nccl"], logs["plain"], rtol=1e-3):
+        raise AssertionError(f"NCCL run losses {logs['nccl']} vs {logs['plain']}")
+    if max_diff > 2 * steps * DP_LR or n_diff > 1e-3 * n_all:
+        raise AssertionError(f"NCCL run's parameters differ from the plain run's: max "
+                             f"{max_diff}, {n_diff} of {n_all}")
+    if "zero1_owner" in states["nccl"]:
+        raise AssertionError("the ZeRO-1 checkpoint kept its partition map")
+    return tok_dir
+
+
+def _sweep_runs(work, dev, card, tok_dir, batch, extra):
+    """Phase 22 (d): cli.sweep over two one-step runs of ``batch`` queries."""
+    from dpr_scale_tpu_torch.cli import sweep
+
+    t0 = time.perf_counter()
+    results = sweep.main([
+        "--config", os.path.join(ROOT, "conf", "nq.yaml"), "--sweep-dir", f"{work}/sweep",
+        "--device", str(dev), "task.optim.lr=1e-5,2e-5", f"task.transform.model_path={tok_dir}",
+        f"datamodule.train_path={work}/train.jsonl", f"datamodule.val_path={work}/val.jsonl",
+        f"datamodule.test_path={work}/val.jsonl", f"datamodule.batch_size={batch}",
+        "trainer.max_steps=1", f"task.model.num_layers={SWEEP_LAYERS}", *NQ_OWN, *extra])
+    wall = time.perf_counter() - t0
+    with open(f"{work}/sweep/best.json") as f:
+        best = json.load(f)
+    print(f"scale (d) cli.sweep over {len(results)} one-step runs of batch {batch} "
+          f"({SWEEP_LAYERS} layers): "
+          f"{wall:.2f} s (each its own cli.train process); metrics "
+          f"{[round(m['mrr'], 4) if m else None for _i, _o, m in results]}; best run "
+          f"{best['run']}; {card}")
+    if len(results) != 2 or not all(m and "mrr" in m for _i, _o, m in results):
+        raise AssertionError(f"a sweep run failed: {results}")
+
+
+def phase_scale(work, dev, card="", n_rows=STREAM_ROWS, shard_rows=STREAM_SHARD_ROWS,
+                dim=STREAM_DIM, n_queries=STREAM_QUERIES, batch=STREAM_BATCH,
+                dp_batch=DP_BATCH, dp_steps=DP_STEPS, extra=(), sweep_extra=()):
+    """Phase 22 on ``dev`` (see the comment above): (a) on the card only,
+    (b) the store and the host tiers, (c) world-size-1 data-parallel
+    training, (d) the sweep driver. The other arguments only shrink it for
+    a rehearsal on the CPU. Returns (the main path's launches, the new
+    shapes' kernel entries)."""
+    t_phase = time.perf_counter()
+    runs, shapes = _RestRuns(_scale_counters, "scale"), {}
+
+    def shape(name, what, entry):
+        entry.pop("single_ms", None)
+        shapes.setdefault(name, []).append({"shape": what, **entry})
+
+    if dev.type == "cuda":
+        _wide_sweeps(dev, card, shape)
+    _stream(work, dev, card, runs, n_rows, shard_rows, dim, n_queries, batch, RETRIEVAL_K)
+    tok_dir = _train_dp(work, dev, card, runs, dp_batch, dp_steps, extra)
+    _sweep_runs(work, dev, card, tok_dir, min(SWEEP_BATCH, dp_batch), sweep_extra)
+    total = runs.total()
+    print(f"scale main-path launches by run: {runs.by_run}; summed {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if runs.missing:
+        raise AssertionError(f"a kernel of phase 22's path never launched: {runs.missing}")
+    return total, shapes
+
+
 def main():
     import torch
 
@@ -4249,6 +4622,12 @@ def main():
     finally:
         for path in (work18, work19, work20, work21):
             shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        scale_launches, scale_shapes = phase_scale(work, torch.device("cuda", 0), card=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     left = stop_started_processes()
     if left:
         raise RuntimeError(f"processes left running after the phases: {left}")
@@ -4298,12 +4677,13 @@ def main():
            "launches": int_launches[name], **int_entries[name]}
           for name, line in (("int8_tile_max", 111), ("int_groupmax", 160))),
     ]
-    for entry in kernels:  # phase 21: its launches, and the kernels held at its shapes
-        entry["launches"] += rest_launches.get(entry["name"], 0)
-        if entry["name"] in rest_shapes:
-            entry["shapes"] = rest_shapes[entry["name"]]
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       *(e["max_abs_err"] for e in rest_shapes[entry["name"]]))
+    for entry in kernels:  # phases 21-22: their launches, and the kernels held at their shapes
+        name = entry["name"]
+        entry["launches"] += rest_launches.get(name, 0) + scale_launches.get(name, 0)
+        held = rest_shapes.get(name, []) + scale_shapes.get(name, [])
+        if held:
+            entry["shapes"] = held
+            entry["max_abs_err"] = max(entry["max_abs_err"], *(e["max_abs_err"] for e in held))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,14 +23,29 @@ which ``task.checkpoint_path`` of the encode / retrieve / serve CLIs reads
 ``task.grad_cache_chunks``, ``task.model.remat``, ``task.optim.name``
 (adamw, adam, lamb, madgrad) and ``trainer.accumulate_grad_batches`` train
 as in the JAX CLI; ``datamodule.num_workers`` worker processes build the
-batches. More than one device (``trainer.num_devices``, ROADMAP A5) is
-refused.
+batches.
+
+Data parallel, one process a device: a process group configured in the
+environment (``DPR_COORDINATOR`` / ``DPR_NUM_PROCESSES`` /
+``DPR_PROCESS_ID``, or torchrun's variables; :mod:`..parallel.launch`) is
+started first, NCCL on CUDA devices, gloo with ``--device cpu``. Without
+one, ``trainer.num_devices`` > 1 (or absent / null with several CUDA
+devices visible, as the JAX trainer takes every visible device) makes this
+process rank 0 of a group it starts on ``localhost`` and launches the other
+ranks with the same arguments. Every rank trains on its slice of each
+global batch of ``datamodule.batch_size``; rank 0 logs, checkpoints, tests
+and writes ``--metrics-out``. ``trainer.strategy: ddp_sharded`` (or
+``zero1``) partitions the optimizer state (ZeRO-1). The multi-vector task
+trains in one process (ROADMAP A13).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import torch
 
@@ -43,27 +58,67 @@ from dpr_scale_tpu_torch.cli.common import (
 )
 from dpr_scale_tpu_torch.config import load_config
 from dpr_scale_tpu_torch.device import resolve_device
+from dpr_scale_tpu_torch.parallel import launch
+from dpr_scale_tpu_torch.parallel.mesh import Zero1, is_main, local_device, world_size
 from dpr_scale_tpu_torch.train.checkpoint import CheckpointManager, load_params, save_params
 from dpr_scale_tpu_torch.train.loop import Trainer
 from dpr_scale_tpu_torch.utils.logging import MetricLogger
 
 
+def num_processes(cfg, device) -> int:
+    """The processes (one a device) a run trains on: ``trainer.num_devices``;
+    absent or null, every visible CUDA device, as the JAX trainer takes
+    every visible device (one on the CPU)."""
+    n = cfg.trainer.get("num_devices")
+    if n is not None:
+        return int(n)
+    return max(torch.cuda.device_count(), 1) if device.type == "cuda" else 1
+
+
 def _refuse_unported(cfg, device) -> None:
-    tr = cfg.trainer
-    # the JAX trainer runs data-parallel over num_devices devices, every
-    # visible one when the key is absent or null; the port trains on one
-    n = tr.get("num_devices")
-    if (n is not None and n > 1) or (
-        n is None and device.type == "cuda" and torch.cuda.device_count() > 1
-    ):
+    """What the port does not train: the multi-vector task under data
+    parallelism (its router statistics are the global batch's)."""
+    if cfg.task.get("type", "dense") == "multivec" and num_processes(cfg, device) > 1:
         raise NotImplementedError(
-            f"trainer.num_devices={n} with {torch.cuda.device_count()} CUDA devices "
-            "visible: the port trains on one device, multi-GPU training is not "
-            "ported yet (ROADMAP.md A5); set trainer.num_devices=1"
+            f"task.type=multivec with trainer.num_devices={cfg.trainer.get('num_devices')} "
+            f"({num_processes(cfg, device)} processes): the multi-vector task trains in one "
+            "process, its data-parallel step is ROADMAP.md A13; set trainer.num_devices=1"
         )
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_ranks(argv, n: int, device) -> list:
+    """Start ranks 1 .. n - 1 of a group on localhost running this CLI with
+    ``argv``, then join it as rank 0. Returns the child processes."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    children = []
+    for i in range(1, n):
+        env = dict(os.environ, DPR_COORDINATOR=coordinator, DPR_NUM_PROCESSES=str(n),
+                   DPR_PROCESS_ID=str(i), LOCAL_RANK=str(i))
+        children.append(subprocess.Popen(
+            [sys.executable, "-m", "dpr_scale_tpu_torch.cli.train", *argv], env=env))
+    try:
+        launch.maybe_initialize_distributed(coordinator, n, 0, device=device)
+    except BaseException:
+        _stop(children)
+        raise
+    return children
+
+
+def _stop(children) -> None:
+    for child in children:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", required=True)
     parser.add_argument("--test-only", action="store_true")
@@ -78,7 +133,37 @@ def main(argv=None):
     cfg = load_config(args.config, args.overrides)
     device = resolve_device(args.device)
     _refuse_unported(cfg, device)
+    children = []
+    started = launch.maybe_initialize_distributed(device=device)
+    if not started and world_size() == 1 and num_processes(cfg, device) > 1:
+        children = _launch_ranks(argv, num_processes(cfg, device), device)
+        started = True
+    try:
+        metrics = _run(cfg, args, local_device(device))
+        if children:
+            _stop_when_done(children)
+        return metrics
+    except BaseException:
+        _stop(children)
+        raise
+    finally:
+        if started:
+            launch.shutdown()
 
+
+def _stop_when_done(children) -> None:
+    codes = [child.wait() for child in children]
+    if any(codes):
+        raise RuntimeError(f"ranks 1..{len(children)} of the run exited with {codes}")
+
+
+def _run(cfg, args, device):
+    n = cfg.trainer.get("num_devices")
+    if n is not None and int(n) != world_size():
+        raise ValueError(
+            f"trainer.num_devices={n} but the process group has {world_size()} processes"
+        )
+    zero1 = cfg.trainer.get("strategy", "ddp") in ("ddp_sharded", "zero1")
     tokenizer = build_tokenizer(cfg)
     dm = build_datamodule(cfg, tokenizer)
     tr = cfg.trainer
@@ -92,9 +177,10 @@ def main(argv=None):
         total_steps = dm.steps_per_epoch() * max_epochs
     print(
         f"Total {total_steps} training steps, {cfg.task.get('warmup_steps', 0)} "
-        f"warmup; device {device}"
+        f"warmup; device {device}, {world_size()} process(es)"
     )
-    task = build_task(cfg, build_optimizer(cfg, total_steps), device)
+    optimizer = build_optimizer(cfg, total_steps)
+    task = build_task(cfg, Zero1(optimizer) if zero1 else optimizer, device)
     check_vocab_compat(tokenizer, task.cfg)
     ckpt_cfg = cfg.get("checkpoint_callback") or {}
     checkpoint = None
@@ -136,6 +222,9 @@ def main(argv=None):
     else:
         state = trainer.fit(state)
         metrics = trainer.test(state)
+    if not is_main():  # rank 0 tests, writes the metrics and exports
+        dm.close()
+        return metrics
     print("test metrics:", metrics)
     if args.metrics_out and metrics:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)

@@ -129,9 +129,10 @@ extern "C" int dst_count_above_groups(const void* q, const void* corpus,
       (B + QT - 1) / QT > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool qm128 = gs::bf16_qm128(B, D);
   if (wgmma_route(q, corpus, N, D, group, dtype))
-    return B > 64 ? launch_count_groups_wgmma<128>(q, corpus, tau, out, B, N, D, group, s)
-                  : launch_count_groups_wgmma<64>(q, corpus, tau, out, B, N, D, group, s);
+    return qm128 ? launch_count_groups_wgmma<128>(q, corpus, tau, out, B, N, D, group, s)
+                 : launch_count_groups_wgmma<64>(q, corpus, tau, out, B, N, D, group, s);
   if (dtype == 0) return launch_count_groups<bf16>(q, corpus, tau, out, B, N, D, group, s);
   if (dtype == 1) return launch_count_groups<float>(q, corpus, tau, out, B, N, D, group, s);
   return (int)cudaErrorInvalidValue;

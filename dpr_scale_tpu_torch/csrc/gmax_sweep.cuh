@@ -182,6 +182,19 @@ inline int bf16_route(const void* q, const void* corpus, long long N, int D, int
          N <= INT_MAX;
 }
 
+// The tensor cores' fp32 accumulation truncates each addend to the
+// accumulator's exponent, so a score carried through them over all D
+// columns drifts about (D / 16) x 2^-24 of its size, one-sided.  Up to
+// PROMOTE_D columns that stays well inside the counts' COUNT_MARGIN_REL
+// (index/mips.py); past it bf16_sweep sums each 64-column stage from zero
+// on the tensor cores and adds it into a running fp32 score with ordinary
+// adds (two accumulator sets, which fit only in the QM = 64 layout).
+constexpr int PROMOTE_D = 1536;
+
+// the layout a bf16 sweep of B queries at width D takes: 128 queries a
+// block for large batches, unless D needs the promoted sums
+__host__ __device__ inline bool bf16_qm128(int B, int D) { return B > 64 && D <= PROMOTE_D; }
+
 template <int QM>
 constexpr int BF16_STAGE = C_BYTES + Layout<QM>::Q_BYTES;  // a 256-row corpus and a query slice
 template <int QM>
@@ -241,8 +254,11 @@ __device__ __forceinline__ int query_row(int nqt) {
 // nqt, span b / nqt): the producer thread streams each tile's k-slices
 // through the ring; each consumer warpgroup runs its products and, once a
 // tile's have retired, calls epilogue(acc, rbase), rbase the first corpus
-// row of its part of the tile.  Returns false in the producer warpgroup,
-// true in the consumers after the span.
+// row of its part of the tile.  Past PROMOTE_D (QM = 64 only) each stage's
+// products start from zero and retire before their sums join the running
+// scores: the ring still prefetches, but a warpgroup no longer issues the
+// next stage while the last one runs.  Returns false in the producer
+// warpgroup, true in the consumers after the span.
 template <int QM, typename Epilogue>
 __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtensorMap& tmC, int D,
                                            long long N, int nqt, Epilogue&& epilogue,
@@ -278,6 +294,41 @@ __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtenso
   const int lane = t % 32;
   float acc[L::N / 2];
   int it = 0;
+  if constexpr (QM == 64) {
+    if (D > PROMOTE_D) {
+      float run[L::N / 2];  // the running scores, fp32 adds of the stages' sums
+      for (int tile = 0; tile < tiles; ++tile) {
+#pragma unroll
+        for (int i = 0; i < L::N / 2; ++i) run[i] = 0.0f;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&full[s], (it / STAGES) & 1);
+          const unsigned char* st = smem + s * STAGE;
+#pragma unroll
+          for (int i = 0; i < L::N / 2; ++i) acc[i] = 0.0f;
+          fence_operands(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t da = smem_desc(st + C_BYTES + L::q_off(wg) * SLICE + kk * 32, 16, 1024);
+            const uint64_t db = smem_desc(st + L::r_off(wg) * SLICE + kk * 32, 16, 1024);
+            wgmma_tn_bf16<L::N>(acc, da, db);
+          }
+          wgmma_commit();
+          fence_operands(acc);
+          wgmma_wait<0>();  // this stage's products have retired
+          fence_operands(acc);
+          if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+          for (int i = 0; i < L::N / 2; ++i) run[i] += acc[i];
+        }
+#pragma unroll
+        for (int i = 0; i < L::N / 2; ++i) acc[i] = run[i];
+        epilogue(acc, row0 + (long long)tile * TILE + L::r_off(wg));
+      }
+      return true;
+    }
+  }
   for (int tile = 0; tile < tiles; ++tile) {
 #pragma unroll
     for (int i = 0; i < L::N / 2; ++i) acc[i] = 0.0f;

@@ -295,11 +295,12 @@ extern "C" int dst_count_above(const void* q, const void* corpus, const void* ta
                                int B, long long N, int D, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool qm128 = gs::bf16_qm128(B, D);
   if (gs::bf16_route(q, corpus, N, D, dtype))
-    return B > 64 ? gs::launch_bf16_sweep<128>(count_above_wgmma_kernel<128>, q, corpus, B, N, D,
-                                               s, (const float*)tau, (int*)out)
-                  : gs::launch_bf16_sweep<64>(count_above_wgmma_kernel<64>, q, corpus, B, N, D,
-                                              s, (const float*)tau, (int*)out);
+    return qm128 ? gs::launch_bf16_sweep<128>(count_above_wgmma_kernel<128>, q, corpus, B, N, D,
+                                              s, (const float*)tau, (int*)out)
+                 : gs::launch_bf16_sweep<64>(count_above_wgmma_kernel<64>, q, corpus, B, N, D,
+                                             s, (const float*)tau, (int*)out);
   if (dtype == 0) return launch_count<bf16>(q, corpus, tau, out, B, N, D, s);
   if (dtype == 1) return launch_count<float>(q, corpus, tau, out, B, N, D, s);
   return (int)cudaErrorInvalidValue;
@@ -311,11 +312,12 @@ extern "C" int dst_groupmax(const void* q, const void* corpus, void* t1, void* t
                             long long N, int D, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1 || N % ROWS != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool qm128 = gs::bf16_qm128(B, D);
   if (gs::bf16_route(q, corpus, N, D, dtype))
-    return B > 64 ? gs::launch_bf16_sweep<128>(groupmax_wgmma_kernel<128>, q, corpus, B, N, D, s,
-                                               (float*)t1, (float*)t2)
-                  : gs::launch_bf16_sweep<64>(groupmax_wgmma_kernel<64>, q, corpus, B, N, D, s,
-                                              (float*)t1, (float*)t2);
+    return qm128 ? gs::launch_bf16_sweep<128>(groupmax_wgmma_kernel<128>, q, corpus, B, N, D, s,
+                                              (float*)t1, (float*)t2)
+                 : gs::launch_bf16_sweep<64>(groupmax_wgmma_kernel<64>, q, corpus, B, N, D, s,
+                                             (float*)t1, (float*)t2);
   if (dtype == 0) return launch_groupmax<bf16>(q, corpus, t1, t2, B, N, D, s);
   if (dtype == 1) return launch_groupmax<float>(q, corpus, t1, t2, B, N, D, s);
   return (int)cudaErrorInvalidValue;
@@ -340,12 +342,13 @@ extern "C" int dst_tile_max_route(const void* q, const void* corpus, long long N
 }
 
 // Dynamic shared memory of a block of the bf16 wgmma sweeps (groupmax,
-// count_above, count_above_groups: one frame) at batch B.
+// count_above, count_above_groups: one frame) at batch B, D <= PROMOTE_D.
 extern "C" long long dst_bf16_sweep_smem(int B) {
   return (long long)(B > 64 ? gs::bf16_smem<128>() : gs::bf16_smem<64>());
 }
 
-// Dynamic shared memory of a tile_max_wgmma_kernel block at batch B.
+// Dynamic shared memory of a tile_max_wgmma_kernel block at batch B, D <=
+// PROMOTE_D.
 extern "C" long long dst_tile_max_smem(int B) {
   return (long long)(B > 64 ? gs::bf16_smem<128>(TILE_MAX_EXTRA)
                             : gs::bf16_smem<64>(TILE_MAX_EXTRA));
@@ -357,13 +360,14 @@ extern "C" int dst_tile_max(const void* q, const void* corpus, void* out, int B,
                             int D, long long tile, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1 || tile < 1 || N % tile != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool qm128 = gs::bf16_qm128(B, D);
   if (tile_max_route(q, corpus, N, D, tile, dtype))
-    return B > 64 ? gs::launch_bf16_spans<128>(tile_max_wgmma_kernel<128>, gs::tile_max_span(tile),
-                                               TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
-                                               tile)
-                  : gs::launch_bf16_spans<64>(tile_max_wgmma_kernel<64>, gs::tile_max_span(tile),
+    return qm128 ? gs::launch_bf16_spans<128>(tile_max_wgmma_kernel<128>, gs::tile_max_span(tile),
                                               TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
-                                              tile);
+                                              tile)
+                 : gs::launch_bf16_spans<64>(tile_max_wgmma_kernel<64>, gs::tile_max_span(tile),
+                                             TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
+                                             tile);
   if (dtype == 0) return launch_tile_max<bf16>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);
   if (dtype == 1)
     return launch_tile_max<float>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);

@@ -40,8 +40,17 @@ result is the exact top-k of the dequantised scores. The JAX tiers take the
 top-k of a ``lax.approx_max_k`` pool of ``max(8k, 128)`` candidates, which
 is exact on the CPU; pass-1 faults cannot hide behind "approximate" here.
 The lossy methods (``int8``, ``int4``, ``approx``) take a host exact-rerank
-tier (:meth:`MipsIndex.set_rerank`). Host-resident blocks are not ported
-(ROADMAP A1).
+tier (:meth:`MipsIndex.set_rerank`).
+
+Host-resident blocks (``host_resident=True``, :meth:`MipsIndex.add_host_quantized`,
+:meth:`MipsIndex.add_host_packed4`) stay in host memory and stream through
+the device at each search, for corpora larger than the card: the next host
+block is staged (a memmap's pages through a reused pinned buffer) and
+uploaded by ``non_blocking`` copies on a side stream while the current block
+is searched, ordered by an event, so that at most two streamed blocks are on
+the device at once. They search as device blocks do, with the same kernels
+and the same exact fallback. Device and host blocks mix in one index (the
+hybrid layout of ``index.store.load_int8_store``).
 
 Blocks are searched one after another and merged on the host
 (``merge_topk_batched``); global row ids follow insertion order, and masked
@@ -54,6 +63,8 @@ verification is written so such near-ties only add rescue work.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -94,6 +105,8 @@ METHODS = ("fused", "groupmax", "auto", "approx", "exact_sort", "int8", "int4")
 QUANTISED = ("int8", "int4")
 LOSSY = ("int8", "int4", "approx")  # the methods a rerank tier applies to
 UNVERIFIED = ("approx", "exact_sort")  # no verification, no last_repair events
+GMAX_ROWS_TIER2 = GMAX_ROWS * GMAX_TIER2  # 128: the row multiple of an added block
+INV7 = float(np.float32(1.0 / 7.0))  # XLA's product for a division by 7.0
 
 
 def merge_topk_batched(
@@ -127,6 +140,190 @@ class QuantBlock:
         return self.rows.shape[0], self.col_scales.shape[0]
 
 
+QUANT_CHUNK = 65536  # rows a host-quantisation task takes
+
+
+def _chunked(n: int, fn) -> None:
+    """``fn(lo, hi)`` over QUANT_CHUNK-row chunks of [0, n), on a thread a
+    core (numpy releases the GIL in its loops)."""
+    spans = [(lo, min(lo + QUANT_CHUNK, n)) for lo in range(0, n, QUANT_CHUNK)]
+    if len(spans) <= 1:
+        for lo, hi in spans:
+            fn(lo, hi)
+        return
+    with ThreadPoolExecutor(min(len(spans), os.cpu_count() or 1)) as pool:
+        list(pool.map(lambda span: fn(*span), spans))
+
+
+def quantize_host(emb: np.ndarray, packed: bool):
+    """The JAX index's host quantisers (``_quantize_int8_host``,
+    ``_quantize_int4_host``), bit for bit, chunk by chunk on threads: the
+    column maxima, then each row's scale ``max |x| / qmax`` (0 -> 1) and
+    ``clip(rint(x / scale))`` of ``x = emb / col``, with qmax 127, or 7 and
+    nibble packing (byte j: dim j low, dim j + D/2 high). Returns (rows,
+    row scales, column scales)."""
+    n, d = emb.shape
+    if packed and d % 2:
+        raise ValueError(f"int4 packing needs an even embedding dim, got {d}")
+    qmax = 7.0 if packed else 127.0
+    parts = np.zeros((-(-n // QUANT_CHUNK) or 1, d), emb.dtype)
+
+    def col_max(lo, hi):
+        parts[lo // QUANT_CHUNK] = np.abs(emb[lo:hi]).max(axis=0)
+
+    _chunked(n, col_max)
+    col = parts.max(axis=0)
+    col[col == 0.0] = 1.0
+    rows = np.empty((n, d // 2 if packed else d), np.int8)
+    sc = np.empty((n,), np.float32)
+
+    def quantise(lo, hi):
+        x = emb[lo:hi] / col[None, :]
+        s = np.abs(x).max(axis=1) / qmax
+        s[s == 0.0] = 1.0
+        q = np.clip(np.rint(x / s[:, None]), -qmax, qmax).astype(np.int8)
+        if packed:
+            low = q[:, : d // 2].view(np.uint8) & 0xF
+            high = q[:, d // 2 :].view(np.uint8) & 0xF
+            q = ((high << 4) | low).view(np.int8)
+        rows[lo:hi] = q
+        sc[lo:hi] = s
+
+    _chunked(n, quantise)
+    return rows, sc, col.astype(np.float32)
+
+
+@dataclasses.dataclass
+class HostBlock:
+    """A host-resident block: ``rows`` a pinned (or, on the CPU, plain) tensor
+    of a dense block, or the numpy int8 rows of a quantised one (int4
+    nibbles with ``packed``; a read-only memmap stays one); ``row_scales``
+    and ``col_scales`` numpy fp32 for a quantised block, else None."""
+
+    rows: object
+    row_scales: Optional[np.ndarray] = None
+    col_scales: Optional[np.ndarray] = None
+    packed: bool = False
+
+
+def _host_arrays(block: HostBlock):
+    """(name, host array) of each part a block uploads."""
+    parts = [("rows", block.rows)]
+    if block.row_scales is not None:
+        parts += [("row_scales", block.row_scales), ("col_scales", block.col_scales)]
+    return parts
+
+
+def _device_form(block: HostBlock, parts: dict):
+    """The device block searched for ``block``, from its uploaded parts."""
+    if block.row_scales is None:
+        return parts["rows"]
+    return QuantBlock(parts["rows"], parts["row_scales"], parts["col_scales"], block.packed)
+
+
+UPLOAD_CHUNK_BYTES = 64 << 20  # a pinned staging slot
+STAGING_SLOTS = 4  # slots in the staging ring: one filling while others copy
+COPY_THREADS = 4  # threads filling a slot (a host memcpy: 8 were slower on 8 cores)
+_TORCH_DTYPES = {"i1": torch.int8, "f4": torch.float32, "u1": torch.uint8}
+
+
+class _Done:
+    """A finished result with the interface of a Future."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self):
+        return self._value
+
+
+class HostStream:
+    """Uploads host blocks to ``device`` ahead of their search.
+
+    On a GPU, :meth:`start` hands the block to one worker thread. A part
+    that is a pinned tensor is copied ``non_blocking`` on a side stream. A
+    numpy part (a read-only memmap of a store too) goes through a ring of
+    STAGING_SLOTS pinned slots of UPLOAD_CHUNK_BYTES: COPY_THREADS threads
+    fill a slot from the array (the memmap's pages are read there, never
+    copied whole elsewhere) while the side stream copies the slots filled
+    before; a slot is refilled once its copy's event has passed. Pageable
+    sources would make the copies synchronous, which is why every byte is
+    pinned first. Each upload ends with an event; :meth:`take` makes the
+    current stream wait for it and marks the tensors as used there, so the
+    caching allocator does not hand their memory to the next upload before
+    the search is done. On the CPU the parts are the block's own arrays,
+    copied."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._copiers: Optional[ThreadPoolExecutor] = None
+        self._stream = None
+        self._ring: List[Optional[torch.Tensor]] = [None] * STAGING_SLOTS
+        self._ring_events: List[Optional[object]] = [None] * STAGING_SLOTS
+        self._slot = 0
+
+    def start(self, block: HostBlock):
+        if not self._cuda:  # the device block is a copy the index owns
+            return _Done(({k: a.clone() if isinstance(a, torch.Tensor)
+                           else torch.from_numpy(np.array(a)) for k, a in _host_arrays(block)},
+                          None))
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(1, thread_name_prefix="mips-upload")
+            self._copiers = ThreadPoolExecutor(COPY_THREADS, thread_name_prefix="mips-stage")
+            self._stream = torch.cuda.Stream(self.device)
+        return self._pool.submit(self._upload, block)
+
+    def _fill(self, dst: np.ndarray, src: np.ndarray) -> None:
+        step = -(-src.size // COPY_THREADS)
+        spans = [(lo, min(lo + step, src.size)) for lo in range(0, src.size, step)]
+        list(self._copiers.map(lambda sp: np.copyto(dst[sp[0]:sp[1]], src[sp[0]:sp[1]]), spans))
+
+    def _staged(self, array: np.ndarray) -> torch.Tensor:
+        """``array`` on the device through the staging ring (side stream)."""
+        src = array.reshape(-1).view(np.uint8)
+        dst = torch.empty(src.size, dtype=torch.uint8, device=self.device)
+        for lo in range(0, src.size, UPLOAD_CHUNK_BYTES):
+            n = min(UPLOAD_CHUNK_BYTES, src.size - lo)
+            slot, self._slot = self._slot, (self._slot + 1) % STAGING_SLOTS
+            if self._ring_events[slot] is not None:
+                self._ring_events[slot].synchronize()  # the slot's last copy has landed
+            if self._ring[slot] is None:
+                self._ring[slot] = torch.empty(UPLOAD_CHUNK_BYTES, dtype=torch.uint8,
+                                               pin_memory=True)
+            buf = self._ring[slot][:n]
+            self._fill(buf.numpy(), src[lo : lo + n])
+            dst[lo : lo + n].copy_(buf, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+            self._ring_events[slot] = event
+        return dst.view(_TORCH_DTYPES[array.dtype.str[1:]]).view(array.shape)
+
+    def _upload(self, block: HostBlock):
+        out = {}
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            for key, a in _host_arrays(block):
+                if isinstance(a, torch.Tensor):
+                    src = a if a.is_pinned() else a.pin_memory()
+                    out[key] = src.to(self.device, non_blocking=True)
+                else:
+                    out[key] = self._staged(np.ascontiguousarray(a))
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def take(self, future, block: HostBlock):
+        """The device block of a :meth:`start`, ready for the current stream."""
+        parts, event = future.result()
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in parts.values():
+                t.record_stream(stream)
+        return _device_form(block, parts)
+
+
 class MipsIndex:
     """Inner-product top-k over one or more embedding blocks on ``device``.
 
@@ -134,7 +331,11 @@ class MipsIndex:
     order); ``search(queries, k)`` returns global (scores, indices) as numpy.
     ``last_repair`` counts, per search, the (query, block) verification
     failures routed to the exact fallback and the distinct queries repaired
-    (methods fused, groupmax, auto, int8 and int4).
+    (methods fused, groupmax, auto, int8 and int4). ``host_resident=True``
+    keeps the blocks of ``add`` in host memory and streams them through the
+    device at each search (module docstring); the ``add_device*`` and
+    ``add_host*`` builders take blocks already on the device, or already
+    quantised on the host.
     """
 
     # 2 = int16-precision queries of the quantised tiers as two int8 planes
@@ -144,16 +345,15 @@ class MipsIndex:
     def __init__(
         self, device, dtype=torch.bfloat16, method: str = "fused", host_resident: bool = False
     ):
-        if host_resident:
-            raise NotImplementedError(
-                "MipsIndex host_resident is not ported: the host-resident tiers are ROADMAP A1"
-            )
         if method not in METHODS:
             raise ValueError(f"unknown MipsIndex method {method!r} (one of {METHODS})")
         self.device = torch.device(device)
         self.dtype = dtype
         self.method = method
-        self._blocks: List[Tuple[torch.Tensor, int, int]] = []  # (emb, n_valid, offset)
+        self.host_resident = bool(host_resident)
+        # (block, n_valid, offset): a device tensor, a QuantBlock or a HostBlock
+        self._blocks: List[Tuple[object, int, int]] = []
+        self._stream = HostStream(self.device)
         self._total_rows = 0
         self._dim: Optional[int] = None
         self.last_repair = {"block_fail_events": 0, "queries_repaired": 0}
@@ -164,32 +364,14 @@ class MipsIndex:
     @staticmethod
     def _quantize_int8_host(emb: np.ndarray):
         """Column-equalised per-row symmetric int8: (q8, row_sc, col_sc)."""
-        col = np.abs(emb).max(axis=0)
-        col[col == 0.0] = 1.0
-        x = emb / col[None, :]
-        sc = np.abs(x).max(axis=1) / 127.0
-        sc[sc == 0.0] = 1.0
-        q8 = np.clip(np.rint(x / sc[:, None]), -127, 127).astype(np.int8)
-        return q8, sc.astype(np.float32), col.astype(np.float32)
+        return quantize_host(emb, packed=False)
 
     @staticmethod
     def _quantize_int4_host(emb: np.ndarray):
         """Column-equalised per-row symmetric 4-bit, nibble-packed: (packed
         (N, D/2) int8, row_sc, col_sc). Byte j holds dim j in its low nibble
         and dim j + D/2 in its high nibble; values clip to [-7, 7]."""
-        n, d = emb.shape
-        if d % 2:
-            raise ValueError(f"int4 packing needs an even embedding dim, got {d}")
-        col = np.abs(emb).max(axis=0)
-        col[col == 0.0] = 1.0
-        x = emb / col[None, :]
-        sc = np.abs(x).max(axis=1) / 7.0
-        sc[sc == 0.0] = 1.0
-        q4 = np.clip(np.rint(x / sc[:, None]), -7, 7).astype(np.int8)
-        lo = q4[:, : d // 2].view(np.uint8) & 0xF
-        hi = q4[:, d // 2 :].view(np.uint8) & 0xF
-        packed = ((hi << 4) | lo).view(np.int8)
-        return np.ascontiguousarray(packed), sc.astype(np.float32), col.astype(np.float32)
+        return quantize_host(emb, packed=True)
 
     _unpack_int4 = staticmethod(unpack_int4)
 
@@ -214,35 +396,148 @@ class MipsIndex:
             n_pad = (n + CHUNK_ROWS - 1) // CHUNK_ROWS * CHUNK_ROWS
         return n_pad
 
-    def add(self, embeddings) -> None:
-        """Append a (n, D) block (numpy or tensor); pad rows are zero (the
-        quantised tiers: quantised on the host, pad rows of scale 1)."""
-        n, d = embeddings.shape
+    def _check_dim(self, d: int) -> None:
         if self._dim is None:
             self._dim = d
         if d != self._dim:
             raise ValueError(f"embedding dim {d} != the index's {self._dim}")
+
+    def _append(self, block, n_valid: int) -> None:
+        self._blocks.append((block, int(n_valid), self._total_rows))
+        self._total_rows += int(n_valid)
+
+    def add(self, embeddings) -> None:
+        """Append a (n, D) block (numpy or tensor); pad rows are zero (the
+        quantised tiers: quantised on the host, pad rows of scale 1). A
+        host-resident index keeps it in host memory (pinned for a GPU)."""
+        n, d = embeddings.shape
+        self._check_dim(d)
         if self.method in QUANTISED:
             block = self._quantize_block(embeddings, self._pad_rows(n))
         else:
             if not isinstance(embeddings, torch.Tensor):  # torch needs writable arrays
                 embeddings = torch.from_numpy(np.require(embeddings, requirements="W"))
-            block = torch.zeros((self._pad_rows(n), d), dtype=self.dtype, device=self.device)
-            block[:n] = embeddings.to(self.device, self.dtype)
-        self._blocks.append((block, n, self._total_rows))
-        self._total_rows += n
+            if self.host_resident:
+                block = torch.zeros((self._pad_rows(n), d), dtype=self.dtype,
+                                    pin_memory=self.device.type == "cuda")
+                block[:n] = embeddings.to("cpu", self.dtype)
+                block = HostBlock(block)
+            else:
+                block = torch.zeros((self._pad_rows(n), d), dtype=self.dtype, device=self.device)
+                block[:n] = embeddings.to(self.device, self.dtype)
+        self._append(block, n)
 
-    def _quantize_block(self, embeddings, n_pad: int) -> QuantBlock:
+    def _quantize_block(self, embeddings, n_pad: int):
         """The JAX ``add``'s host quantisation of the zero-padded fp32 block
-        (several fp32 copies of it at once, as there)."""
+        (several fp32 copies of it at once, as there): a QuantBlock on the
+        device, or a HostBlock for a host-resident index."""
         if isinstance(embeddings, torch.Tensor):
             embeddings = embeddings.detach().float().cpu().numpy()
         emb = np.zeros((n_pad, embeddings.shape[1]), np.float32)
         emb[: embeddings.shape[0]] = embeddings
         packed = self.method == "int4"
         quant = self._quantize_int4_host if packed else self._quantize_int8_host
-        rows, row_sc, col_sc = (torch.from_numpy(a).to(self.device) for a in quant(emb))
-        return QuantBlock(rows, row_sc, col_sc, packed)
+        rows, row_sc, col_sc = quant(emb)
+        if self.host_resident:
+            return HostBlock(rows, row_sc, col_sc, packed)
+        return QuantBlock(*(torch.from_numpy(a).to(self.device) for a in (rows, row_sc, col_sc)),
+                          packed)
+
+    def _check_quantized(self, method: str, rows, scales, n_valid, col_scales, packed: bool):
+        """The checks of the JAX ``add_*_quantized`` / ``add_*_packed4``
+        builders; returns (n_pad, D, n_valid)."""
+        if self.method != method:
+            raise ValueError(f"this builder takes a {method} block; the index is {self.method!r}")
+        n_pad, w = rows.shape
+        d = 2 * w if packed else w
+        if str(rows.dtype) not in ("int8", "torch.int8") or tuple(scales.shape) != (n_pad,):
+            raise ValueError(f"expected int8 rows (n_pad, {w}) and scales ({n_pad},), got "
+                             f"{rows.dtype} {tuple(rows.shape)} and {tuple(scales.shape)}")
+        if n_pad % GMAX_ROWS_TIER2 != 0:  # ndev * 128 rows in JAX, one device here
+            raise ValueError(f"a quantised block holds a multiple of {GMAX_ROWS_TIER2} rows, "
+                             f"not {n_pad}")
+        if col_scales is not None and tuple(col_scales.shape) != (d,):
+            raise ValueError(f"col_scales {tuple(col_scales.shape)} != ({d},)")
+        self._check_dim(d)
+        return n_pad, d, n_pad if n_valid is None else int(n_valid)
+
+    def add_device(self, emb_dev: torch.Tensor, n_valid: Optional[int] = None) -> None:
+        """Append a block already on the device, (n_pad, D) with n_pad a
+        multiple of 128 (rows past ``n_valid`` ignored): the pad rows are
+        zeroed (the pad-count corrections rely on pad scores of exactly 0);
+        an int8 / int4 index quantises it on the device with the JAX
+        ``add_device``'s arithmetic (the divisions by the constants 127 and
+        7 as products with their fp32 reciprocals, as XLA compiles them)."""
+        n_pad, d = emb_dev.shape
+        if n_pad % GMAX_ROWS_TIER2 != 0:
+            raise ValueError(f"add_device takes a multiple of {GMAX_ROWS_TIER2} rows, not {n_pad}")
+        self._check_dim(d)
+        n = n_pad if n_valid is None else int(n_valid)
+        emb = emb_dev.to(self.device)
+        if n < n_pad:
+            emb = torch.cat([emb[:n], torch.zeros_like(emb[n:])])
+        if self.method in QUANTISED:
+            int4 = self.method == "int4"
+            ef = emb.float()
+            col = ef.abs().amax(dim=0)
+            col = torch.where(col == 0.0, torch.ones_like(col), col)
+            x = ef / col[None, :]
+            sc = x.abs().amax(dim=1) * (INV7 if int4 else INV127)
+            sc = torch.where(sc == 0.0, torch.ones_like(sc), sc)
+            qmax = 7.0 if int4 else 127.0
+            q8 = torch.round(x / sc[:, None]).clamp(-qmax, qmax).to(torch.int8)
+            if int4:  # nibbles, column-block layout (_quantize_int4_host)
+                half = d // 2
+                q8 = (q8[:, half:] << 4) | (q8[:, :half] & 0xF)
+            self._append(QuantBlock(q8.contiguous(), sc, col, int4), n)
+            return
+        emb = emb.to(self.dtype)
+        if n_pad % GROUP_ROWS:  # the fused search's rescue groups
+            emb = torch.cat([emb, emb.new_zeros(GROUP_ROWS - n_pad % GROUP_ROWS, d)])
+        self._append(emb.contiguous(), n)
+
+    def _add_quantized(self, method, rows, scales, n_valid, col_scales, host: bool) -> None:
+        packed = method == "int4"
+        _n_pad, d, n = self._check_quantized(method, rows, scales, n_valid, col_scales, packed)
+        if host:
+            col = (np.ones((d,), np.float32) if col_scales is None
+                   else np.asarray(col_scales, np.float32))
+            block = HostBlock(np.ascontiguousarray(rows), np.asarray(scales, np.float32), col,
+                              packed)
+        else:
+            col = (torch.ones((d,), dtype=torch.float32, device=self.device) if col_scales is None
+                   else torch.as_tensor(col_scales, dtype=torch.float32).to(self.device))
+            block = QuantBlock(rows.to(self.device), scales.to(self.device, torch.float32), col,
+                               packed)
+        self._append(block, n)
+
+    def add_device_quantized(self, q8_dev, scales_dev, n_valid: Optional[int] = None,
+                             col_scales=None) -> None:
+        """int8 only: append a block quantised already, on the device: (n_pad,
+        D) int8 rows of per-row scales ``scales_dev`` (n_pad,) as :meth:`add`
+        makes them, and the column equalisation ``col_scales`` (D,), all
+        ones by default. For corpora quantised in chunks (``index.store``)."""
+        self._add_quantized("int8", q8_dev, scales_dev, n_valid, col_scales, host=False)
+
+    def add_host_quantized(self, q8, scales, n_valid: Optional[int] = None,
+                           col_scales=None) -> None:
+        """int8 only: :meth:`add_device_quantized`'s block as numpy arrays in
+        host memory (a memmap stays one), streamed through the device at
+        each search; device and host blocks mix in one index."""
+        self._add_quantized("int8", q8, scales, n_valid, col_scales, host=True)
+
+    def add_device_packed4(self, packed_dev, scales_dev, n_valid: Optional[int] = None,
+                           col_scales=None) -> None:
+        """int4 only: append a block packed already, on the device: (n_pad,
+        D / 2) int8 nibbles in :meth:`_quantize_int4_host`'s layout and its
+        per-row scales."""
+        self._add_quantized("int4", packed_dev, scales_dev, n_valid, col_scales, host=False)
+
+    def add_host_packed4(self, packed, scales, n_valid: Optional[int] = None,
+                         col_scales=None) -> None:
+        """int4 only: :meth:`add_device_packed4`'s block in host memory,
+        streamed through the device at each search."""
+        self._add_quantized("int4", packed, scales, n_valid, col_scales, host=True)
 
     @property
     def num_rows(self) -> int:
@@ -558,6 +853,8 @@ class MipsIndex:
         if len(self._blocks) != 1:
             raise ValueError(f"benchmark expects a single block, the index has {len(self._blocks)}")
         emb, n_valid, _off = self._blocks[0]
+        if isinstance(emb, HostBlock):  # timed as a resident block
+            emb = self._stream.take(self._stream.start(emb), emb)
         k = min(k, emb.shape[0])
         iters, B, D = queries_batches.shape
 
@@ -638,11 +935,28 @@ class MipsIndex:
         order = np.argsort(-ps, kind="stable", axis=1)
         return np.take_along_axis(ps, order, axis=1), np.take_along_axis(pi, order, axis=1)
 
+    def _next_host(self, after: int):
+        """The first host block past position ``after``, with its upload
+        started; (None, None) when there is none."""
+        for bi in range(after + 1, len(self._blocks)):
+            block = self._blocks[bi][0]
+            if isinstance(block, HostBlock):
+                return bi, self._stream.start(block)
+        return None, None
+
     def _per_block_host_merge(self, q, k_eff):
         per_block_s, per_block_i = [], []
-        for emb, n_valid, offset in self._blocks:
+        # host blocks: the next one uploads while the current block is
+        # searched; the one before is freed first (at most two on the device)
+        next_bi, upload = self._next_host(-1)
+        for bi, (block, n_valid, offset) in enumerate(self._blocks):
+            emb = block
+            if bi == next_bi:
+                emb = self._stream.take(upload, block)
+                next_bi, upload = self._next_host(bi)
             k_block = min(k_eff, emb.shape[0])
             s, i = self._search_block(emb, n_valid, q, k_block)
+            del emb
             i = i.astype(np.int64)
             i[i >= 0] += offset  # -1 = masked pad rows (rows_to_ctxs skips)
             if k_block < k_eff:  # pad so merge shapes agree

@@ -48,6 +48,7 @@ class Optimizer:
 
     name = ""
     trees: tuple = ()
+    norm = staticmethod(global_norm)  # of the gradient the clip takes (ZeRO-1: across ranks)
 
     def __init__(self, learning_rate: Schedule, grad_clip_norm: Optional[float] = None):
         self.schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
@@ -73,7 +74,7 @@ class Optimizer:
         """One update of ``params`` in place; ``grads`` are consumed (scaled
         in place by the clip). ``g_norm``: their global norm, if known."""
         if self.grad_clip_norm:
-            g_norm = global_norm(grads) if g_norm is None else g_norm
+            g_norm = self.norm(grads) if g_norm is None else g_norm
             trigger = g_norm < self.grad_clip_norm
             one = torch.ones((), device=g_norm.device)
             torch._foreach_div_(grads, torch.where(trigger, one, g_norm))

@@ -6,9 +6,12 @@ Counterpart of :mod:`dpr_scale_tpu.retrieve.retrieval`: load every
 batches, join (scores, global row ids) with the passages and write DPR JSON
 and/or a TREC run. ``rerank_oversample`` attaches the host exact-rerank tier
 over the shards' original rows (``ShardRowReader``) to a lossy index;
-``int8_query_planes`` sets the quantised tiers' query planes. The
-host-resident tiers (``host_resident``, ``index_store``, ``device_rows``)
-are not ported and raise (ROADMAP A1).
+``int8_query_planes`` sets the quantised tiers' query planes.
+``host_resident`` keeps every block in host memory and streams it through
+the device at each search; ``index_store`` (int8 only) serves from the
+prequantised store of :mod:`dpr_scale_tpu_torch.index.store`, built first
+when it is absent or stale, with the device tier capped at ``device_rows``
+rows and the rest streamed from the host.
 """
 from __future__ import annotations
 
@@ -23,15 +26,6 @@ from dpr_scale_tpu_torch.device import resolve_device
 from dpr_scale_tpu_torch.encode.embeddings import ShardRowReader, load_embedding_shards
 from dpr_scale_tpu_torch.index.mips import LOSSY, MipsIndex
 from dpr_scale_tpu_torch.retrieve.writers import write_dpr_json, write_trec_run
-
-
-def _refuse_unported(**options) -> None:
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r}: the host-resident index tiers are not ported "
-                "(ROADMAP A1)"
-            )
 
 
 def rows_to_ctxs(passages, scores, indices) -> List[List[Dict]]:
@@ -67,9 +61,24 @@ def build_index(
     device_rows: Optional[int] = None,
 ) -> MipsIndex:
     """Every ``reps_*`` shard of a directory in one index; shards larger than
-    ``max_block_rows`` split into several blocks."""
-    _refuse_unported(index_store=index_store, device_rows=device_rows)
+    ``max_block_rows`` split into several blocks. ``index_store`` (int8
+    only): load the store there, (re)built from the shards first when it is
+    absent or stale; ``device_rows`` caps its device tier."""
     index = MipsIndex(device, dtype=dtype, method=method, host_resident=host_resident)
+    if index_store is not None:
+        if method != "int8":
+            raise ValueError("index_store requires mips_method=int8")
+        from dpr_scale_tpu_torch.index.store import (
+            build_int8_store,
+            load_int8_store,
+            store_is_current,
+        )
+
+        if not store_is_current(index_store, ctx_embeddings_dir):
+            print(f"Building int8 index store at {index_store}")
+            build_int8_store(ctx_embeddings_dir, index_store, max_block_rows=max_block_rows)
+        load_int8_store(index, index_store, device_rows=device_rows)
+        return index
     shards = load_embedding_shards(ctx_embeddings_dir)
     if not shards:
         raise FileNotFoundError(f"no reps_* shards in {ctx_embeddings_dir}")

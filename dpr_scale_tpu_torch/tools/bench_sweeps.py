@@ -23,6 +23,10 @@ the package has the bulk-copy ring, the pipelined kernel at ring stages of
 16, 32 and 64 KB. Prints one JSON object: the package it timed, the
 card's name and power limit, the results (times in ms).
 
+``--sweeps-only`` times the four bf16 sweeps alone, and ``--dims 768 1536``
+times them over a 2,097,152-row block of each width (the keys of a width
+other than 768 name it).
+
 ``PYTHONPATH`` names the checkout whose package is timed, so two checkouts
 compare on one card by running this script in turns with each (parent,
 change, change, parent), from either tree; the ``package`` key says which
@@ -30,6 +34,7 @@ one ran.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -143,7 +148,25 @@ def bench_int(dev, g, corpus):
     return res
 
 
-def main():
+def bench_bf16(dev, g, corpus, res, tag=""):
+    """The four bf16 sweeps over ``corpus`` at B = 512 and 64, queued."""
+    for B in (512, 64):
+        q = torch.randn(B, corpus.shape[1], generator=g, device=dev).to(torch.bfloat16)
+        tau = p9999(q, corpus)
+        res[f"count_above_groups B={B} N={ROWS}{tag}"] = queued_ms(
+            lambda: mk.count_above_groups_kernel(q, corpus, tau))
+        res[f"count_above B={B}{tag}"] = queued_ms(lambda: mk.count_above_kernel(q, corpus, tau))
+        res[f"groupmax B={B}{tag}"] = queued_ms(lambda: mk.groupmax_kernel(q, corpus))
+        res[f"tile_max_scores B={B}{tag}"] = queued_ms(
+            lambda: mk.tile_max_scores_kernel(q, corpus, mk.TILE_ROWS))
+    return q
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--dims", type=int, nargs="+", default=[DIM])
+    parser.add_argument("--sweeps-only", action="store_true")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_sweeps: no CUDA device", file=sys.stderr)
         return 1
@@ -151,17 +174,19 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator(device=dev).manual_seed(SEED)
-    corpus = torch.randn(ROWS, DIM, generator=g, device=dev).to(torch.bfloat16)
     res = {}
-    for B in (512, 64):
-        q = torch.randn(B, DIM, generator=g, device=dev).to(torch.bfloat16)
-        tau = p9999(q, corpus)
-        res[f"count_above_groups B={B} N={ROWS}"] = queued_ms(
-            lambda: mk.count_above_groups_kernel(q, corpus, tau))
-        res[f"count_above B={B}"] = queued_ms(lambda: mk.count_above_kernel(q, corpus, tau))
-        res[f"groupmax B={B}"] = queued_ms(lambda: mk.groupmax_kernel(q, corpus))
-        res[f"tile_max_scores B={B}"] = queued_ms(
-            lambda: mk.tile_max_scores_kernel(q, corpus, mk.TILE_ROWS))
+    for D in (d for d in args.dims if d != DIM):
+        wide = torch.randn(ROWS, D, generator=g, device=dev).to(torch.bfloat16)
+        bench_bf16(dev, g, wide, res, f" D={D}")
+        del wide
+    if args.sweeps_only and DIM not in args.dims:
+        print(json.dumps({"package": mk.__file__, "device": smi, "results": res}))
+        return 0
+    corpus = torch.randn(ROWS, DIM, generator=g, device=dev).to(torch.bfloat16)
+    q = bench_bf16(dev, g, corpus, res)
+    if args.sweeps_only:
+        print(json.dumps({"package": mk.__file__, "device": smi, "results": res}))
+        return 0
     res.update(bench_int(dev, g, corpus))
     half = corpus[: ROWS // 2]
     tau = p9999(q, half)

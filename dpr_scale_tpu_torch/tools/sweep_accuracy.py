@@ -9,8 +9,10 @@ non-negative floats; normal), B queries against N bf16 rows: the tile
 maxima of ``tile_max_scores`` (kernel and plain) against fp64, and
 ``count_above``'s counts against plain at thresholds midway between each
 query's k-th and (k+1)-th exact score (those clear of both by twice
-``COUNT_MARGIN_REL`` x |tau| must agree). D % 8 != 0 takes the score-tile
-route, D % 8 == 0 the wgmma route. One JSON line per case.
+``COUNT_MARGIN_REL`` x |tau| must agree); ``groupmax``'s 8-row group
+maxima against fp64 and ``count_above_groups``' counts over 256-row groups
+against plain in the groups with no score that near tau. D % 8 != 0 takes
+the score-tile route, D % 8 == 0 the wgmma route. One JSON line per case.
 """
 from __future__ import annotations
 
@@ -54,6 +56,11 @@ def case(kind, B, N, D, k, g, dev):
     route = next(r for r, n in mk.tile_max_scores_kernel.launches_by_route.items() if n > before[r])
     counts = mk.count_above_kernel(q, c, tau)
     plain = mk.count_above_plain(q, c, tau)
+    t1, _t2 = mk.groupmax_kernel(q, c)
+    near = ((exact - tau.double()[:, None]).abs() <= 2 * COUNT_MARGIN_REL * tau.abs().double()[:, None])
+    clear_groups = ~near.view(B, -1, 256).any(dim=2)
+    groups = mk.count_above_groups_kernel(q, c, tau, 256)
+    plain_groups = mk.count_above_groups_plain(q, c, tau, 256)
     return {
         "D": D, "kind": kind, "route": route,
         "tile_max_err_kernel": (kernel_max - tile).abs().max().item(),
@@ -62,6 +69,9 @@ def case(kind, B, N, D, k, g, dev):
         "counts_differing": int((counts != plain).sum()),
         "clear_thresholds": int(clear.sum()),
         "clear_counts_differing": int((counts != plain)[clear].sum()),
+        "groupmax_err_kernel": (t1.double().T - exact.view(B, -1, 8).amax(2)).abs().max().item(),
+        "clear_groups": int(clear_groups.sum()),
+        "clear_group_counts_differing": int((groups != plain_groups)[clear_groups].sum()),
     }
 
 

@@ -8,8 +8,11 @@ training loss is the MSE of ``DenseEncoder``'s output onto the batch's
 against ``arange`` (each row's own target is its gold) with
 :func:`~dpr_scale_tpu_torch.train.loss.rank_metrics` (:171-194). The step
 updates the state in place, as the dense task's does; the dropout of step
-``n`` is a pure function of ``(dropout_seed, n)``. Single device only: the
-multi-GPU step is ROADMAP.md A5.
+``n`` is a pure function of ``(dropout_seed, n)``. On a rank's slice of a
+global batch (``parallel.mesh.SHARDED``) the predictions and targets of
+every rank are gathered (this rank's predictions spliced in with their
+graph), the loss is the global batch's and the ranks' gradients are
+summed, as in the dense task.
 """
 from __future__ import annotations
 
@@ -22,6 +25,13 @@ import torch
 from dpr_scale_tpu_torch.models.encoder import DenseEncoder
 from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig
 from dpr_scale_tpu_torch.optim.factory import AdamW, Optimizer, global_norm
+from dpr_scale_tpu_torch.parallel.mesh import (
+    SHARDED,
+    all_gather_cat,
+    all_reduce_sum,
+    gather_splice,
+    step_dropout_rng,
+)
 from dpr_scale_tpu_torch.train.loss import rank_metrics
 from dpr_scale_tpu_torch.train.task import TrainState, new_state, summed_eval
 
@@ -55,7 +65,7 @@ class DPRDistillTask:
         return state
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
+        out = {SHARDED: True} if batch.get(SHARDED) else {}
         for key in ("query_ids", "query_mask", "target_vectors"):
             t = torch.from_numpy(np.ascontiguousarray(batch[key]))
             if self.device.type == "cuda":
@@ -68,15 +78,21 @@ class DPRDistillTask:
         ``state.model.parameters()``; deterministic without ``rng``."""
         params = list(state.model.parameters())
         pred = state.model(batch["query_ids"], batch["query_mask"], rng)
-        loss = torch.mean((pred - batch["target_vectors"]) ** 2)
+        targets = batch["target_vectors"]
+        if batch.get(SHARDED):
+            pred, targets = gather_splice(pred), all_gather_cat(targets)
+        loss = torch.mean((pred - targets) ** 2)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return loss, [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
     def train_step(self, state: TrainState, batch, epoch: float = 0) -> Tuple[TrainState, Dict]:
         """One step; the loss and the PRE-clip global norm of its gradient
         stay on the device. ``epoch`` is unused."""
-        rng = DropoutRng(state.dropout_seed, state.step, self.device)
+        sharded = bool(batch.get(SHARDED))
+        rng = step_dropout_rng(state.dropout_seed, state.step, self.device, sharded)
         loss, grads = self.loss_and_grads(state, batch, rng)
+        if sharded:
+            all_reduce_sum(grads)
         params = list(state.model.parameters())
         grad_norm = global_norm(grads)
         self.optimizer.update(params, grads, state.opt_state, grad_norm)

@@ -11,12 +11,19 @@ epoch and position, so the batches are those of an unbroken run).
 (:func:`~dpr_scale_tpu_torch.utils.profiling.trace_if`). Each step gets
 its epoch as a float, as in JAX: the multi-vector task anneals its
 regularisers by it.
+
+In a data-parallel run (:mod:`dpr_scale_tpu_torch.parallel`) every rank
+builds the same global batches and trains on its contiguous slice of each
+(``shard_batch``); validation runs whole on every rank (the same metrics
+everywhere). Rank 0 alone logs, saves checkpoints (every rank takes part in
+gathering a ZeRO-1 state first) and runs the test.
 """
 from __future__ import annotations
 
 import time
 from typing import Dict, Optional
 
+from dpr_scale_tpu_torch.parallel.mesh import SHARDED, is_main, shard_batch, world_size
 from dpr_scale_tpu_torch.train.checkpoint import CheckpointManager
 from dpr_scale_tpu_torch.train.task import TrainState
 from dpr_scale_tpu_torch.utils.logging import MetricLogger
@@ -66,11 +73,14 @@ class Trainer:
             batches, skip = self.dm.train_batches(epoch, start_batch=skip), 0
             for batch in batches:
                 examples += len(batch.get("pos_ctx_indices", batch["query_ids"]))
+                local, sharded = shard_batch(batch)
+                if sharded:
+                    local[SHARDED] = True
                 state, metrics = self.task.train_step(
-                    state, self.task.to_device(batch), float(epoch)
+                    state, self.task.to_device(local), float(epoch)
                 )
                 global_step += 1
-                if global_step % self.log_every == 0:
+                if global_step % self.log_every == 0 and is_main():
                     scalars = {
                         "train_loss": float(metrics["train_loss"]),
                         "grad_norm": float(metrics["grad_norm"]),
@@ -93,16 +103,22 @@ class Trainer:
             return {}  # eval_every_steps on an epoch's end: one save a step
         self._last_validated_step = step
         metrics = self.task.run_eval(state, self.dm.val_batches())
-        if metrics:
+        if metrics and is_main():
             self.log.scalars(step, {f"valid_{k}": v for k, v in metrics.items()})
-        if self.checkpoint is not None:
+        if self.checkpoint is not None and world_size() == 1:
             self.checkpoint.save(step, state, metrics or {})
+        elif self.checkpoint is not None:
+            snapshot = state.state_dict()  # every rank: gathers a ZeRO-1 state
+            if is_main():
+                self.checkpoint.save(step, snapshot, metrics or {})
         return metrics
 
     def test(self, state: TrainState, restore_best: bool = True) -> Dict[str, float]:
         """Test metrics of the best checkpoint, restored into ``state`` in
         place (of ``state`` itself without a checkpoint, or with
-        ``restore_best=False``)."""
+        ``restore_best=False``). Rank 0 alone: the others return {}."""
+        if not is_main():
+            return {}
         if restore_best and self.checkpoint is not None and self.checkpoint.best_step() is not None:
             state = self.checkpoint.restore(state)
         metrics = self.task.run_eval(state, self.dm.test_batches())

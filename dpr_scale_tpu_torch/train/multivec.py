@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from dpr_scale_tpu_torch.models.multivec import MultiVecEncoder
 from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig, fold
 from dpr_scale_tpu_torch.optim.factory import AdamW, Optimizer, global_norm
+from dpr_scale_tpu_torch.parallel.mesh import world_size
 from dpr_scale_tpu_torch.train.gradcache import grad_cache_grads
 from dpr_scale_tpu_torch.train.loss import NEG_INF, rank_metrics
 from dpr_scale_tpu_torch.train.task import TrainState, batch_to_device, new_state, summed_eval
@@ -249,6 +250,18 @@ def softmax_ce(scores, labels):
 # task
 
 
+def refuse_data_parallel() -> None:
+    """The multi-vector task trains in one process: its router statistics
+    (usage, the load-balancing terms) are statistics of the global batch,
+    which a rank's slice does not give. Data parallelism is ROADMAP A13."""
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"task.type=multivec under data parallelism (world size {world_size()}) is not "
+            "ported: its router statistics are global-batch statistics (ROADMAP.md A13); "
+            "train it in one process"
+        )
+
+
 @dataclasses.dataclass
 class MultiVecRetrieverTask:
     """CITADEL / COIL / ColBERT training (reference MultiVecRetrieverTask)
@@ -434,7 +447,9 @@ class MultiVecRetrieverTask:
     def train_step(self, state: TrainState, batch, epoch: float = 0) -> Tuple[TrainState, Dict]:
         """One step (an update, or with accumulation a micro-step). Metrics
         stay on the device: the loss terms, the routing statistics, the loss
-        and the PRE-clip global norm of the gradient."""
+        and the PRE-clip global norm of the gradient. One process only:
+        the router statistics are the global batch's."""
+        refuse_data_parallel()
         rng = DropoutRng(state.dropout_seed, state.step, self.device)
         loss, metrics, grads = self.loss_and_grads(state, batch, rng, epoch)
         params = list(state.model.parameters())

@@ -14,8 +14,15 @@ and returns the same state object. The dropout of step ``n`` is a pure
 function of ``(dropout_seed, n)`` (:class:`DropoutRng`), as JAX's
 ``fold_in(dropout_rng, step)`` is. ``grad_cache_chunks > 1`` takes the
 gradients by GradCache (:mod:`dpr_scale_tpu_torch.train.gradcache`): the
-monolithic step's at the activation memory of one chunk. Single device
-only: the multi-GPU global batch (all_gather of contexts) is ROADMAP.md A5.
+monolithic step's at the activation memory of one chunk.
+
+Data parallel (:mod:`dpr_scale_tpu_torch.parallel.mesh`): on a batch that is
+this rank's slice of the global one (``SHARDED``), the query and context
+embeddings of every rank are gathered, this rank's own spliced in with its
+graph (reference ``dpr_task.py:163-196``), the loss is the global batch's,
+and the ranks' gradients are summed: each rank's step is the
+single-process step on the global batch. ``Zero1`` partitions the
+optimizer state.
 """
 from __future__ import annotations
 
@@ -29,6 +36,16 @@ from dpr_scale_tpu_torch.models.convert import init_params
 from dpr_scale_tpu_torch.models.encoder import BiEncoder, SpladeBiEncoder
 from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig
 from dpr_scale_tpu_torch.optim.factory import AdamW, Optimizer, global_norm
+from dpr_scale_tpu_torch.parallel.mesh import (
+    SHARDED,
+    ZERO1_KEY,
+    all_gather_cat,
+    all_reduce_sum,
+    gather_splice,
+    gather_zero1,
+    rank,
+    step_dropout_rng,
+)
 from dpr_scale_tpu_torch.train.gradcache import grad_cache_grads
 from dpr_scale_tpu_torch.train.loss import contrastive_loss, rank_metrics
 
@@ -47,10 +64,18 @@ class TrainState:
         optimizer's state (:meth:`Optimizer.init`), each per-parameter list
         keyed by the parameter names (the live tensors, not copies), its
         name under ``optimizer`` and its counters as ints; ``step`` and
-        ``dropout_seed``."""
+        ``dropout_seed``. A ZeRO-1 state is gathered whole first (a
+        collective: every rank calls this), so that its checkpoint loads at
+        any world size."""
         names = [name for name, _ in self.model.named_parameters()]
-        out = {"params": {name: p.detach() for name, p in self.model.named_parameters()}}
+        params = [p for _, p in self.model.named_parameters()]
+        owner = self.opt_state.get(ZERO1_KEY)
+        out = {"params": {name: p.detach() for name, p in zip(names, params)}}
         for key, value in self.opt_state.items():
+            if key == ZERO1_KEY:
+                continue
+            if isinstance(value, list) and owner is not None:
+                value = gather_zero1(value, owner, params)
             out[key] = dict(zip(names, value)) if isinstance(value, list) else value
         out["step"], out["dropout_seed"] = int(self.step), int(self.dropout_seed)
         return out
@@ -64,7 +89,7 @@ class TrainState:
         name, or a shape that differs."""
         mine = self.opt_state["optimizer"]
         theirs = state.get("optimizer")
-        layout = set(self.opt_state) - {"optimizer"}
+        layout = set(self.opt_state) - {"optimizer", ZERO1_KEY}
         if (theirs is None and layout != {"count", "mu", "nu"}) or theirs not in (None, mine):
             raise ValueError(
                 f"the checkpoint holds the state of optimizer {theirs or 'adamw'!r}, this "
@@ -72,8 +97,10 @@ class TrainState:
             )
         self.model.load_state_dict(state["params"])
         names = [name for name, _ in self.model.named_parameters()]
+        owner = self.opt_state.get(ZERO1_KEY)  # ZeRO-1: this rank's entries only
+        mine_names = names if owner is None else [n for n, o in zip(names, owner) if o == rank()]
         for key, mine_value in self.opt_state.items():
-            if key == "optimizer":
+            if key in ("optimizer", ZERO1_KEY):
                 continue
             if not isinstance(mine_value, list):
                 self.opt_state[key] = int(state[key])
@@ -84,7 +111,7 @@ class TrainState:
                     f"{sorted(set(names) - set(state[key]))}, unexpected "
                     f"{sorted(set(state[key]) - set(names))}"
                 )
-            for name, t in zip(names, mine_value):
+            for name, t in zip(mine_names, mine_value):
                 src = state[key][name]
                 if src.shape != t.shape:
                     raise ValueError(f"optimizer {key}[{name}]: {tuple(src.shape)} != {tuple(t.shape)}")
@@ -107,8 +134,9 @@ def new_state(model, optimizer: Optimizer, seed: int, state_dict, device) -> Tra
 def batch_to_device(batch: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A numpy batch from the datamodule -> tensors on ``device`` (pinned,
     non-blocking copies on a GPU), the teacher ``scores`` too where the
-    batch has them."""
-    out = {}
+    batch has them; a rank's slice of a global batch keeps its ``SHARDED``
+    flag."""
+    out = {SHARDED: True} if batch.get(SHARDED) else {}
     for key in _INT_KEYS + ("pos_ctx_indices", "ctx_mask", "scores"):
         if key not in batch:
             continue
@@ -192,10 +220,18 @@ class DenseRetrieverTask:
 
     def _loss(self, model, batch, rng: Optional[DropoutRng], in_batch_negatives: bool):
         q, c = model(*(batch[k] for k in _INT_KEYS), rng)
-        return contrastive_loss(
-            q, c, batch["pos_ctx_indices"], batch["ctx_mask"],
-            self.softmax_temperature, in_batch_negatives,
-        )
+        return self._global_loss(q, c, batch, in_batch_negatives)
+
+    def _global_loss(self, q, c, batch, in_batch_negatives: bool):
+        """The loss over the global score matrix: a sharded batch's
+        embeddings gathered from every rank, this rank's spliced in, and its
+        positive indices (which point into the global context list) and
+        dummy mask gathered."""
+        pos, ctx_mask = batch["pos_ctx_indices"], batch["ctx_mask"]
+        if batch.get(SHARDED):
+            q, c = gather_splice(q), gather_splice(c)
+            pos, ctx_mask = all_gather_cat(pos), all_gather_cat(ctx_mask)
+        return contrastive_loss(q, c, pos, ctx_mask, self.softmax_temperature, in_batch_negatives)
 
     def loss_and_grads(
         self, state: TrainState, batch, rng: Optional[DropoutRng] = None
@@ -220,10 +256,8 @@ class DenseRetrieverTask:
             return {"emb": q}, {"emb": c}
 
         def loss_on_reprs(q_full, c_full):
-            loss, _scores = contrastive_loss(
-                q_full["emb"], c_full["emb"], batch["pos_ctx_indices"], batch["ctx_mask"],
-                self.softmax_temperature, self.in_batch_negatives,
-            )
+            loss, _scores = self._global_loss(q_full["emb"], c_full["emb"], batch,
+                                              self.in_batch_negatives)
             return loss, {}
 
         loss, _aux, grads = grad_cache_grads(
@@ -235,9 +269,14 @@ class DenseRetrieverTask:
         """One step (an update, or with accumulation a micro-step). Metrics
         stay on the device (no host sync): the loss and the PRE-clip global
         norm of this step's gradient. ``epoch`` is unused (the loop passes
-        it to every task)."""
-        rng = DropoutRng(state.dropout_seed, state.step, self.device)
+        it to every task). A sharded batch (``SHARDED``) gives every rank
+        the global batch's loss and, once the ranks' gradients are summed,
+        its gradient."""
+        sharded = bool(batch.get(SHARDED))
+        rng = step_dropout_rng(state.dropout_seed, state.step, self.device, sharded)
         loss, grads = self.loss_and_grads(state, batch, rng)
+        if sharded:
+            all_reduce_sum(grads)
         params = list(state.model.parameters())
         grad_norm = global_norm(grads)
         self.optimizer.update(params, grads, state.opt_state, grad_norm)

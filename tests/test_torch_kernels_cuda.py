@@ -905,3 +905,45 @@ def test_score_tile_counts_at_splade_width_equal_plain(cuda_device, kind):
     ref = mips_kernels.count_above_plain(q, c, tau)
     assert clear.sum() > B // 2 and (ref[clear] == k).all()
     torch.testing.assert_close(out[clear], ref[clear], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 130])
+@pytest.mark.parametrize("kind", ["dense_non_negative", "normal"])
+def test_wgmma_counts_at_wide_d_equal_plain(cuda_device, kind, B):
+    """D = 30,528 (a multiple of 8: the wgmma route of gmax_sweep.cuh):
+    count_above's counts, and count_above_groups' over 256-row groups,
+    equal plain wherever the threshold is clear of every score by twice
+    COUNT_MARGIN_REL x |tau|. Carried through the tensor cores over all of
+    D, the sums drifted ~1e-4 of their size, one-sided, and 106 of 150
+    clear counts of dense non-negative vectors were wrong; past PROMOTE_D
+    each 64-column stage now adds into the running score with fp32 adds
+    (B = 130: the QM = 64 layout that width takes at any batch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    N, D, k, margin = 1280, 30528, 100, 2e-5
+
+    def make(n):
+        x = torch.randn(n, D, generator=g, device=cuda_device)
+        return torch.relu(x) * 2 + 0.1 * (x > 0) if kind == "dense_non_negative" else x
+
+    q, c = make(B).to(torch.bfloat16), make(N).to(torch.bfloat16)
+    exact = q.double() @ c.double().T
+    best = torch.topk(exact, k + 1, dim=1).values
+    tau = ((best[:, k - 1] + best[:, k]) / 2).float().contiguous()
+    clear = (best[:, k - 1] - best[:, k]) > 2 * margin * tau.abs().double()
+    # every group's count is clear where no score of the row lies near tau
+    near = ((exact - tau.double()[:, None]).abs() <= 2 * margin * tau.abs().double()[:, None])
+    before = (mips_kernels.count_above_kernel.launches_by_route["wgmma"],
+              mips_kernels.count_above_groups_kernel.launches_by_route["wgmma"])
+    out = mips_kernels.count_above_kernel(q, c, tau)
+    groups = mips_kernels.count_above_groups_kernel(q, c, tau, 256)
+    torch.cuda.synchronize()
+    assert (mips_kernels.count_above_kernel.launches_by_route["wgmma"],
+            mips_kernels.count_above_groups_kernel.launches_by_route["wgmma"]) == (
+                before[0] + 1, before[1] + 1)
+    ref = mips_kernels.count_above_plain(q, c, tau)
+    assert clear.sum() > B // 2 and (ref[clear] == k).all()
+    torch.testing.assert_close(out[clear], ref[clear], atol=0, rtol=0)
+    ref_groups = mips_kernels.count_above_groups_plain(q, c, tau, 256)
+    clear_groups = ~near.view(B, -1, 256).any(dim=2)
+    torch.testing.assert_close(groups[clear_groups], ref_groups[clear_groups], atol=0, rtol=0)

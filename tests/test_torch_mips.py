@@ -182,13 +182,13 @@ def test_search_takes_tensors_and_bf16_blocks():
 
 def test_unported_methods_are_refused():
     """The quantised tiers are ported (tests/test_torch_int_mips.py holds
-    them to JAX); host-resident blocks still raise, naming ROADMAP A1."""
+    them to JAX), and so are host-resident blocks (ROADMAP A1, which
+    raised until then; tests/test_torch_host_resident.py holds them to
+    JAX); only an unknown method is refused."""
     for method in ("int8", "int4"):
         assert MipsIndex("cpu", method=method).method == method
-    with pytest.raises(NotImplementedError, match="host_resident.*A1"):
-        MipsIndex("cpu", host_resident=True)
-    with pytest.raises(NotImplementedError, match="host_resident.*A1"):
-        MipsIndex("cpu", method="int8", host_resident=True)
+    assert MipsIndex("cpu", host_resident=True).host_resident
+    assert MipsIndex("cpu", method="int8", host_resident=True).host_resident
     with pytest.raises(ValueError, match="unknown"):
         MipsIndex("cpu", method="sorted")
 

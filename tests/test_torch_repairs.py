@@ -13,12 +13,13 @@
   ``serve_citadel.expert_parallel`` (ROADMAP A12);
 * ``cli.train`` dropped ``trainer.tensorboard_dir`` (now handed to the
   logger, as JAX does), ``trainer.profile_dir`` (now handed to the
-  trainer's profiler) and ``trainer.num_devices`` (now more than one device is
-  refused, and so is an absent or null key while more than one CUDA device
-  is visible: multi-GPU training is ROADMAP A5);
-* refusals named the wrong ROADMAP item; the one that remains names A5
-  (more than one device); the distillation task and worker processes,
-  once refused naming A8, now run.
+  trainer's profiler) and ``trainer.num_devices`` (more than one device
+  was then refused, naming ROADMAP A5; since A5 was ported it trains on
+  that many processes, all visible CUDA devices for an absent or null key,
+  and only the multi-vector task is refused there, naming A13);
+* refusals named the wrong ROADMAP item; the one that remains names A13
+  (the multi-vector task on several devices); the distillation task and
+  worker processes, once refused naming A8, now run.
 """
 import os
 import pickle
@@ -164,15 +165,17 @@ def test_cli_train_hands_tensorboard_dir_to_the_logger(tiny_bert_dir, dpr10_json
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["trainer.num_devices=2"], "num_devices=2.*A5"),
+    (["trainer.num_devices=2", "task.type=multivec"], "multivec.*num_devices=2.*A13"),
     (["task.type=distill"], None),
 ], ids=["num_devices", "distill"])
 def test_cli_train_refusals_name_their_roadmap_item(tiny_bert_dir, dpr10_jsonl, tmp_path, extra,
                                                     item):
     """C6-C8: each refusal of ``cli.train`` names the item that ports it,
-    and none names the exporter of A1. ``task.type=distill`` (refused naming
-    A8 until the distillation task was ported) now trains on rows with
-    teacher vectors."""
+    and none names the exporter of A1. ``trainer.num_devices=2`` (refused
+    naming A5 until data parallelism was ported) trains, except the
+    multi-vector task, whose data-parallel step is A13.
+    ``task.type=distill`` (refused naming A8 until the distillation task
+    was ported) now trains on rows with teacher vectors."""
     if item is None:
         import json
 
@@ -188,7 +191,7 @@ def test_cli_train_refusals_name_their_roadmap_item(tiny_bert_dir, dpr10_jsonl, 
     with pytest.raises(NotImplementedError, match=item) as err:
         train.main(_train_argv(tiny_bert_dir, dpr10_jsonl, *extra))
     msg = str(err.value)
-    assert "A1" not in msg and ("A5" not in msg or "A5" in item), msg
+    assert "A1 " not in msg and "A1)" not in msg and "A5" not in msg, msg
 
 
 @pytest.mark.parametrize("num_devices,device,visible,refused", [
@@ -201,14 +204,20 @@ def test_cli_train_refusals_name_their_roadmap_item(tiny_bert_dir, dpr10_jsonl, 
 def test_cli_train_refuses_more_than_one_device(monkeypatch, num_devices, device, visible,
                                                 refused):
     """C7: the JAX trainer runs data-parallel over ``trainer.num_devices``
-    devices, all visible ones when the key is null or absent; the port runs
-    on one, so it refuses both unless one device is all there is."""
+    devices, all visible ones when the key is null or absent. The port
+    refused more than one until data parallelism was ported (ROADMAP A5);
+    now it trains on as many processes, one a device (``refused`` marks the
+    cases that were refused: more than one), and refuses only the
+    multi-vector task there (A13)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
     overrides = [] if num_devices is None else [f"trainer.num_devices={num_devices}"]
     cfg = load_config(os.path.join(CONF, "tiny_smoke.yaml"), overrides)
     assert cfg.trainer.get("num_devices") == num_devices
+    assert train.num_processes(cfg, torch.device(device)) == (2 if refused else 1)
+    train._refuse_unported(cfg, torch.device(device))
+    multivec = load_config(os.path.join(CONF, "tiny_smoke.yaml"), overrides + ["task.type=multivec"])
     if refused:
-        with pytest.raises(NotImplementedError, match="num_devices.*A5"):
-            train._refuse_unported(cfg, torch.device(device))
+        with pytest.raises(NotImplementedError, match="multivec.*A13"):
+            train._refuse_unported(multivec, torch.device(device))
     else:
-        train._refuse_unported(cfg, torch.device(device))
+        train._refuse_unported(multivec, torch.device(device))

@@ -186,16 +186,50 @@ def test_retrieve_passes_ignore_identical_ids_through(setup):
     ("task.int8_query_planes", "2"), ("task.mips_method", "int8"),
 ])
 def test_unported_tiers_raise_naming_a9(setup, option, value):
-    """The host-resident tiers still raise, now naming ROADMAP A1. The
-    quantised options are ported and act as in the JAX CLI on the default
-    ``fused`` index: a rerank there raises ValueError on both sides, the
-    query planes change nothing; ``int8`` answers as the JAX CLI does
-    (tests/test_torch_int_cli.py holds the tiers in full)."""
+    """Every tier is ported now and acts as in the JAX CLI. The host-resident
+    tiers (ROADMAP A1, which raised until they were ported):
+    ``host_resident_index`` streams the fused index's blocks from the host,
+    ``device_rows`` without a store changes nothing, and ``index_store``
+    refuses a method other than int8 on both sides, then with int8 builds a
+    store byte-equal to the JAX CLI's and answers as it does. The quantised
+    options act on the default ``fused`` index: a rerank there raises
+    ValueError on both sides, the query planes change nothing; ``int8``
+    answers as the JAX CLI does (tests/test_torch_int_cli.py holds the
+    tiers in full)."""
     d, common, qpath = setup
     extra = [f"task.query_emb_path={qpath}", f"{option}={value}"]
-    if option in ("task.host_resident_index", "task.index_store", "task.device_rows"):
-        with pytest.raises(NotImplementedError, match="A1"):
-            run_retrieval.main(common[:2] + ["--device", "cpu"] + common[2:] + extra)
+    if option == "task.index_store":
+        from dpr_scale_tpu.cli import run_retrieval as jax_run_retrieval
+
+        for main, argv in ((jax_run_retrieval.main, common + extra),
+                           (run_retrieval.main, common[:2] + ["--device", "cpu"] + common[2:]
+                            + extra)):
+            with pytest.raises(ValueError, match="index_store requires mips_method=int8"):
+                main(argv)
+        stores = {side: f"{d}/store_{side}" for side in ("jax", "port")}
+        outs = {}
+        for side, main, argv in (
+                ("jax", jax_run_retrieval.main, common),
+                ("port", run_retrieval.main, common[:2] + ["--device", "cpu"] + common[2:])):
+            main(argv + [f"task.query_emb_path={qpath}", "task.mips_method=int8",
+                         f"task.index_store={stores[side]}", "task.device_rows=0",
+                         f"task.output_trec_path={d}/{side}_store.trec"])
+            with open(f"{d}/{side}_store.trec") as f:
+                outs[side] = [line.split() for line in f]
+        for name in sorted(os.listdir(stores["jax"])):
+            with open(f"{stores['jax']}/{name}", "rb") as a, open(f"{stores['port']}/{name}",
+                                                                  "rb") as b:
+                assert a.read() == b.read(), name
+        assert [r[:4] for r in outs["port"]] == [r[:4] for r in outs["jax"]]
+        np.testing.assert_allclose([float(r[4]) for r in outs["port"]],
+                                   [float(r[4]) for r in outs["jax"]], rtol=1e-5)
+        return
+    if option in ("task.host_resident_index", "task.device_rows"):
+        (want, want_trec), (got, got_trec) = _run_both(d, common, qpath, "fused",
+                                                       [f"{option}={value}"])
+        assert [r[:4] for r in got_trec] == [r[:4] for r in want_trec]
+        for g, w in zip(got, want):
+            assert [c["id"] for c in g["ctxs"]] == [c["id"] for c in w["ctxs"]]
         return
     if option == "task.rerank_oversample":
         from dpr_scale_tpu.cli import run_retrieval as jax_run_retrieval
