@@ -245,6 +245,24 @@ save, a resume and an export into encoding and retrieval. Phases:
      ddp_sharded (ZeRO-1): the same losses and parameters, and the ZeRO-1
      checkpoint loaded without a group; (d) cli.sweep over two one-step
      runs. Each main-path run counted alone.
+ 23. the expert-parallel CITADEL search and the multi-vector task under
+     data parallelism (phase_expert_parallel): (a) phase 13's 8.8M-doc
+     index laid out over EP_SHARDS shards of the card and on the card alone
+     from the same tensors, every search of the sharded layout (with CLS:
+     the dense combine over the shards' accumulator columns; without: the
+     sorted combine) within CITADEL_SAME_REL of the single-device one, the
+     same docs but for near-ties; ms a search of both layouts by CUDA
+     events, the peak memory, the largest shard's accumulator bytes; the
+     gather kernels held against plain at the shards' bucket shapes; (b)
+     ``cli.citadel_retrieval`` (bf16 device index) and the
+     ``serve_citadel`` tower's ``/search_citadel`` on phase 20's export,
+     each with ``expert_parallel`` over EP_SHARDS x the card (the device
+     list replaced in-process) against the same run without it; (c)
+     ``cli.train`` on conf/citadel.yaml at its batch (128 queries, 256
+     contexts, L = 128) for EP_DP_STEPS steps, without a process group and
+     in a world-size-1 NCCL group with ZeRO-1: the same losses and
+     parameters. The serial (or streamed) gather must launch in (a) and
+     (b). Each main-path run counted alone.
 
 Weights and data are made from fixed seeds. Needs a CUDA device; exits
 non-zero without one, or when any check fails. The last two lines of
@@ -1725,7 +1743,7 @@ def _oracle(index, docs_of, query, rows):
             e, w = int(query["expert_ids"][b, t, 0]), float(query["expert_weights"][b, t, 0])
             bsize, slot = int(index._route_bsize[e]), int(index._route_slot[e])
             q = rounded(np.float32(w) * query["expert_repr"][b, t]).astype(np.float64)
-            block = index.buckets[bsize]["vecs"][slot].float().cpu().numpy()
+            block = index.buckets[bsize]["shards"][0]["vecs"][slot].float().cpu().numpy()
             docs = docs_of[bsize][slot]
             live = docs >= 0
             s, d = (block @ q)[live], docs[live]
@@ -1733,10 +1751,57 @@ def _oracle(index, docs_of, query, rows):
             acc[i, d[first]] += np.maximum(np.maximum.reduceat(s, first), 0.0)
     if "cls_repr" in query:
         qc = rounded(query["cls_repr"][rows])
-        step = 1 << 20
+        step, cls = 1 << 20, index.cls[0][: index.num_docs]  # past num_docs: padding
         for lo in range(0, index.num_docs, step):
-            acc[:, lo : lo + step] += qc @ index.cls[lo : lo + step].float().cpu().numpy().T
+            acc[:, lo : lo + step] += qc @ cls[lo : lo + step].float().cpu().numpy().T
     return acc
+
+
+def _citadel_index(dev, n_docs, plan, dim, cls_dim, meshes=(None,)):
+    """Phase 13's synthetic index (seed SEED + 10) on ``dev``, laid out once
+    for each entry of ``meshes`` (None: one device; else the
+    expert-parallel device list) from the same bucket and CLS tensors.
+    Returns (the indexes, each bucket's doc ids, the expert count)."""
+    import numpy as np
+    import torch
+
+    from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
+
+    rng = np.random.default_rng(SEED + 10)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    indexes = [DeviceExpertIndex(n_docs, torch.bfloat16, dev, mesh) for mesh in meshes]
+    docs_of, first = {}, 0
+    for bsize, n_exp in plan:
+        docs, run_id, run_doc, start_pos, mrl = _synth_bucket(rng, n_exp, bsize, n_docs)
+        vecs = (torch.randn(n_exp, bsize, dim, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+        vecs[:, int(bsize * 0.7):] = 0  # pad rows score 0, as from_host_index leaves them
+        for index in indexes:
+            index.add_bucket(bsize, np.arange(first, first + n_exp), vecs, run_id, run_doc,
+                             start_pos, mrl)
+        docs_of[bsize], first = docs, first + n_exp
+        del vecs
+    cls = torch.empty(n_docs, cls_dim, dtype=torch.bfloat16, device=dev)
+    for lo in range(0, n_docs, 1 << 20):
+        rows = min(1 << 20, n_docs - lo)
+        cls[lo : lo + rows] = torch.randn(rows, cls_dim, generator=g, device=dev) * 0.3
+    for index in indexes:
+        index.set_cls(cls)
+    return indexes, docs_of, first
+
+
+def _citadel_queries(n_experts, batch, qtokens, dim, cls_dim):
+    """Phase 13's query batch (seed SEED + 11): (with CLS, without)."""
+    import numpy as np
+
+    qrng = np.random.default_rng(SEED + 11)
+    query = {
+        "expert_ids": qrng.integers(0, n_experts, size=(batch, qtokens, 1)).astype(np.int64),
+        "expert_weights": qrng.random((batch, qtokens, 1)).astype(np.float32),
+        "expert_repr": qrng.normal(size=(batch, qtokens, dim)).astype(np.float32),
+        "attention_mask": np.ones((batch, qtokens), np.int64),
+        "cls_repr": qrng.normal(size=(batch, cls_dim)).astype(np.float32),
+    }
+    return query, {k: v for k, v in query.items() if k != "cls_repr"}
 
 
 def phase_citadel_search(dev, n_docs=CITADEL_DOCS, plan=CITADEL_PLAN, batch=CITADEL_BATCH,
@@ -1750,44 +1815,20 @@ def phase_citadel_search(dev, n_docs=CITADEL_DOCS, plan=CITADEL_PLAN, batch=CITA
     import numpy as np
     import torch
 
-    from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
     from dpr_scale_tpu_torch.ops import gather_score as gs
 
-    rng = np.random.default_rng(SEED + 10)
-    g = torch.Generator(device=dev).manual_seed(SEED + 10)
     t0 = time.perf_counter()
-    index = DeviceExpertIndex(n_docs, torch.bfloat16, dev)
-    docs_of, first = {}, 0
-    for bsize, n_exp in plan:
-        docs, run_id, run_doc, start_pos, mrl = _synth_bucket(rng, n_exp, bsize, n_docs)
-        vecs = (torch.randn(n_exp, bsize, dim, generator=g, device=dev) * 0.3).to(torch.bfloat16)
-        vecs[:, int(bsize * 0.7):] = 0  # pad rows score 0, as from_host_index leaves them
-        index.add_bucket(bsize, np.arange(first, first + n_exp), vecs, run_id, run_doc,
-                         start_pos, mrl)
-        docs_of[bsize], first = docs, first + n_exp
-        del vecs
-    index.cls = torch.empty(n_docs, cls_dim, dtype=torch.bfloat16, device=dev)
-    for lo in range(0, n_docs, 1 << 20):
-        rows = min(1 << 20, n_docs - lo)
-        index.cls[lo : lo + rows] = torch.randn(rows, cls_dim, generator=g, device=dev) * 0.3
+    (index,), docs_of, first = _citadel_index(dev, n_docs, plan, dim, cls_dim)
     postings = sum(b * n for b, n in plan)
-    nbytes = sum(b["vecs"].numel() * 2 for b in index.buckets.values())
+    nbytes = sum(s["vecs"].numel() * 2 for b in index.buckets.values() for s in b["shards"])
     if dev.type == "cuda":
         torch.cuda.synchronize()
     print(f"citadel index built on {dev} in {time.perf_counter() - t0:.2f} s: {first} experts, "
           f"{postings} padded postings, D={dim} bf16 ({nbytes / 1e9:.3f} GB), CLS plane "
-          f"({n_docs}, {cls_dim}) bf16 ({index.cls.numel() * 2 / 1e9:.3f} GB), {n_docs} docs; "
+          f"({n_docs}, {cls_dim}) bf16 ({index.cls[0].numel() * 2 / 1e9:.3f} GB), {n_docs} docs; "
           "max run lengths " + str({b: v["max_run_len"] for b, v in index.buckets.items()}))
 
-    qrng = np.random.default_rng(SEED + 11)
-    query = {
-        "expert_ids": qrng.integers(0, first, size=(batch, qtokens, 1)).astype(np.int64),
-        "expert_weights": qrng.random((batch, qtokens, 1)).astype(np.float32),
-        "expert_repr": qrng.normal(size=(batch, qtokens, dim)).astype(np.float32),
-        "attention_mask": np.ones((batch, qtokens), np.int64),
-        "cls_repr": qrng.normal(size=(batch, cls_dim)).astype(np.float32),
-    }
-    no_cls = {k: v for k, v in query.items() if k != "cls_repr"}
+    query, no_cls = _citadel_queries(first, batch, qtokens, dim, cls_dim)
     cuda = dev.type == "cuda"
     gs.gather_score_serial_kernel.launches = gs.gather_score_streamed_kernel.launches = 0
     stats = {}
@@ -1848,16 +1889,19 @@ def phase_citadel_search(dev, n_docs=CITADEL_DOCS, plan=CITADEL_PLAN, batch=CITA
         if bad_plain or bad_oracle:
             raise AssertionError(f"citadel search {tag} disagrees with its plain path or oracle")
     if cuda:
-        from dpr_scale_tpu_torch.index.inverted_device import _tiled_topk
+        from dpr_scale_tpu_torch.index.inverted_device import TILE, _tiled_topk
         from dpr_scale_tpu_torch.tools.profile_serve import report
 
         for tag, q in (("with CLS", query), ("without CLS", no_cls)):
             report(f"citadel search {tag}, B={batch}", lambda: index.search(q, 100), dev, None)
-        # the dense combine's tiled top-k against torch.topk on a (B, num_docs)
-        # accumulator of CLS scores
-        acc = index._cls_scores(query["cls_repr"])
-        same = torch.equal(_tiled_topk(acc, 100)[0], torch.topk(acc, 100, dim=1).values)
-        tiled_ms = cuda_ms(lambda: _tiled_topk(acc, 100))
+        # the dense combine's tiled top-k against torch.topk on its
+        # accumulator of CLS scores (the columns past num_docs at -inf)
+        q = torch.from_numpy(query["cls_repr"]).to(dev, index.dtype)
+        acc = index._cls_scores(q, index.cls[0])
+        acc[:, n_docs:] = float("-inf")
+        blocks = [acc.view(batch, -1, TILE)]
+        same = torch.equal(_tiled_topk(blocks, 100, dev)[0], torch.topk(acc, 100, dim=1).values)
+        tiled_ms = cuda_ms(lambda: _tiled_topk(blocks, 100, dev))
         topk_ms = cuda_ms(lambda: torch.topk(acc, 100, dim=1))
         print(f"top-100 of the ({batch}, {n_docs}) fp32 accumulator: tiled {tiled_ms:.3f} ms, "
               f"torch.topk {topk_ms:.3f} ms; the same values: {same}")
@@ -4399,8 +4443,11 @@ def _load(index, st, device_rows):
     return index
 
 
-def _train_dp(work, dev, card, runs, batch, steps, extra):
-    """Phase 22 (c): cli.train with and without a world-size-1 group."""
+def _train_dp(work, dev, card, runs, batch, steps, extra, config="nq.yaml",
+              overrides=DP_OVERRIDES, needs=("attention_fwd_dropout", "attention_bwd"),
+              label="scale (c)"):
+    """Phase 22 (c), and 23 (c) on conf/citadel.yaml: cli.train on
+    ``config`` with ``overrides`` with and without a world-size-1 group."""
     import socket
 
     import numpy as np
@@ -4410,11 +4457,11 @@ def _train_dp(work, dev, card, runs, batch, steps, extra):
     from dpr_scale_tpu_torch.train.checkpoint import CheckpointManager
 
     tok_dir, _gold = write_keyed_data(work, batch * steps, 8, min(OWN_VAL_ROWS, batch * steps))
-    base = ["--config", os.path.join(ROOT, "conf", "nq.yaml"), "--device", str(dev),
+    base = ["--config", os.path.join(ROOT, "conf", config), "--device", str(dev),
             f"task.transform.model_path={tok_dir}", f"datamodule.train_path={work}/train.jsonl",
             f"datamodule.val_path={work}/val.jsonl", f"datamodule.test_path={work}/val.jsonl",
             f"datamodule.batch_size={batch}", f"trainer.max_steps={steps}", "trainer.log_every=1",
-            f"task.optim.lr={DP_LR}", f"task.warmup_steps={DP_WARMUP}", *DP_OVERRIDES, *extra]
+            f"task.optim.lr={DP_LR}", f"task.warmup_steps={DP_WARMUP}", *overrides, *extra]
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -4428,8 +4475,7 @@ def _train_dp(work, dev, card, runs, batch, steps, extra):
         try:
             runs(f"c cli.train {name}", lambda: train.main(base + more + [
                 f"trainer.metrics_jsonl={work}/{name}.jsonl",
-                f"checkpoint_callback.dirpath={work}/ckpt_{name}"]),
-                needs=("attention_fwd_dropout", "attention_bwd"))
+                f"checkpoint_callback.dirpath={work}/ckpt_{name}"]), needs=needs)
         finally:
             for key in env:
                 os.environ.pop(key, None)
@@ -4456,8 +4502,8 @@ def _train_dp(work, dev, card, runs, batch, steps, extra):
     n_all = sum(d.numel() for d in diffs)
     moments = max((states["nccl"]["mu"][n] - states["plain"]["mu"][n]).abs().max().item()
                   for n in states["plain"]["mu"])
-    print(f"scale (c) cli.train conf/nq.yaml, batch {batch}, {steps} steps, "
-          f"{' '.join(DP_OVERRIDES)}: without a group {walls['plain']:.2f} s wall, losses "
+    print(f"{label} cli.train conf/{config}, batch {batch}, {steps} steps, "
+          f"{' '.join(overrides)}: without a group {walls['plain']:.2f} s wall, losses "
           f"{logs['plain']}; NCCL world size 1 with trainer.strategy=ddp_sharded "
           f"{walls['nccl']:.2f} s, losses {logs['nccl']}; parameters after {steps} steps: "
           f"{n_diff} of {n_all} differ, max |diff| {max_diff:.3g} (lr {DP_LR}); first "
@@ -4521,6 +4567,247 @@ def phase_scale(work, dev, card="", n_rows=STREAM_ROWS, shard_rows=STREAM_SHARD_
           f"{time.perf_counter() - t_phase:.1f} s")
     if runs.missing:
         raise AssertionError(f"a kernel of phase 22's path never launched: {runs.missing}")
+    return total, shapes
+
+
+# phase 23 (phase_expert_parallel): the last two modules of the port on one
+# card. (a) ROADMAP A12 at phase 13's size: the 8.8M-doc index laid out over
+# EP_SHARDS shards of the card and on the card alone from the same tensors,
+# every search of the sharded layout against the single-device one (the
+# dense combine with CLS, the sorted one without); (b) cli.citadel_retrieval
+# and /search_citadel with expert_parallel on phase 20's export, the device
+# list replaced in-process by EP_SHARDS x the card, against the same runs
+# without it; (c) A13: cli.train on conf/citadel.yaml at its own batch in a
+# world-size-1 NCCL group with ZeRO-1 against the run without a group
+EP_SHARDS = 4
+EP_DP_STEPS = 3
+EP_SERVE_QUESTIONS = 32
+
+
+def _ep_counters():
+    """{name: (wrapper object, count attribute)} of phase 23's kernels."""
+    from dpr_scale_tpu_torch.ops import attention
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    return {"attention_fwd": (attention.attention_fwd_kernel, "launches"),
+            "attention_fwd_dropout": (attention.attention_fwd_kernel, "dropout_launches"),
+            "attention_bwd": (attention.attention_bwd_kernel, "launches"),
+            "gather_score_serial": (gs.gather_score_serial_kernel, "launches"),
+            "gather_score_streamed": (gs.gather_score_streamed_kernel, "launches")}
+
+
+def _ranked_rows(scores, rows):
+    return [list(zip(d.tolist(), s.tolist())) for s, d in zip(scores, rows)]
+
+
+def _ep_search(dev, card, runs, shape, shards=EP_SHARDS, n_docs=CITADEL_DOCS, plan=CITADEL_PLAN,
+               batch=CITADEL_BATCH, qtokens=CITADEL_QTOKENS, dim=CITADEL_DIM,
+               cls_dim=CITADEL_CLS_DIM, reps=5):
+    """Phase 23 (a) on ``dev`` (the sizes only shrink for a rehearsal on the
+    CPU): both layouts of phase 13's index, the sharded one's searches as a
+    main-path run, each against the single-device search within
+    CITADEL_SAME_REL (the same docs but for near-ties); on the card, the
+    gather kernels held against plain at the shards' bucket shapes."""
+    from unittest import mock
+
+    import torch
+
+    from dpr_scale_tpu_torch.ops import gather_score as gs
+
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    (one, ep), _docs, first = _citadel_index(dev, n_docs, plan, dim, cls_dim,
+                                            (None, [dev] * shards))
+    if cuda:
+        torch.cuda.synchronize()
+    ncols = ep._tiles()[1] // shards
+    print(f"expert-parallel (a) {n_docs} docs, {first} experts, on {dev} alone and over {shards} "
+          f"shards of it, built in {time.perf_counter() - t0:.2f} s; experts a shard "
+          f"{ {b: v['epd'] for b, v in ep.buckets.items()} }; the largest shard's accumulator "
+          f"({batch}, {ncols}) fp32 = {batch * ncols * 4} bytes, one device's ({batch}, {n_docs}) "
+          f"= {batch * n_docs * 4}; CLS rows a shard {ncols}")
+    query, no_cls = _citadel_queries(first, batch, qtokens, dim, cls_dim)
+    cases = (("with CLS", query), ("without CLS", no_cls))
+
+    def timed(index, q):
+        """(ms a search, the index's latency dict in ms a search)."""
+        index.latency.clear()
+        if cuda:
+            ms = cuda_ms(lambda: index.search(q, 100), reps=reps, warmup=1)
+        else:
+            ms = host_ms(lambda: index.search(q, 100), reps=reps)
+        return ms, {k: round(v / (reps + 1) * 1e3, 3) for k, v in index.latency.items()}
+
+    want = {tag: one.search(q, 100) for tag, q in cases}
+    ms_one = {tag: timed(one, q) for tag, q in cases}
+    got, ms_ep, peak, plans = {}, {}, {}, {}
+    import numpy as np
+
+    def searches():
+        for tag, q in cases:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            got[tag] = ep.search(q, 100)
+            plans[tag] = sorted(ep.last_plan, key=lambda p: (p[3], p[0]))
+            ms_ep[tag] = timed(ep, q)
+            peak[tag] = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+
+    runs(f"a {shards}-shard searches", searches, needs=("gather_score_serial",))
+    for tag, _q in cases:
+        if not np.isfinite(got[tag][0]).all() or got[tag][0].shape != (batch, 100):
+            raise AssertionError(f"expert-parallel search {tag}: not all finite")
+        bad = _same_runs(_ranked_rows(*want[tag]), _ranked_rows(*got[tag]),
+                         _rel_tol(CITADEL_SAME_REL))
+        diff = np.abs(got[tag][0] - want[tag][0]).max()
+        print(f"expert-parallel (a) search {tag} (B={batch}, {qtokens} tokens, k=100): {shards} "
+              f"shards {ms_ep[tag][0]:.3f} ms, one device {ms_one[tag][0]:.3f} ms a search "
+              f"({'CUDA events' if cuda else 'host clock'} around the call; latency ms a search "
+              f"{ms_ep[tag][1]} and {ms_one[tag][1]}); {bad} of {batch} queries disagree beyond {CITADEL_SAME_REL} "
+              f"relative (ranked scores differ by at most {diff:.3g}); peak device memory of the "
+              f"sharded searches {peak[tag]:.2f} GiB; plan (bucket, entries, scorer, shard) "
+              f"{plans[tag]}; {card}")
+        if bad:
+            raise AssertionError(f"expert-parallel search {tag} disagrees with one device's")
+    if cuda:  # the kernels at the shards' shapes: one CLS search's buckets
+        captured = []
+        serial, streamed = gs.gather_score_serial, gs.gather_score_streamed
+
+        def record_serial(v, s, qv):
+            captured.append((v, s.clone(), qv.clone()))
+            return serial(v, s, qv)
+
+        def record_streamed(v, qv, s, pieces=None):
+            captured.append((v, s.clone(), qv.clone()))
+            return streamed(v, qv, s, pieces)
+
+        with mock.patch.object(gs, "gather_score_serial", record_serial), \
+                mock.patch.object(gs, "gather_score_streamed", record_streamed):
+            ep.search(query, 100)
+        what = (f"one B={batch} CLS search's {len(captured)} buckets over {shards} shards "
+                f"(phase 23)")
+        for name, entry in citadel_kernel_entries(captured).items():
+            shape(name, what, entry)
+        del captured
+    del one, ep
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def _served_answers(retriever, questions, k):
+    """``/search_citadel``'s answers of ``retriever`` behind ``make_server``
+    on a free localhost port, one request."""
+    from dpr_scale_tpu_torch.retrieve.server import make_server
+
+    server = make_server(None, "127.0.0.1", 0, citadel_retriever=retriever)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        return post(f"http://127.0.0.1:{server.server_address[1]}", questions, k,
+                    "/search_citadel")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def _ep_clis(work, dev, card, runs, d20, shards=EP_SHARDS, n_questions=EP_SERVE_QUESTIONS,
+             extra=()):
+    """Phase 23 (b) on phase 20's directory ``d20`` (its tokenizer,
+    passages, questions, export and index): cli.citadel_retrieval with the
+    device index, and the cli.serve tower, each without and with
+    expert_parallel over ``shards`` x ``dev`` (the device list replaced
+    in-process); the expert-parallel runs are main-path runs."""
+    from unittest import mock
+
+    import torch
+
+    from dpr_scale_tpu_torch.cli import citadel_retrieval, serve
+    from dpr_scale_tpu_torch.config import load_config
+    from dpr_scale_tpu_torch.parallel import mesh
+
+    cfg_path = os.path.join(ROOT, "conf", "citadel.yaml")
+    model = [f"task.transform.model_path={d20}/tok", f"task.checkpoint_path={d20}/ckpt/params_best",
+             f"datamodule.passages_path={d20}/passages.tsv", *extra]
+    argv = ["--config", cfg_path, "--device", str(dev), *model,
+            f"datamodule.test_path={d20}/questions.csv", f"task.ctx_embeddings_dir={d20}/index_export",
+            "task.device_index=true"]
+    def devices():
+        return mock.patch.object(mesh, "get_mesh", lambda device, n=None: [dev] * shards)
+
+    out = {}
+    for name in ("one", "ep"):
+        more = [f"task.output_trec_path={work}/{name}.trec"]
+        t0 = time.perf_counter()
+        if name == "one":
+            out[name] = citadel_retrieval.main(argv + more)
+        else:
+            with devices():
+                out[name] = runs(f"b cli.citadel_retrieval expert_parallel x{shards}",
+                                 lambda: citadel_retrieval.main(
+                                     argv + more + ["task.expert_parallel=true"]),
+                                 needs=(("gather_score_serial", "gather_score_streamed"),))
+        out[name + "_s"] = time.perf_counter() - t0
+    bad = _same_runs(_ranked(out["one"]), _ranked(out["ep"]), _rel_tol(CITADEL_SAME_REL))
+    with open(f"{work}/one.trec") as a, open(f"{work}/ep.trec") as b:
+        same_bytes = a.read() == b.read()
+    print(f"expert-parallel (b) cli.citadel_retrieval on phase 20's export ({len(out['one'])} "
+          f"questions, top-100): one device {out['one_s']:.2f} s, expert_parallel over {shards} "
+          f"shards {out['ep_s']:.2f} s; {bad} queries disagree beyond {CITADEL_SAME_REL} relative; "
+          f"TREC files byte-equal: {same_bytes}; {card}")
+    if bad:
+        raise AssertionError("cli.citadel_retrieval with expert_parallel disagrees")
+
+    over = model + [f"serve_citadel.ctx_embeddings_dir={d20}/index_export",
+                    "serve_citadel.add_cls=true", "serve_citadel.query_topk=1"]
+    questions = _questions(f"{d20}/questions.csv")[:n_questions]
+    plain = serve.build_citadel_retriever(load_config(cfg_path, over), dev)
+    want = _ranked(_served_answers(plain, questions, 10))
+    del plain
+    with devices():
+        sharded = serve.build_citadel_retriever(
+            load_config(cfg_path, over + ["serve_citadel.expert_parallel=true"]), dev)
+    if sharded.index.ndev != shards:
+        raise AssertionError(f"the served index has {sharded.index.ndev} shards")
+    t0 = time.perf_counter()
+    got = _ranked(runs(f"b /search_citadel expert_parallel x{shards}",
+                       lambda: _served_answers(sharded, questions, 10),
+                       needs=(("gather_score_serial", "gather_score_streamed"),)))
+    ms_req = (time.perf_counter() - t0) * 1e3
+    del sharded
+    bad = _same_runs(want, got, _rel_tol(CITADEL_SAME_REL))
+    print(f"expert-parallel (b) /search_citadel ({len(questions)} questions, k=10) with "
+          f"serve_citadel.expert_parallel over {shards} shards: {ms_req:.1f} ms; {bad} disagree "
+          f"with the single-device tower beyond {CITADEL_SAME_REL} relative; {card}")
+    if bad:
+        raise AssertionError("/search_citadel with expert_parallel disagrees")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_expert_parallel(work, dev, d20, card="", search=None, extra=(), dp_batch=TRAIN_BATCH,
+                          dp_steps=EP_DP_STEPS, dp_extra=()):
+    """Phase 23 on ``dev`` (see the comment above): (a) ``_ep_search`` with
+    ``search`` (its keyword arguments: a rehearsal on the CPU shrinks it),
+    (b) ``_ep_clis`` on phase 20's directory ``d20`` (``extra``: its model
+    overrides), (c) ``_train_dp`` on conf/citadel.yaml. Returns (the main
+    path's launches, the kernels' entries at the shards' shapes)."""
+    t_phase = time.perf_counter()
+    runs, shapes = _RestRuns(_ep_counters, "expert-parallel"), {}
+
+    def shape(name, what, entry):
+        entry.pop("single_ms", None)
+        shapes.setdefault(name, []).append({"shape": what, **entry})
+
+    _ep_search(dev, card, runs, shape, **(search or {}))
+    _ep_clis(work, dev, card, runs, d20, extra=extra)
+    os.makedirs(f"{work}/dp", exist_ok=True)
+    _train_dp(f"{work}/dp", dev, card, runs, dp_batch, dp_steps, dp_extra, config="citadel.yaml",
+              overrides=NQ_OWN, needs=(), label="expert-parallel (c)")
+    total = runs.total()
+    print(f"expert-parallel main-path launches by run: {runs.by_run}; summed {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if runs.missing:
+        raise AssertionError(f"a kernel of phase 23's path never launched: {runs.missing}")
     return total, shapes
 
 
@@ -4605,9 +4892,10 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    # phase 18's and phase 20's data and exports stay for phase 21
-    work18, work20, work19, work21 = (
-        tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) for _ in range(4))
+    # phase 18's and phase 20's data and exports stay for phase 21 (and
+    # phase 23 (b) searches phase 20's export after phase 22)
+    work18, work20, work19, work21, work22, work23 = (
+        tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) for _ in range(6))
     try:
         ckpt_launches = phase_checkpoint(work18, torch.device("cuda", 0))
         torch.cuda.empty_cache()
@@ -4619,15 +4907,19 @@ def main():
         rest_launches, rest_shapes = phase_rest(
             work21, torch.device("cuda", 0), work18, f"{work18}/ckpt_b/params_best",
             f"{work20}/ckpt/params_best", work20, f"{work20}/splade_ckpt/params_best", card=smi)
-    finally:
-        for path in (work18, work19, work20, work21):
+        for path in (work18, work21):
             shutil.rmtree(path, ignore_errors=True)
-    torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
-    try:
-        scale_launches, scale_shapes = phase_scale(work, torch.device("cuda", 0), card=smi)
+        torch.cuda.empty_cache()
+        scale_launches, scale_shapes = phase_scale(work22, torch.device("cuda", 0), card=smi)
+        shutil.rmtree(work22, ignore_errors=True)
+        torch.cuda.empty_cache()
+        t23 = time.perf_counter()
+        ep_launches, ep_shapes = phase_expert_parallel(work23, torch.device("cuda", 0), work20,
+                                                       card=smi)
+        print(f"phase 23 wall {time.perf_counter() - t23:.1f} s")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for path in (work18, work19, work20, work21, work22, work23):
+            shutil.rmtree(path, ignore_errors=True)
     left = stop_started_processes()
     if left:
         raise RuntimeError(f"processes left running after the phases: {left}")
@@ -4677,10 +4969,11 @@ def main():
            "launches": int_launches[name], **int_entries[name]}
           for name, line in (("int8_tile_max", 111), ("int_groupmax", 160))),
     ]
-    for entry in kernels:  # phases 21-22: their launches, and the kernels held at their shapes
+    for entry in kernels:  # phases 21-23: their launches, and the kernels held at their shapes
         name = entry["name"]
-        entry["launches"] += rest_launches.get(name, 0) + scale_launches.get(name, 0)
-        held = rest_shapes.get(name, []) + scale_shapes.get(name, [])
+        entry["launches"] += (rest_launches.get(name, 0) + scale_launches.get(name, 0)
+                              + ep_launches.get(name, 0))
+        held = rest_shapes.get(name, []) + scale_shapes.get(name, []) + ep_shapes.get(name, [])
         if held:
             entry["shapes"] = held
             entry["max_abs_err"] = max(entry["max_abs_err"], *(e["max_abs_err"] for e in held))

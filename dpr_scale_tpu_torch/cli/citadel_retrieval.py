@@ -1,5 +1,5 @@
-"""End-to-end CITADEL/COIL retrieval over the inverted expert index, on one
-device (reference CITADELRetrievalTask, dpr_scale/task/citadel_retrieval_task.py).
+"""End-to-end CITADEL/COIL retrieval over the inverted expert index (reference
+CITADELRetrievalTask, dpr_scale/task/citadel_retrieval_task.py).
 
 Usage:
     python -m dpr_scale_tpu_torch.cli.citadel_retrieval --config conf/citadel.yaml \
@@ -14,7 +14,10 @@ which reproduces the host search); otherwise the numpy host index searches.
 The encoder runs on the device under ``torch.inference_mode()``, its weights
 from ``task.checkpoint_path`` (a params export, e.g. a JAX model's ``.npz``
 from ``tools/orbax_params_to_npz.py``) or, when it is unset, from a seed.
-``task.expert_parallel`` (several devices) is not ported and raises.
+``task.expert_parallel=true`` shards the device index's experts and its
+accumulator over every visible device of ``--device``'s kind
+(``parallel.mesh.get_mesh``; the reference's expert_parallel flag,
+citadel_retrieval_task.py:29,44), with the same results.
 """
 from __future__ import annotations
 
@@ -70,11 +73,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     device = resolve_device(args.device)
-    if cfg.task.get("expert_parallel", False):
-        raise NotImplementedError(
-            "task.expert_parallel: the expert-parallel device search over several "
-            "devices is not ported (ROADMAP.md A12); unset it to search on one device"
-        )
 
     tokenizer = build_tokenizer(cfg)
     check_vocab_compat(tokenizer, build_model_config(cfg))
@@ -90,13 +88,17 @@ def main(argv=None):
     print(f"Loaded inverted index: {index.stats()}")
     if cfg.task.get("device_index", False):
         from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
+        from dpr_scale_tpu_torch.parallel.mesh import get_mesh
 
+        mesh = get_mesh(device) if cfg.task.get("expert_parallel", False) else None
         # bf16 postings halve device memory (default); float32 reproduces
         # the host search (debug / tight-margin corpora)
         index = DeviceExpertIndex.from_host_index(
-            index, dtype=cfg.task.get("device_index_dtype", "bfloat16"), device=device
+            index, dtype=cfg.task.get("device_index_dtype", "bfloat16"), device=device,
+            mesh=mesh,
         )
-        print(f"Using device-resident expert index on {device}")
+        print(f"Using device-resident expert index on {device}"
+              + (f" (expert-parallel over {len(mesh)} devices)" if mesh else ""))
 
     dm = QueriesDataModule(
         tokenizer,

@@ -27,10 +27,10 @@ is set; the CITADEL tower when the ``serve_citadel`` group is (its
 ``ctx_embeddings_dir``, ``portion``, ``quantizer``, ``device_index``
 (default true: a ``DeviceExpertIndex`` on the device, of
 ``device_index_dtype``), ``query_topk``, ``add_cls``, ``k``, ``max_batch``,
-``pipelined``), its encoder the task's ``MultiVecEncoder`` with the same
-weights keys. ``serve_citadel.expert_parallel`` (several devices) is not
-ported and raises (ROADMAP A12). Both run on ``cuda:0`` unless ``--device``
-says otherwise.
+``pipelined``, ``expert_parallel``: the device index sharded over every
+visible device of ``--device``'s kind, ``parallel.mesh.get_mesh``), its
+encoder the task's ``MultiVecEncoder`` with the same weights keys. Both run
+on ``cuda:0`` unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -91,11 +91,6 @@ def build_citadel_retriever(cfg, device=None) -> CitadelRetriever:
     from dpr_scale_tpu_torch.index.inverted import InvertedExpertIndex
 
     sc = cfg["serve_citadel"]
-    if sc.get("expert_parallel", False):
-        raise NotImplementedError(
-            "serve_citadel.expert_parallel: the expert-parallel device search over "
-            "several devices is not ported (ROADMAP.md A12); unset it to serve on one device"
-        )
     device = resolve_device(device)
     tokenizer = build_tokenizer(cfg)
     check_vocab_compat(tokenizer, build_model_config(cfg))
@@ -109,9 +104,11 @@ def build_citadel_retriever(cfg, device=None) -> CitadelRetriever:
     )
     if sc.get("device_index", True):  # serving default: on the device
         from dpr_scale_tpu_torch.index.inverted_device import DeviceExpertIndex
+        from dpr_scale_tpu_torch.parallel.mesh import get_mesh
 
+        mesh = get_mesh(device) if sc.get("expert_parallel", False) else None
         index = DeviceExpertIndex.from_host_index(
-            index, dtype=sc.get("device_index_dtype", "bfloat16"), device=device
+            index, dtype=sc.get("device_index_dtype", "bfloat16"), device=device, mesh=mesh
         )
     retriever = CitadelRetriever(
         model,

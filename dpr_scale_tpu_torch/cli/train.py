@@ -5,7 +5,7 @@ Usage:
         datamodule.train_path=nq-train.jsonl datamodule.val_path=nq-dev.jsonl \\
         trainer.max_steps=100 datamodule.batch_size=128
 
-One device. ``task.type`` dense (the CLS bi-encoder, or SPLADE with
+One device a process. ``task.type`` dense (the CLS bi-encoder, or SPLADE with
 ``task.model.family=splade``), multivec (CITADEL / COIL / ColBERT, e.g.
 ``--config conf/citadel.yaml``) or distill (a query encoder regressing onto
 teacher vectors, ``--config conf/distill.yaml``). Weights start from ``init_params`` (seed
@@ -35,8 +35,8 @@ process rank 0 of a group it starts on ``localhost`` and launches the other
 ranks with the same arguments. Every rank trains on its slice of each
 global batch of ``datamodule.batch_size``; rank 0 logs, checkpoints, tests
 and writes ``--metrics-out``. ``trainer.strategy: ddp_sharded`` (or
-``zero1``) partitions the optimizer state (ZeRO-1). The multi-vector task
-trains in one process (ROADMAP A13).
+``zero1``) partitions the optimizer state (ZeRO-1). Every task trains so,
+the multi-vector one on the global batch's routing statistics.
 """
 from __future__ import annotations
 
@@ -73,17 +73,6 @@ def num_processes(cfg, device) -> int:
     if n is not None:
         return int(n)
     return max(torch.cuda.device_count(), 1) if device.type == "cuda" else 1
-
-
-def _refuse_unported(cfg, device) -> None:
-    """What the port does not train: the multi-vector task under data
-    parallelism (its router statistics are the global batch's)."""
-    if cfg.task.get("type", "dense") == "multivec" and num_processes(cfg, device) > 1:
-        raise NotImplementedError(
-            f"task.type=multivec with trainer.num_devices={cfg.trainer.get('num_devices')} "
-            f"({num_processes(cfg, device)} processes): the multi-vector task trains in one "
-            "process, its data-parallel step is ROADMAP.md A13; set trainer.num_devices=1"
-        )
 
 
 def _free_port() -> int:
@@ -132,7 +121,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     device = resolve_device(args.device)
-    _refuse_unported(cfg, device)
     children = []
     started = launch.maybe_initialize_distributed(device=device)
     if not started and world_size() == 1 and num_processes(cfg, device) > 1:

@@ -1,27 +1,41 @@
-"""Data-parallel helpers on ``torch.distributed`` (counterpart of
+"""Device lists and data-parallel helpers (counterpart of
 :mod:`dpr_scale_tpu.parallel.mesh`).
 
-The reference trains with NCCL DDP, an all_gather of the embeddings with
-the local slice spliced back in so that it keeps its graph
-(dpr_scale/task/dpr_task.py:163-196), and fairscale's ZeRO sharding of the
-optimizer state (``trainer.strategy: ddp_sharded``). The JAX package does
-the same as one SPMD program over a device mesh. Here each process (rank)
-holds one device and a replica of the parameters:
+Two kinds of parallelism, as in the JAX package:
 
-  * :func:`shard_batch`: each rank takes its contiguous slice of every
-    global batch (a batch whose leading axes do not divide by the world
-    size is replicated, as the JAX rule does);
-  * :func:`gather_splice`: the embeddings of every rank, this rank's slice
-    being its own tensor with its graph, so the loss over the global score
-    matrix back-propagates into this rank's encoder alone; each rank then
-    holds its share of the gradient, and :func:`all_reduce_sum` adds them
-    into the single-process gradient of the global batch;
-  * :class:`Zero1`: ZeRO-1, the optimizer state partitioned across ranks
-    by whole parameters (the semantics of ``ZeroRedundancyOptimizer`` and
-    fairscale's OSS): each rank updates the parameters it owns and then
-    broadcasts them.
+  * expert parallelism, in one process: :func:`get_mesh` is the list of
+    ``torch.device``s an expert-parallel index
+    (``index.inverted_device.DeviceExpertIndex(mesh=...)``) shards its
+    experts and its accumulator columns over. The JAX package runs that
+    search as one single-controller ``shard_map`` program over its mesh, and
+    the HTTP server is one process, so the port's "mesh" is a plain list:
+    the process launches each shard's work on its device and moves tensors
+    between them with ``Tensor.to``. A device may repeat (several shards on
+    one card, or on the CPU, as the JAX tests force 8 CPU devices);
+  * data parallelism over ``torch.distributed``, one process (rank) a
+    device. The reference trains with NCCL DDP, an all_gather of the
+    embeddings with the local slice spliced back in so that it keeps its
+    graph (dpr_scale/task/dpr_task.py:163-196), and fairscale's ZeRO
+    sharding of the optimizer state (``trainer.strategy: ddp_sharded``);
+    the JAX package does the same as one SPMD program over a device mesh.
+    Here each rank holds a replica of the parameters:
 
-At world size 1 (or without a process group) every helper is the identity.
+      - :func:`shard_batch`: each rank takes its contiguous slice of every
+        global batch (a batch whose leading axes do not divide by the world
+        size is replicated, as the JAX rule does);
+      - :func:`gather_splice`: the embeddings of every rank, this rank's
+        slice being its own tensor with its graph, so the loss over the
+        global score matrix back-propagates into this rank's encoder alone;
+        each rank then holds its share of the gradient, and
+        :func:`all_reduce_sum` adds them into the single-process gradient of
+        the global batch;
+      - :class:`Zero1`: ZeRO-1, the optimizer state partitioned across ranks
+        by whole parameters (the semantics of ``ZeroRedundancyOptimizer``
+        and fairscale's OSS): each rank updates the parameters it owns and
+        then broadcasts them.
+
+    At world size 1 (or without a process group) every helper is the
+    identity.
 """
 from __future__ import annotations
 
@@ -37,6 +51,20 @@ def _dist():
     import torch.distributed as dist
 
     return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def get_mesh(device=None, n: Optional[int] = None) -> List[torch.device]:
+    """The devices an expert-parallel index shards over (the JAX
+    ``get_mesh``: every local device, or the first ``n``). For a CUDA
+    ``device`` (the default, ``cuda:0``) every visible CUDA device, or the
+    first ``n``; for any other device, ``n`` (default 1) shards of it."""
+    from dpr_scale_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return [device] * (1 if n is None else n)
+    devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return devices if n is None else devices[:n]
 
 
 def world_size() -> int:

@@ -1,5 +1,4 @@
-"""Multi-vector (CITADEL / COIL / ColBERT) scoring, losses and training task
-on one device.
+"""Multi-vector (CITADEL / COIL / ColBERT) scoring, losses and training task.
 
 Counterpart of :mod:`dpr_scale_tpu.train.multivec` (reference
 dpr_scale/task/citadel_task.py), with its names and semantics:
@@ -22,7 +21,12 @@ dpr_scale/task/citadel_task.py), with its names and semantics:
   * :class:`MultiVecRetrieverTask`: the router and expert contrastive
     losses, teacher distillation, in-batch or pairwise blocks, the optional
     CLS score, the load-balancing and L1 regularisers annealed by epoch,
-    the routing statistics; GradCache over the encoders' output dicts.
+    the routing statistics; GradCache over the encoders' output dicts; data
+    parallelism: on a rank's slice of a global batch
+    (``parallel.mesh.SHARDED``) every rank gathers the output dicts and
+    computes the loss of the global batch, whose routing statistics (the
+    usage means of the load loss, ``avg_marg_num_experts``: a max over the
+    batch) are the global batch's, and the ranks' gradients are summed.
 
 The JAX package's XLA fuses the gated MaxSim into one reduction; eager
 PyTorch would materialise every intermediate of the literal form (10.6 GB
@@ -41,7 +45,13 @@ from torch.utils.checkpoint import checkpoint
 from dpr_scale_tpu_torch.models.multivec import MultiVecEncoder
 from dpr_scale_tpu_torch.models.transformer import DropoutRng, TransformerConfig, fold
 from dpr_scale_tpu_torch.optim.factory import AdamW, Optimizer, global_norm
-from dpr_scale_tpu_torch.parallel.mesh import world_size
+from dpr_scale_tpu_torch.parallel.mesh import (
+    SHARDED,
+    all_gather_cat,
+    all_reduce_sum,
+    gather_splice,
+    step_dropout_rng,
+)
 from dpr_scale_tpu_torch.train.gradcache import grad_cache_grads
 from dpr_scale_tpu_torch.train.loss import NEG_INF, rank_metrics
 from dpr_scale_tpu_torch.train.task import TrainState, batch_to_device, new_state, summed_eval
@@ -250,16 +260,26 @@ def softmax_ce(scores, labels):
 # task
 
 
-def refuse_data_parallel() -> None:
-    """The multi-vector task trains in one process: its router statistics
-    (usage, the load-balancing terms) are statistics of the global batch,
-    which a rank's slice does not give. Data parallelism is ROADMAP A13."""
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"task.type=multivec under data parallelism (world size {world_size()}) is not "
-            "ported: its router statistics are global-batch statistics (ROADMAP.md A13); "
-            "train it in one process"
-        )
+def gather_reprs(repr_: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An encoder output dict of a rank's slice made the global batch's:
+    float leaves gathered with this rank's part spliced in (so it keeps its
+    graph), integer ones gathered; the 0-d routing statistics are dropped
+    (:func:`routing_stats` recomputes them from the gathered planes)."""
+    return {k: (gather_splice(v) if v.is_floating_point() else all_gather_cat(v))
+            for k, v in repr_.items() if v.ndim >= 1}
+
+
+def routing_stats(repr_: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``repr_`` with ``avg_cond_num_experts`` / ``avg_marg_num_experts``
+    computed from its whole ``router_mask`` (the model's formulas): the
+    max over the batch is not a combination of per-chunk or per-rank
+    values."""
+    repr_ = dict(repr_)
+    if "router_mask" in repr_:
+        rm = repr_["router_mask"]
+        repr_["avg_cond_num_experts"] = rm.sum(dim=1).mean()
+        repr_["avg_marg_num_experts"] = rm.amax(dim=0).sum()
+    return repr_
 
 
 @dataclasses.dataclass
@@ -267,8 +287,10 @@ class MultiVecRetrieverTask:
     """CITADEL / COIL / ColBERT training (reference MultiVecRetrieverTask)
     on the dense task's pattern: the step updates the state in place, the
     dropout of step ``n`` is ``DropoutRng(dropout_seed, n)`` (the query
-    tower on its fold 0, the context tower on fold 1), and
-    ``grad_cache_chunks > 1`` takes the gradients by GradCache."""
+    tower on its fold 0, the context tower on fold 1; on a sharded batch
+    the rank is folded in first), ``grad_cache_chunks > 1`` takes the
+    gradients by GradCache, and a sharded batch trains on the global
+    batch's loss (module docstring)."""
 
     cfg: TransformerConfig
     variant: str = "citadel"
@@ -414,32 +436,37 @@ class MultiVecRetrieverTask:
         if self.grad_cache_chunks > 1:
             return self._grad_cache(model, params, batch, rng, epoch)
         q_repr, c_repr = self._encode(model, batch, rng)
-        loss, metrics = self.compute_loss(q_repr, c_repr, batch["ctx_mask"],
-                                          batch["pos_ctx_indices"], batch["scores"], epoch)
+        loss, metrics = self._global_loss(q_repr, c_repr, batch, epoch)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return loss, metrics, grads
 
+    def _global_loss(self, q_repr, c_repr, batch, epoch):
+        """``compute_loss`` of the global batch: on a sharded batch the
+        output dicts, the positive indices (into the global context list),
+        the context mask and the teacher scores gathered from every rank;
+        the routing statistics from the whole ``router_mask``."""
+        ctx_mask, labels, teacher = batch["ctx_mask"], batch["pos_ctx_indices"], batch["scores"]
+        if batch.get(SHARDED):
+            q_repr, c_repr = gather_reprs(q_repr), gather_reprs(c_repr)
+            ctx_mask, labels, teacher = (all_gather_cat(t) for t in (ctx_mask, labels, teacher))
+        return self.compute_loss(routing_stats(q_repr), routing_stats(c_repr), ctx_mask, labels,
+                                 teacher, epoch)
+
     def _grad_cache(self, model, params, batch, rng, epoch):
         """GradCache over ``grad_cache_chunks`` strided chunks (the JAX
-        task's ``_grad_cache_grads``): the loss sees the whole batch's
-        output dicts, and the routing statistics are recomputed from the
-        unchunked ``router_mask`` (``avg_marg_num_experts`` is a max over
-        the whole batch, so per-chunk values cannot be combined)."""
+        task's ``_grad_cache_grads``): the loss sees the whole (on a sharded
+        batch, the global) batch's output dicts, and the routing statistics
+        are recomputed from the unchunked ``router_mask``
+        (``avg_marg_num_experts`` is a max over the whole batch, so
+        per-chunk values cannot be combined)."""
 
         def encode_chunk(qi, qm, ci, cm, chunk_rng):
             return self._encode(model, {"query_ids": qi, "query_mask": qm,
                                         "contexts_ids": ci, "contexts_mask": cm}, chunk_rng)
 
         def loss_on_reprs(q_full, c_full):
-            q_full, c_full = dict(q_full), dict(c_full)
-            for full in (q_full, c_full):
-                if "router_mask" in full:
-                    rm = full["router_mask"]
-                    full["avg_cond_num_experts"] = rm.sum(dim=1).mean()
-                    full["avg_marg_num_experts"] = rm.amax(dim=0).sum()
-            return self.compute_loss(q_full, c_full, batch["ctx_mask"],
-                                     batch["pos_ctx_indices"], batch["scores"], epoch)
+            return self._global_loss(q_full, c_full, batch, epoch)
 
         return grad_cache_grads(params, batch, rng, self.grad_cache_chunks, encode_chunk,
                                 loss_on_reprs)
@@ -447,11 +474,14 @@ class MultiVecRetrieverTask:
     def train_step(self, state: TrainState, batch, epoch: float = 0) -> Tuple[TrainState, Dict]:
         """One step (an update, or with accumulation a micro-step). Metrics
         stay on the device: the loss terms, the routing statistics, the loss
-        and the PRE-clip global norm of the gradient. One process only:
-        the router statistics are the global batch's."""
-        refuse_data_parallel()
-        rng = DropoutRng(state.dropout_seed, state.step, self.device)
+        and the PRE-clip global norm of the gradient. A sharded batch
+        (``SHARDED``) gives every rank the global batch's loss and metrics
+        and, once the ranks' gradients are summed, its gradient."""
+        sharded = bool(batch.get(SHARDED))
+        rng = step_dropout_rng(state.dropout_seed, state.step, self.device, sharded)
         loss, metrics, grads = self.loss_and_grads(state, batch, rng, epoch)
+        if sharded:
+            all_reduce_sum(grads)
         params = list(state.model.parameters())
         grad_norm = global_norm(grads)
         self.optimizer.update(params, grads, state.opt_state, grad_norm)

@@ -119,7 +119,8 @@ def test_synthetic_citadel_layout_matches_from_host_index():
         d = docs[e][docs[e] >= 0]
         host.experts[e] = _ExpertPostings(d, np.ones(len(d), np.float32),
                                           np.ones((len(d), 4), np.float32))
-    b = DeviceExpertIndex.from_host_index(host, dtype="float32", device="cpu").buckets[512]
+    index = DeviceExpertIndex.from_host_index(host, dtype="float32", device="cpu")
+    (b,) = index.buckets[512]["shards"]  # one device holds the whole bucket
     n = int(b["vecs"].shape[0])
     assert n >= 6
     np.testing.assert_array_equal(b["run_id"].numpy()[:6], run_id)

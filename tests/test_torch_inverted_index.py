@@ -129,7 +129,7 @@ def test_device_index_equals_jax_and_host(variant, topk, combine, stream, monkey
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, _dense(*ref.search(q_out, topk=N_DOCS)), rtol=1e-4,
                                atol=1e-4)
-    scorers = {s for _b, _n, s in port.last_plan}
+    scorers = {s for _b, _n, s, _shard in port.last_plan}
     assert scorers == ({"streamed"} if stream == "on" else {"serial"})
     assert port.latency["routing_time"] > 0 and port.latency["search_time"] > 0
     s2, r2 = port.search(q_out, topk=N_DOCS, as_numpy=False)
@@ -147,9 +147,9 @@ def test_device_index_pipelined_switch_and_bf16(monkeypatch):
     serial = _dense(*port.search(q_out, topk=N_DOCS))
     monkeypatch.setenv("DPR_GATHER_KERNEL", "pipelined")
     np.testing.assert_array_equal(_dense(*port.search(q_out, topk=N_DOCS)), serial)
-    assert {s for _b, _n, s in port.last_plan} == {"pipelined"}
+    assert {s for _b, _n, s, _shard in port.last_plan} == {"pipelined"}
     bf16 = tdev.DeviceExpertIndex.from_host_index(host, dtype=torch.bfloat16, device="cpu")
-    assert bf16.buckets[128]["vecs"].dtype == torch.bfloat16
+    assert bf16.buckets[128]["shards"][0]["vecs"].dtype == torch.bfloat16
     got = _dense(*bf16.search(q_out, topk=N_DOCS))
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())
 
@@ -172,8 +172,9 @@ def test_device_index_bucket_layout_equals_jax():
     assert set(port.buckets) == set(ref.buckets) == {128, 512, 2048}
     for bsize, b in port.buckets.items():
         r = ref.buckets[bsize]
+        (shard,) = b["shards"]  # one device holds the whole bucket
         for key in ("vecs", "run_id", "run_doc", "start_pos"):
-            np.testing.assert_array_equal(b[key].numpy(), np.asarray(r[key]), err_msg=key)
+            np.testing.assert_array_equal(shard[key].numpy(), np.asarray(r[key]), err_msg=key)
         assert b["max_run_len"] == r["max_run_len"]
         assert dict(zip(b["experts"].tolist(), range(len(b["experts"])))) == r["slot_of"]
     np.testing.assert_array_equal(port._route_bsize, ref._route_bsize)
@@ -219,21 +220,22 @@ def test_sorted_combine_sums_duplicate_keys_and_handles_no_updates():
     assert (d == -1).all() and (s == 0).all()
 
 
-def test_expert_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tdev.DeviceExpertIndex(10, device="cpu", mesh=object())
-
-
 @pytest.mark.parametrize("N,k", [(5, 5), (2048, 100), (5000, 3), (5000, 100), (9000, 9000)])
 def test_tiled_topk_equals_topk(N, k):
-    """The tiled top-k returns the values of torch.topk (ties among equal
-    scores may pick other columns), and every returned column holds its
-    score: with rounded scores many tie, and whole tiles tie at -inf."""
+    """The tiled top-k, over the accumulator whole and cut into 3 column
+    shards (its columns past N at -inf, as the dense combine leaves them),
+    returns the values of torch.topk (ties among equal scores may pick
+    other columns), and every returned column holds its score: with
+    rounded scores many tie, and whole tiles tie at -inf."""
     rng = np.random.default_rng(N + k)
     acc = torch.from_numpy(np.round(rng.normal(size=(4, N)), 1).astype(np.float32))
     acc[1, : N // 2] = float("-inf")
-    s, cols = tdev._tiled_topk(acc, k)
     want = torch.topk(acc, k, dim=1).values
-    torch.testing.assert_close(s, want, atol=0, rtol=0)
-    torch.testing.assert_close(acc.gather(1, cols), s, atol=0, rtol=0)
-    assert all(len(set(r.tolist())) == k for r in cols)
+    for ndev in (1, 3):
+        index = tdev.DeviceExpertIndex(N - 1, device="cpu", mesh=["cpu"] * ndev)
+        grid = torch.nn.functional.pad(acc, (0, index._tiles()[1] - N), value=float("-inf"))
+        s, cols = tdev._tiled_topk(list(grid.view(4, -1, tdev.TILE).chunk(ndev, dim=1)), k,
+                                   torch.device("cpu"))
+        torch.testing.assert_close(s, want, atol=0, rtol=0)
+        torch.testing.assert_close(grid.gather(1, cols), s, atol=0, rtol=0)
+        assert all(len(set(r.tolist())) == k for r in cols)

@@ -9,17 +9,18 @@
   it raised for a while, and since the exporter is ported it reads both
   (the exported program, the dequantized int8 weights);
 * ``cli.serve`` ignored ``serve_citadel`` and served the dense tower alone;
-  it now builds the CITADEL tower (``/search_citadel``) and refuses only
-  ``serve_citadel.expert_parallel`` (ROADMAP A12);
+  it now builds the CITADEL tower (``/search_citadel``), which answers
+  alike with ``serve_citadel.expert_parallel`` (refused, naming ROADMAP A12,
+  until the expert-parallel index was ported);
 * ``cli.train`` dropped ``trainer.tensorboard_dir`` (now handed to the
   logger, as JAX does), ``trainer.profile_dir`` (now handed to the
   trainer's profiler) and ``trainer.num_devices`` (more than one device
   was then refused, naming ROADMAP A5; since A5 was ported it trains on
-  that many processes, all visible CUDA devices for an absent or null key,
-  and only the multi-vector task is refused there, naming A13);
-* refusals named the wrong ROADMAP item; the one that remains names A13
-  (the multi-vector task on several devices); the distillation task and
-  worker processes, once refused naming A8, now run.
+  that many processes, all visible CUDA devices for an absent or null key;
+  the multi-vector task too since A13 was ported);
+* refusals named the wrong ROADMAP item; the last ones (the multi-vector
+  task on several devices, A13; the distillation task and worker
+  processes, A8) went with the ports that they named.
 """
 import os
 import pickle
@@ -115,11 +116,13 @@ def test_generate_embeddings_refuses_the_encoders_it_cannot_read(tiny_bert_dir, 
         assert cos.min() >= 0.999 and not np.array_equal(got, want)
 
 
-def test_serve_refuses_the_citadel_tower(tiny_bert_dir, passages, tmp_path):
+def test_serve_citadel_tower_answers_with_expert_parallel(tiny_bert_dir, passages, tmp_path,
+                                                         monkeypatch):
     """``serve_citadel`` is no longer ignored: it builds the CITADEL tower,
-    which answers; of its keys only ``expert_parallel`` (several devices,
-    ROADMAP A12) is refused."""
+    which answers; with ``expert_parallel`` (refused until ROADMAP A12 was
+    ported) over three shards of the CPU it answers alike."""
     from dpr_scale_tpu_torch.cli import generate_multivec_embeddings
+    from dpr_scale_tpu_torch.parallel import mesh
 
     multivec = [f"task.transform.model_path={tiny_bert_dir}", "task.model.vocab_size=32",
                 "task.transform.max_seq_len=12", "task.type=multivec",
@@ -129,13 +132,18 @@ def test_serve_refuses_the_citadel_tower(tiny_bert_dir, passages, tmp_path):
                                        "--device", "cpu", *multivec,
                                        f"task.ctx_embeddings_dir={tmp_path}/citadel"])
     tower = [*multivec, f"serve_citadel.ctx_embeddings_dir={tmp_path}/citadel", "serve_citadel.k=3"]
-    with pytest.raises(NotImplementedError, match="serve_citadel.expert_parallel.*A12"):
-        serve.build_citadel_retriever(load_config(os.path.join(CONF, "tiny_smoke.yaml"), [
-            *tower, "serve_citadel.expert_parallel=true"]), device="cpu")
     retriever = serve.build_citadel_retriever(
         load_config(os.path.join(CONF, "tiny_smoke.yaml"), tower), device="cpu")
     (results,) = retriever.search(["what a book"])
     assert len(results) == 3 and {"id", "title", "text", "score"} == set(results[0])
+    monkeypatch.setattr(mesh, "get_mesh", lambda device, n=None: [torch.device("cpu")] * 3)
+    sharded = serve.build_citadel_retriever(load_config(os.path.join(CONF, "tiny_smoke.yaml"), [
+        *tower, "serve_citadel.expert_parallel=true"]), device="cpu")
+    assert sharded.index.ndev == 3
+    (got,) = sharded.search(["what a book"])
+    assert [r["id"] for r in got] == [r["id"] for r in results]
+    np.testing.assert_allclose([r["score"] for r in got], [r["score"] for r in results],
+                               rtol=1e-5)
 
 
 def _train_argv(tiny_bert_dir, dpr10_jsonl, *extra):
@@ -165,15 +173,14 @@ def test_cli_train_hands_tensorboard_dir_to_the_logger(tiny_bert_dir, dpr10_json
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["trainer.num_devices=2", "task.type=multivec"], "multivec.*num_devices=2.*A13"),
     (["task.type=distill"], None),
-], ids=["num_devices", "distill"])
+], ids=["distill"])
 def test_cli_train_refusals_name_their_roadmap_item(tiny_bert_dir, dpr10_jsonl, tmp_path, extra,
                                                     item):
-    """C6-C8: each refusal of ``cli.train`` names the item that ports it,
-    and none names the exporter of A1. ``trainer.num_devices=2`` (refused
-    naming A5 until data parallelism was ported) trains, except the
-    multi-vector task, whose data-parallel step is A13.
+    """C6-C8: each refusal of ``cli.train`` named the item that ports it,
+    and none the exporter of A1; every one has gone with its port.
+    ``trainer.num_devices=2`` (refused naming A5, then for the multi-vector
+    task naming A13) trains (tests/test_torch_multivec_parallel.py);
     ``task.type=distill`` (refused naming A8 until the distillation task
     was ported) now trains on rows with teacher vectors."""
     if item is None:
@@ -207,17 +214,13 @@ def test_cli_train_refuses_more_than_one_device(monkeypatch, num_devices, device
     devices, all visible ones when the key is null or absent. The port
     refused more than one until data parallelism was ported (ROADMAP A5);
     now it trains on as many processes, one a device (``refused`` marks the
-    cases that were refused: more than one), and refuses only the
-    multi-vector task there (A13)."""
+    cases that were refused: more than one), the multi-vector task too
+    since A13 was ported."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
     overrides = [] if num_devices is None else [f"trainer.num_devices={num_devices}"]
     cfg = load_config(os.path.join(CONF, "tiny_smoke.yaml"), overrides)
     assert cfg.trainer.get("num_devices") == num_devices
     assert train.num_processes(cfg, torch.device(device)) == (2 if refused else 1)
-    train._refuse_unported(cfg, torch.device(device))
     multivec = load_config(os.path.join(CONF, "tiny_smoke.yaml"), overrides + ["task.type=multivec"])
-    if refused:
-        with pytest.raises(NotImplementedError, match="multivec.*A13"):
-            train._refuse_unported(multivec, torch.device(device))
-    else:
-        train._refuse_unported(multivec, torch.device(device))
+    assert train.num_processes(multivec, torch.device(device)) == (2 if refused else 1)
+    assert not hasattr(train, "_refuse_unported")  # the multi-vector task trains there
