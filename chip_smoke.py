@@ -223,16 +223,20 @@ save, a resume and an export into encoding and retrieval. Phases:
      passages/s of each; (e) ``datamodule.num_workers=REST_WORKERS``: a shard
      byte-equal to the serial one; (f) the SPLADE export through
      ``generate_embeddings``, ``run_retrieval`` (fused) and ``/search``,
-     against a brute force, the sweeps' routes at D = 30,522 and the sweeps
-     held there on that path's vectors and on random mixed-sign ones. Each
+     against a brute force, count_above_groups on the wgmma route fed by
+     cp.async (rows of 61,044 bytes, which TMA cannot address) in both, the
+     sweeps' span (cut to fill the card), and the sweeps held there on that
+     path's vectors and on random mixed-sign ones. Each
      main-path run with the counts
      set to 0 just before it and read just after.
  22. the index store, the host tiers and data-parallel training
      (phase_scale): (a) the four bf16 sweeps at D = 30,528 on the wgmma
-     route (each 64-column stage's sums promoted into fp32 adds past 1,536
-     columns) on dense non-negative and normal vectors, clear counts equal to
-     plain, tile and group maxima against fp64 beside cuBLAS's, the kernels
-     timed there; (b) 4,194,304 x 768 seeded fp16 shards, build_int8_store,
+     route fed by TMA and at D = 30,522 on the same fed by cp.async (each
+     64-column stage's sums promoted into fp32 adds past 1,536 columns) on
+     dense non-negative and normal vectors, clear counts equal to plain,
+     tile and group maxima against fp64 beside cuBLAS's, the kernels timed
+     at both widths over 65,536 rows, B = 256, beside plain and the bound;
+     (b) 4,194,304 x 768 seeded fp16 shards, build_int8_store,
      a fresh int8 MipsIndex filled by load_int8_store with half the rows on
      the device and half streamed from the host: the cold start (load and
      the first search of 1,024 questions at k = 100, B = 256) against
@@ -601,12 +605,13 @@ def _yard_count_groups(q, corpus, tau, group):
     return out
 
 
-def phase_count(dev, cases=COUNT_CASES, group=256):
+def phase_count(dev, cases=COUNT_CASES, group=256, plain_reps=5):
     """Phase 3: count_above_groups against its plain version on ``dev`` for
     each (B, N, D) of ``cases`` (bf16, thresholds at each query's 99.99th
     score percentile), within the COUNT_MARGIN_REL band; on the card also
-    its times, yardstick and bound. Returns the JSON entry of the last case
-    (times absent off the card), max |err| over all cases."""
+    its times, yardstick (each the median of ``plain_reps`` calls) and
+    bound. Returns the JSON entry of the last case (times absent off the
+    card), max |err| over all cases."""
     import torch
 
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
@@ -648,8 +653,9 @@ def phase_count(dev, cases=COUNT_CASES, group=256):
             fn = lambda: kernel(q, corpus, tau, group)
             ms, single_ms = device_ms(fn, calls=10), cuda_ms(fn)
             plain_ms = cuda_ms(lambda: mk.count_above_groups_plain(q, corpus, tau, group),
-                               reps=5, warmup=1)
-            yard_ms = cuda_ms(lambda: _yard_count_groups(q, corpus, tau, group), reps=5, warmup=1)
+                               reps=plain_reps, warmup=1)
+            yard_ms = cuda_ms(lambda: _yard_count_groups(q, corpus, tau, group), reps=plain_reps,
+                              warmup=1)
             bound_ms, bound_by = bound(nbytes(q, corpus, tau) + 4 * B * (N // group), 2 * B * N * D)
             print(f"count_above_groups ({what}): kernel {ms:.4f} ms queued ({single_ms:.4f} ms "
                   f"single call), plain {plain_ms:.4f} ms, cuBLAS yardstick {yard_ms:.4f} ms, "
@@ -2019,10 +2025,11 @@ def _top_scores(q, corpus, k):
     return best
 
 
-def phase_mips_kernels(dev, cases=MIPS_CASES):
+def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
     """Phase 14: count_above, groupmax and tile_max_scores against their
     plain versions on ``dev`` for each case; the timed cases also time
-    kernel, plain version and yardstick. Returns each kernel's JSON entry
+    kernel, plain version and yardstick (each the median of ``plain_reps``
+    calls). Returns each kernel's JSON entry
     from the first timed case (times absent if none ran), max |err| over all
     cases."""
     import torch
@@ -2087,8 +2094,8 @@ def phase_mips_kernels(dev, cases=MIPS_CASES):
                              "tile_max_scores": 4 * B * (N // tile)}[name]
                 b_ms, b_by = bound(nbytes(q, corpus) + out_bytes, 2 * B * N * D)
                 ms = cuda_ms(lambda: kernel(*args[name]))
-                plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, warmup=1)
-                yard_ms = cuda_ms(lambda: yard(*args[name]), reps=5, warmup=1)
+                plain_ms = cuda_ms(lambda: plain(*args[name]), reps=plain_reps, warmup=1)
+                yard_ms = cuda_ms(lambda: yard(*args[name]), reps=plain_reps, warmup=1)
                 timing = {"ms": ms}
                 if name in ("groupmax", "count_above", "tile_max_scores"):  # redesigned: queued too
                     timing = {"ms": device_ms(lambda: kernel(*args[name]), calls=10),
@@ -2273,8 +2280,9 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
                              lambda: bench.search(q0, RETRIEVAL_K), dev, None)
     routes = {name: kernel.launches_by_route for name, kernel in sweeps.items()}
     print(f"launches by route over the phase (CLI runs, retrieve(), benchmark, profile): {routes}")
-    if any(r["score_tile"] or not r["wgmma"] for r in routes.values()):
-        raise AssertionError(f"a sweep of the retrieval path did not take the wgmma kernel: {routes}")
+    if any(r["score_tile"] or r["wgmma_cp_async"] or not r["wgmma"] for r in routes.values()):
+        raise AssertionError(f"a sweep of the retrieval path did not take the TMA-fed wgmma "
+                             f"kernel: {routes}")
     return launches
 
 
@@ -3863,6 +3871,13 @@ def _rows_index(rows, dtype):
     return types.SimpleNamespace(dtype=dtype, _blocks=[(rows, rows.shape[0], 0)])
 
 
+def _sweep_span(N, B, D):
+    """The rows a groupmax or count block takes (the launch's fill_span)."""
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.library().dst_bf16_sweep_span(N, B, D)
+
+
 def _route_delta(before):
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
@@ -4178,6 +4193,7 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     qs = _questions(f"{d20}/questions.csv")[:SERVE_QUESTIONS]
+    before = _route_delta({})
     try:
         served = runs("f splade /search", lambda: post(url, qs, kf),
                       needs=("count_above_groups",))
@@ -4185,17 +4201,28 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
+    served_routes = _route_delta(before)
     bad = _same_runs(_ranked(results[:len(qs)]), _ranked(served), _rel_tol(TOPK_REL))
     print(f"rest (f) SPLADE (D = {dim}): generate_embeddings, run_retrieval (fused, top-"
           f"{kf}) equal to the brute force; /search ({len(qs)} questions in one request): "
           f"{bad} disagree with run_retrieval beyond {TOPK_REL} relative (near-tie swaps "
-          f"allowed); the sweeps' launches by route in run_retrieval {routes}; {card}")
+          f"allowed); the sweeps' launches by route in run_retrieval {routes}, in /search "
+          f"{served_routes}; {card}")
     if bad:
         raise AssertionError(f"/search disagrees with run_retrieval on {bad} SPLADE questions")
+    if cuda:  # rows TMA cannot address (61,044 bytes): the wgmma sweep fed by cp.async
+        for what, r in (("run_retrieval", routes), ("/search", served_routes)):
+            groups = r["count_above_groups"]
+            if not groups["wgmma_cp_async"] or any(n for k, n in groups.items()
+                                                   if k != "wgmma_cp_async"):
+                raise AssertionError(f"SPLADE {what}: count_above_groups left the cp.async route: "
+                                     f"{groups}")
     if cuda:  # the sweeps held on this path's own vectors (non-negative), then on
         # random mixed-sign ones of the same shape
         torch.cuda.empty_cache()
         B, N = q_splade.shape[0], rows_splade.shape[0] // 256 * 256
+        print(f"rest (f) the sweeps' span over N = {N} rows at B = {B}, D = {dim}: "
+              f"{_sweep_span(N, B, dim)} rows (fill_span: the grid filled toward the card's SMs)")
         for what, data in ((f"B={B} N={N} D={dim} bf16, the SPLADE path's vectors",
                             (q_splade, rows_splade[:N])), (f"B={B} N={N} D={dim} bf16", None)):
             shape("count_above_groups", what, phase_count(
@@ -4217,10 +4244,11 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
 # phase 22 (phase_scale): the slice that ports the index store, the host
 # tiers and data-parallel training (ROADMAP A1, A5), after the wgmma sweeps'
 # two-level sums (C11). (a) The four bf16 sweeps at D = WIDE_D (a multiple
-# of 8: the wgmma route, which promotes each 64-column stage's sums past
-# 1,536 columns) on dense non-negative and on normal vectors: clear counts
-# equal plain, maxima against fp64 beside cuBLAS's, then the kernels timed
-# there. (b) STREAM_ROWS x 768 rows (phase 16's geometry) of seeded fp16
+# of 8: the wgmma route fed by TMA, which promotes each 64-column stage's
+# sums past 1,536 columns) and at SPLADE_D (SPLADE's vocabulary, even but
+# not a multiple of 8: the same loop fed by cp.async) on dense non-negative
+# and on normal vectors: clear counts equal plain, maxima against fp64
+# beside cuBLAS's, then the kernels timed at both widths. (b) STREAM_ROWS x 768 rows (phase 16's geometry) of seeded fp16
 # shards: build_int8_store, then a fresh MipsIndex filled by load_int8_store
 # with device_rows half the rows (half the blocks streamed from the host),
 # the first search of STREAM_QUERIES questions at k = RETRIEVAL_K, batches
@@ -4235,7 +4263,7 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
 # The cut: the corpus (the JAX tool's 21M rows need ~64 GB of fp32 shards
 # and 16 GB of store), the steps. Two ranks need two cards: their parity
 # is a CPU test (tests/test_torch_data_parallel.py).
-WIDE_D = 30528
+WIDE_D, SPLADE_D = 30528, 30522
 WIDE_ROWS, WIDE_TIMED_ROWS, WIDE_BATCH = 4096, 65536, 256
 STREAM_ROWS, STREAM_SHARD_ROWS, STREAM_DIM = 1 << 22, 1 << 20, 768
 STREAM_QUERIES, STREAM_BATCH = 1024, 256
@@ -4272,33 +4300,45 @@ def _as_ctxs(scores, rows):
 
 
 def _wide_sweeps(dev, card, shape):
-    """Phase 22 (a): C11's sweeps at D = WIDE_D."""
+    """Phase 22 (a): C11's sweeps at D = WIDE_D and SPLADE_D, and each
+    width's wall time."""
     import torch
 
     from dpr_scale_tpu_torch.tools import sweep_accuracy
 
     g = torch.Generator(device=dev).manual_seed(SEED + 61)
-    for kind in ("dense_nonneg", "normal"):
-        before = _route_delta({})
-        got = sweep_accuracy.case(kind, WIDE_BATCH, WIDE_ROWS, WIDE_D, RETRIEVAL_K, g, dev)
-        routes = _route_delta(before)
-        print(f"scale (a) D = {WIDE_D} {kind}, B = {WIDE_BATCH}, N = {WIDE_ROWS}: {json.dumps(got)}; "
-              f"routes {routes}; {card}")
-        if got["route"] != "wgmma" or any(r.get("score_tile") for r in routes.values()):
-            raise AssertionError(f"the D = {WIDE_D} sweeps left the wgmma route: {routes}")
-        if got["clear_counts_differing"] or got["clear_group_counts_differing"]:
-            raise AssertionError(f"D = {WIDE_D} {kind}: counts differ from plain at clear "
-                                 "thresholds")
-        if got["tile_max_err_kernel"] > 8 * got["tile_max_err_plain"] + MAX_REL * got["max_score"]:
-            raise AssertionError(f"D = {WIDE_D} {kind}: tile maxima {got['tile_max_err_kernel']} "
-                                 f"from fp64, cuBLAS {got['tile_max_err_plain']}")
-    torch.cuda.empty_cache()
-    what = f"B={WIDE_BATCH} N={WIDE_TIMED_ROWS} D={WIDE_D} bf16"
-    shape("count_above_groups", what, phase_count(dev, cases=((WIDE_BATCH, WIDE_TIMED_ROWS,
-                                                                WIDE_D),)))
-    for name, entry in phase_mips_kernels(dev, cases=(
-            (WIDE_BATCH, WIDE_TIMED_ROWS, WIDE_D, "bfloat16", 4096, True),)).items():
-        shape(name, what, entry)
+    wall = dict.fromkeys((WIDE_D, SPLADE_D), 0.0)
+    for D, route in ((WIDE_D, "wgmma"), (SPLADE_D, "wgmma_cp_async")):
+        t0 = time.perf_counter()
+        for kind in ("dense_nonneg", "normal"):
+            before = _route_delta({})
+            got = sweep_accuracy.case(kind, WIDE_BATCH, WIDE_ROWS, D, RETRIEVAL_K, g, dev)
+            routes = _route_delta(before)
+            print(f"scale (a) D = {D} {kind}, B = {WIDE_BATCH}, N = {WIDE_ROWS}: "
+                  f"{json.dumps(got)}; routes {routes}; {card}")
+            if got["route"] != route or any(n for r in routes.values() for k, n in r.items()
+                                            if k != route):
+                raise AssertionError(f"the D = {D} sweeps left the {route} route: {routes}")
+            if got["clear_counts_differing"] or got["clear_group_counts_differing"]:
+                raise AssertionError(f"D = {D} {kind}: counts differ from plain at clear "
+                                     "thresholds")
+            if (got["tile_max_err_kernel"]
+                    > 8 * got["tile_max_err_plain"] + MAX_REL * got["max_score"]):
+                raise AssertionError(f"D = {D} {kind}: tile maxima {got['tile_max_err_kernel']} "
+                                     f"from fp64, cuBLAS {got['tile_max_err_plain']}")
+        torch.cuda.empty_cache()
+        wall[D] += time.perf_counter() - t0
+    for D in (WIDE_D, SPLADE_D):
+        t0 = time.perf_counter()
+        what = f"B={WIDE_BATCH} N={WIDE_TIMED_ROWS} D={D} bf16"
+        shape("count_above_groups", what, phase_count(dev, cases=((WIDE_BATCH, WIDE_TIMED_ROWS,
+                                                                    D),), plain_reps=2))
+        for name, entry in phase_mips_kernels(dev, cases=(
+                (WIDE_BATCH, WIDE_TIMED_ROWS, D, "bfloat16", 4096, True),), plain_reps=2).items():
+            shape(name, what, entry)
+        torch.cuda.empty_cache()
+        wall[D] += time.perf_counter() - t0
+    print("scale (a) wall: " + ", ".join(f"D = {D} {t:.1f} s" for D, t in wall.items()))
 
 
 def _write_stream_shards(embs, n_rows, shard_rows, dim, dev):
@@ -4821,13 +4861,23 @@ def main():
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     t_start = time.perf_counter()
+    walls, t_last = {}, [t_start]
+
+    def wall(label):  # the wall time since the last phase ended
+        now = time.perf_counter()
+        walls[label] = round(now - t_last[0], 1)
+        t_last[0] = now
+
     smi = phase_device()
     t0 = time.perf_counter()
     cuda_lib.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s:")
     print("\n".join(l for l in cuda_lib.build_log().splitlines() if "Used" in l))
+    wall("device and build")
     attn = phase_attention()
+    wall("attention")
     count = phase_count(torch.device("cuda", 0))
+    wall("count")
     torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
@@ -4835,10 +4885,12 @@ def main():
         launches = phase_slice(work, torch.device("cuda", 0))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    wall("slice")
     print(f"device {smi}; peak device memory of serving "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
     train_kernels = phase_train_kernels()
+    wall("train kernels")
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
@@ -4846,8 +4898,10 @@ def main():
         phase_train_grads(torch.device("cuda", 0), data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    wall("train")
     torch.cuda.empty_cache()
     ffn_kernels = phase_ffn_kernels()
+    wall("ffn kernels")
     torch.cuda.empty_cache()
     fused_ffn = ["task.model.fused_ffn=true"]
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
@@ -4856,6 +4910,7 @@ def main():
                                    extra=fused_ffn)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    wall("slice, fused ffn")
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
@@ -4864,16 +4919,20 @@ def main():
         phase_train_grads(torch.device("cuda", 0), data, extra=fused_ffn)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    wall("train, fused ffn")
     torch.cuda.empty_cache()
     gather_errs = phase_gather_kernels()
+    wall("gather kernels")
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         citadel_launches = phase_citadel_cli(work, torch.device("cuda", 0))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    wall("citadel cli")
     torch.cuda.empty_cache()
     search_launches, _stats, captured = phase_citadel_search(torch.device("cuda", 0))
+    wall("citadel search")
     gather = citadel_kernel_entries(captured)
     del captured
     for name, err in gather_errs.items():
@@ -4882,13 +4941,17 @@ def main():
     citadel_launches["gather_score_streamed"] += search_launches["gather_score_streamed"]
     torch.cuda.empty_cache()
     mips = phase_mips_kernels(torch.device("cuda", 0))
+    wall("mips kernels")
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         retrieval_launches = phase_retrieval_cli(work, torch.device("cuda", 0))
+        wall("retrieval cli")
         torch.cuda.empty_cache()
         int_entries = phase_int_kernels(torch.device("cuda", 0))
+        wall("int kernels")
         torch.cuda.empty_cache()
         int_launches = phase_int_retrieval(work, torch.device("cuda", 0))
+        wall("int retrieval")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4898,31 +4961,36 @@ def main():
         tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) for _ in range(6))
     try:
         ckpt_launches = phase_checkpoint(work18, torch.device("cuda", 0))
+        wall("checkpoint")
         torch.cuda.empty_cache()
         own_launches = phase_own_batch(work19, torch.device("cuda", 0), card=smi)
+        wall("own batch")
         shutil.rmtree(work19, ignore_errors=True)
         torch.cuda.empty_cache()
         mv_launches = phase_multivec(work20, torch.device("cuda", 0), card=smi)
+        wall("multivec")
         torch.cuda.empty_cache()
         rest_launches, rest_shapes = phase_rest(
             work21, torch.device("cuda", 0), work18, f"{work18}/ckpt_b/params_best",
             f"{work20}/ckpt/params_best", work20, f"{work20}/splade_ckpt/params_best", card=smi)
+        wall("rest")
         for path in (work18, work21):
             shutil.rmtree(path, ignore_errors=True)
         torch.cuda.empty_cache()
         scale_launches, scale_shapes = phase_scale(work22, torch.device("cuda", 0), card=smi)
+        wall("scale")
         shutil.rmtree(work22, ignore_errors=True)
         torch.cuda.empty_cache()
-        t23 = time.perf_counter()
         ep_launches, ep_shapes = phase_expert_parallel(work23, torch.device("cuda", 0), work20,
                                                        card=smi)
-        print(f"phase 23 wall {time.perf_counter() - t23:.1f} s")
+        wall("expert parallel")
     finally:
         for path in (work18, work19, work20, work21, work22, work23):
             shutil.rmtree(path, ignore_errors=True)
     left = stop_started_processes()
     if left:
         raise RuntimeError(f"processes left running after the phases: {left}")
+    print(f"phase walls (s): {walls}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"

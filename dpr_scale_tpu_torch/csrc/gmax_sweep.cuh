@@ -1,22 +1,27 @@
 // The common frame of the wgmma sweeps over a corpus: mips_scan.cu's bf16
-// groupmax and count_above, count_groups.cu's bf16 count_above_groups and
-// int_scan.cu's int8 / int4 int_groupmax.  A block of 384 threads owns QM
-// queries and a SPAN-row span of corpus rows, walked in TILE-row tiles.
-// One producer warp issues 2-D TMA loads (128-byte swizzle, zero fill past
-// the matrix) of a tile's corpus rows and the block's query rows, one
-// 128-byte slice of each row a stage, into a ring of full / empty
-// mbarriers that runs on across the span's tiles; two consumer warpgroups
-// run wgmma with queries on M and corpus rows on N, both operands K-major,
-// the accumulators in registers.  Thread t of a warpgroup then holds, for
-// its query rows 16 (t / 32) + (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t %
-// 4) + {0, 1} of each n8 slice j: an 8-row corpus group is one slice, held
-// by the four lanes of a quad, so its maximum is an in-thread max and two
+// groupmax, count_above and tile_max, count_groups.cu's bf16
+// count_above_groups and int_scan.cu's int8 / int4 int_groupmax and
+// int8_tile_max.  A block of 384 threads owns QM queries and a span of
+// corpus rows, walked in TILE-row tiles.  A producer fills a ring of full /
+// empty mbarriers, which runs on across the span's tiles, with a tile's
+// corpus rows and the block's query rows, one 128-byte slice of each row a
+// stage, in the 128-byte swizzle, zero past the matrix: one thread issuing
+// 2-D TMA loads where TMA can address the rows (route 1), or, for the bf16
+// sweeps over rows it cannot (even D, 4-byte aligned bases: route 2), the
+// producer warpgroup's 128 threads issuing 4-byte cp.async copies that
+// land where the TMA box would put them.  Two consumer warpgroups run
+// wgmma with queries on M and corpus rows on N, both operands K-major, the
+// accumulators in registers.  Thread t of a warpgroup then holds, for its
+// query rows 16 (t / 32) + (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t % 4)
+// + {0, 1} of each n8 slice j: an 8-row corpus group is one slice, held by
+// the four lanes of a quad, so its maximum is an in-thread max and two
 // shuffles, a count over any rows an in-thread sum and two shuffles, and
 // no score reaches shared or device memory.  bf16_sweep() is the bf16 loop
-// (groupmax, the counts and tile_max; a block's span is SPAN rows, or
-// whole tiles of tile_max), count_sweep() the counts' epilogue on it;
+// with either producer (groupmax and the counts over SPAN-row spans, cut
+// in whole tiles while the grid is smaller than the card: fill_span;
+// tile_max over whole tiles), count_sweep() the counts' epilogue on it;
 // s8_sweep() the int8 / packed int4 loop of one or two query planes
-// (int_groupmax and int8_tile_max), int32 sums.
+// (int_groupmax and int8_tile_max, TMA only), int32 sums.
 //
 // Two layouts of a block's work, by query tile:
 //   QM = 128: warpgroup w owns queries [64 w, 64 w + 64) against all TILE =
@@ -30,6 +35,8 @@
 #include "hopper_ptx.cuh"  // first: the emulation defines the CUDA keywords there
 
 #include <limits.h>
+
+#include <type_traits>
 
 namespace gmax_sweep {
 
@@ -74,12 +81,14 @@ __device__ __forceinline__ unsigned char* aligned_smem() {
   return smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
 }
 
-// full[s] waits for the producer's one arrival and the stage's bytes,
-// empty[s] for one arrival of each consumer warp
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages) {
+// full[s] waits for the producer's `producers` arrivals (TMA: one, and the
+// stage's bytes; cp.async: one a producer thread), empty[s] for one
+// arrival of each consumer warp
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages,
+                                          int producers = 1) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], producers);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
     fence_barrier_init();
@@ -174,13 +183,30 @@ __device__ __forceinline__ void quad_argmax_scatter(const float (&m)[NJ][2], con
 
 // ---- the bf16 sweep: groupmax, count_above, count_above_groups ----
 
-// 1 where a bf16 sweep runs on this frame: a bf16 corpus (dtype 0) whose
-// rows TMA can address (D % 8 == 0 makes 16-byte rows; 16-byte aligned
-// bases) and whose rows an int coordinate reaches
+// The route of a bf16 sweep, for a bf16 corpus (dtype 0) whose rows an int
+// coordinate reaches: 1 (TMA) where TMA can address the rows (D % 8 == 0
+// makes 16-byte rows; 16-byte aligned bases), 2 (cp.async) where D is even
+// and both bases are 4-byte aligned; 0 (score_tile.cuh) for fp32, odd D
+// and the rest
 inline int bf16_route(const void* q, const void* corpus, long long N, int D, int dtype) {
-  return dtype == 0 && D % 8 == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)corpus % 16 == 0 &&
-         N <= INT_MAX;
+  if (dtype != 0 || N > INT_MAX) return 0;
+  const uintptr_t bases = (uintptr_t)q | (uintptr_t)corpus;
+  if (D % 8 == 0 && bases % 16 == 0) return 1;
+  return D % 2 == 0 && bases % 4 == 0 ? 2 : 0;
 }
+
+// The ring's producer, a sweep kernel's first argument: tensor maps of the
+// queries (B, D) in (QM, 64) boxes and of the corpus (N, D) in (TILE, 64)
+// boxes (route 1), or the rows themselves (route 2)
+struct TmaRing {
+  CUtensorMap q, c;
+};
+struct CpRing {
+  const unsigned char* q;
+  const unsigned char* c;
+};
+template <bool CP>
+using Ring = typename std::conditional<CP, CpRing, TmaRing>::type;
 
 // The tensor cores' fp32 accumulation truncates each addend to the
 // accumulator's exponent, so a score carried through them over all D
@@ -213,33 +239,78 @@ __device__ __forceinline__ unsigned char* bf16_extra() {
   return aligned_smem() + BF16_STAGES<QM> * BF16_STAGE<QM> + 2 * BF16_STAGES<QM> * 8;
 }
 
-// Launches kernel(tmQ, tmC, args..., B, D, N, nqt), a bf16 sweep of QM
-// queries a block over spans of `span` rows (a multiple of TILE), with
-// tmQ the queries (B, D) in (QM, 64) boxes and tmC the corpus (N, D) in
-// (TILE, 64) boxes, and `extra` bytes of shared memory past the ring;
-// block b takes query tile b % nqt and span b / nqt, so the query tiles of
-// one span run together and read its rows from L2.  Returns the failed
-// encode's or the launch's code.
-template <int QM, typename Kernel, typename... Args>
+// The span of a groupmax or count block: SPAN rows where the grid of
+// ceil(N / SPAN) x nqt blocks fills the card's SMs, else the span of whole
+// TILEs (down to TILE) that takes the fewest waves x tiles a block (one
+// block an SM), ties to the larger span: a small corpus still fills the
+// card (256 queries x 1,280 rows: 20 blocks, not 4), and a grid just short
+// of the SMs keeps one wave (65,536 rows: 128 blocks of 2,048, not 148 of
+// 1,792 in two).  Their outputs carry nothing across spans (the counts add
+// with atomics into zeros, t1 / t2 are per 8 and per 128 rows), so any span
+// of whole tiles gives the same result.  Returns the failed query's code.
+inline cudaError_t fill_span(long long N, int nqt, long long* span) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *span = SPAN;
+  if (err != cudaSuccess || (N + SPAN - 1) / SPAN * nqt >= sms) return err;
+  long long best = -1;
+  for (long long s = SPAN; s >= TILE; s -= TILE) {
+    const long long waves = ((N + s - 1) / s * nqt + sms - 1) / sms;
+    const long long cost = waves * (((s < N ? s : N) + TILE - 1) / TILE);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *span = s;
+    }
+  }
+  return err;
+}
+
+// Launches kernel(ring, args..., B, D, N, nqt, span), a bf16 sweep of QM
+// queries a block over spans of `span` rows (a multiple of TILE) fed by
+// the producer CP selects (Ring<CP>), with `extra` bytes of shared memory
+// past the ring; block b takes query tile b % nqt and span b / nqt, so the
+// query tiles of one span run together and read its rows from L2.
+// Returns the failed encode's or the launch's code.
+template <int QM, bool CP, typename Kernel, typename... Args>
 int launch_bf16_spans(Kernel kernel, long long span, int extra, const void* q,
                       const void* corpus, int B, long long N, int D, cudaStream_t stream,
                       Args... args) {
   const int nqt = (B + QM - 1) / QM;
   const long long blocks = (N + span - 1) / span * nqt;
   if (blocks > 0x7fffffffLL || span % TILE != 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tc;
-  cudaError_t err = make_tmap(&tq, q, B, D, QM, 64);
-  if (err == cudaSuccess) err = make_tmap(&tc, corpus, N, D, TILE, 64);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch(kernel, dim3((unsigned)blocks), THREADS, bf16_smem<QM>(extra), stream, tq,
-                     tc, args..., B, D, N, nqt);
+  Ring<CP> ring;
+  if constexpr (CP) {
+    ring.q = static_cast<const unsigned char*>(q);
+    ring.c = static_cast<const unsigned char*>(corpus);
+  } else {
+    cudaError_t err = make_tmap(&ring.q, q, B, D, QM, 64);
+    if (err == cudaSuccess) err = make_tmap(&ring.c, corpus, N, D, TILE, 64);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch(kernel, dim3((unsigned)blocks), THREADS, bf16_smem<QM>(extra), stream, ring,
+                     args..., B, D, N, nqt, span);
 }
 
-// the same over SPAN-row spans with no extra bytes (groupmax and the counts)
-template <int QM, typename Kernel, typename... Args>
+// the same over fill_span's spans with no extra bytes (groupmax and the counts)
+template <int QM, bool CP, typename Kernel, typename... Args>
 int launch_bf16_sweep(Kernel kernel, const void* q, const void* corpus, int B, long long N, int D,
                       cudaStream_t stream, Args... args) {
-  return launch_bf16_spans<QM>(kernel, SPAN, 0, q, corpus, B, N, D, stream, args...);
+  long long span;
+  const cudaError_t err = fill_span(N, (B + QM - 1) / QM, &span);
+  if (err != cudaSuccess) return (int)err;
+  return launch_bf16_spans<QM, CP>(kernel, span, 0, q, corpus, B, N, D, stream, args...);
+}
+
+// f(QM, CP), each a std::integral_constant: the layout a bf16 sweep of B
+// queries at width D takes and the producer of `route` (1 TMA, 2 cp.async)
+template <typename F>
+int by_route(int route, int B, int D, F&& f) {
+  using Q64 = std::integral_constant<int, 64>;
+  using Q128 = std::integral_constant<int, 128>;
+  if (bf16_qm128(B, D))
+    return route == 2 ? f(Q128(), std::true_type()) : f(Q128(), std::false_type());
+  return route == 2 ? f(Q64(), std::true_type()) : f(Q64(), std::false_type());
 }
 
 // the first of the two query rows (qa, qa + 8) a consumer thread holds
@@ -250,19 +321,83 @@ __device__ __forceinline__ int query_row(int nqt) {
          (t % 32) / 4;
 }
 
+// Copies ROWS rows of one 128-byte slice into a ring stage's segment at the
+// shared address seg (1024-byte aligned), row r from src + r * pitch (src:
+// the slice's first byte), where a TMA box would put it: the 128-byte
+// swizzle moves row r's 16-byte chunk c to chunk c ^ (r % 8).  Rows [0,
+// valid) are read, the rest zero-filled (src-size 0 reads nothing; `any`,
+// a readable address, stands in).  Thread t of the producer warpgroup's
+// 128 copies bytes [ub, ub + 4) of rows r0 + 4 k, r0 = t / 32, so that a
+// warp's copy covers one row slice and odd k flip chunk bit 2 (address bit
+// 6).  A whole segment's copies are unrolled, each address its own product
+// of k, so that the producer issues little besides them.
+template <int ROWS>
+__device__ __forceinline__ void cp_rows(uint32_t seg, const unsigned char* src, long long pitch,
+                                        int valid, int t, const void* any) {
+  constexpr int U = SLICE / 4, STEP = 128 / U, K = ROWS / STEP;  // copies a row slice; rows apart
+  static_assert(ROWS % STEP == 0, "whole rounds of the warpgroup");
+  const int r0 = t / U, ub = t % U * 4;
+  const uint32_t d0 = (seg + r0 * SLICE + ub) ^ ((r0 & 7) << 4);
+  const uint32_t d1 = d0 ^ 64;  // odd k
+  const unsigned char* from = src + r0 * pitch + ub;
+  const unsigned step = (unsigned)(STEP * pitch);
+  if (valid >= ROWS) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      cp_async4((k & 1 ? d1 : d0) + k * STEP * SLICE, from + (size_t)k * step, 4);
+    return;
+  }
+  const int kv = valid > r0 ? (valid - r0 + STEP - 1) / STEP : 0;  // rows r0 + STEP k < valid
+#pragma unroll 4
+  for (int k = 0; k < K; ++k)
+    cp_async4((k & 1 ? d1 : d0) + k * STEP * SLICE, k < kv ? from + (size_t)k * step : any,
+              k < kv ? 4 : 0);
+}
+
+// The cp.async producer of a bf16 sweep's ring (route 2), run by all 128
+// threads of the producer warpgroup: each stage copies the tile's TILE
+// corpus rows and the block's QM query rows, one 64-column slice of each,
+// 4 bytes a copy (zero past D, N and B), and each thread ends it with a
+// .noinc arrival on full[s], which lands once its copies have (full[s]
+// counts 128 arrivals and no transaction bytes).
+template <int QM>
+__device__ __forceinline__ void cp_produce(const CpRing& ring, unsigned char* smem,
+                                           uint64_t* full, uint64_t* empty, int B, int D,
+                                           long long N, int q0, long long row0, int tiles, int KT,
+                                           int t) {
+  constexpr int STAGE = BF16_STAGE<QM>, STAGES = BF16_STAGES<QM>;
+  const long long pitch = 2LL * D;
+  const int ub = t % (SLICE / 4) * 4;  // this thread's byte of each row slice
+  const uint32_t base = smem_addr(smem);
+  for (int it = 0; it < tiles * KT; ++it) {
+    const int s = it % STAGES, tile = it / KT, colb = it % KT * SLICE;
+    mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // first use passes
+    // 4 divides 2 D and the copies start at multiples of 4: each lies
+    // wholly before D or past it
+    const bool in_d = colb + ub < pitch;
+    const long long r = row0 + (long long)tile * TILE;
+    const uint32_t st = base + s * STAGE;
+    cp_rows<TILE>(st, ring.c + r * pitch + colb, pitch, in_d ? (int)min((long long)TILE, N - r) : 0,
+                  t, ring.c);
+    cp_rows<QM>(st + C_BYTES, ring.q + q0 * pitch + colb, pitch, in_d ? min(QM, B - q0) : 0, t,
+                ring.c);
+    cp_async_arrive_noinc(&full[s]);
+  }
+}
+
 // The block's walk over its span of `span` rows (block b: query tile b %
-// nqt, span b / nqt): the producer thread streams each tile's k-slices
-// through the ring; each consumer warpgroup runs its products and, once a
-// tile's have retired, calls epilogue(acc, rbase), rbase the first corpus
-// row of its part of the tile.  Past PROMOTE_D (QM = 64 only) each stage's
-// products start from zero and retire before their sums join the running
-// scores: the ring still prefetches, but a warpgroup no longer issues the
-// next stage while the last one runs.  Returns false in the producer
-// warpgroup, true in the consumers after the span.
-template <int QM, typename Epilogue>
-__device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtensorMap& tmC, int D,
-                                           long long N, int nqt, Epilogue&& epilogue,
-                                           long long span = SPAN) {
+// nqt, span b / nqt): the producer streams each tile's k-slices through
+// the ring (TMA: one thread; cp.async: the warpgroup, cp_produce); each
+// consumer warpgroup runs its products and, once a tile's have retired,
+// calls epilogue(acc, rbase), rbase the first corpus row of its part of
+// the tile.  Past PROMOTE_D (QM = 64 only) each stage's products start
+// from zero and retire before their sums join the running scores: the ring
+// still prefetches, but a warpgroup no longer issues the next stage while
+// the last one runs.  Returns false in the producer warpgroup, true in the
+// consumers after the span.
+template <int QM, bool CP, typename Epilogue>
+__device__ __forceinline__ bool bf16_sweep(const Ring<CP>& ring, int B, int D, long long N,
+                                           int nqt, long long span, Epilogue&& epilogue) {
   using L = Layout<QM>;
   constexpr int STAGE = BF16_STAGE<QM>, STAGES = BF16_STAGES<QM>;
   unsigned char* smem = aligned_smem();
@@ -272,19 +407,22 @@ __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtenso
   const int q0 = (int)(blockIdx.x % nqt) * QM;
   const long long row0 = (long long)(blockIdx.x / nqt) * span;
   const int tiles = span_tiles(row0, N, span), KT = (D + 63) / 64;
-  ring_init(full, empty, STAGES);
+  ring_init(full, empty, STAGES, CP ? 128 : 1);
 
   if (wg == 2) {
-    // ---- producer: one thread keeps the ring's loads in flight ----
     setmaxnreg_dec<40>();
-    if (t == 0) {
+    if constexpr (CP) {
+      // ---- producer: the warpgroup's 128 threads copy each stage ----
+      cp_produce<QM>(ring, smem, full, empty, B, D, N, q0, row0, tiles, KT, t);
+    } else if (t == 0) {
+      // ---- producer: one thread keeps the ring's loads in flight ----
       for (int it = 0; it < tiles * KT; ++it) {
         const int s = it % STAGES, tile = it / KT, col = (it % KT) * 64;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // first use passes
         unsigned char* st = smem + s * STAGE;
         mbar_arrive_expect_tx(&full[s], STAGE);
-        tma_load(st, &tmC, (int)(row0 + tile * TILE), col, &full[s]);
-        tma_load(st + C_BYTES, &tmQ, q0, col, &full[s]);
+        tma_load(st, &ring.c, (int)(row0 + tile * TILE), col, &full[s]);
+        tma_load(st + C_BYTES, &ring.q, q0, col, &full[s]);
       }
     }
     return false;
@@ -303,6 +441,7 @@ __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtenso
         for (int kt = 0; kt < KT; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(&full[s], (it / STAGES) & 1);
+          if constexpr (CP) fence_proxy_async();  // the copies, visible to wgmma
           const unsigned char* st = smem + s * STAGE;
 #pragma unroll
           for (int i = 0; i < L::N / 2; ++i) acc[i] = 0.0f;
@@ -335,6 +474,7 @@ __device__ __forceinline__ bool bf16_sweep(const CUtensorMap& tmQ, const CUtenso
     for (int kt = 0; kt < KT; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
+      if constexpr (CP) fence_proxy_async();  // the copies, visible to wgmma
       const unsigned char* st = smem + s * STAGE;
       fence_operands(acc);
       wgmma_fence();
@@ -423,15 +563,19 @@ constexpr int UNIT = 128;  // rows of a count's unit: half a 256-row tile
 // or blocks meet (the two halves of a 256-row group in the QM = 64 layout,
 // a group wider than a span, count_above's one group) gets one addition
 // from each; integer sums are exact and order-free, so the counts are the
-// same bits on every run.
-template <int QM>
-__device__ __forceinline__ void count_sweep(const CUtensorMap& tmQ, const CUtensorMap& tmC,
-                                            const float* __restrict__ tau, int* __restrict__ out,
-                                            int B, int D, long long N, int nqt, long long group,
+// same bits on every run.  The span is the launch's (fill_span), read at
+// run time: with SPAN fixed at compile time the same loops sit 32 bytes
+// earlier and the TMA route past PROMOTE_D ran 4-6% faster at D = 30,528
+// on an H100 (no configuration has such a width; 768 and 1,536 did not
+// move).
+template <int QM, bool CP>
+__device__ __forceinline__ void count_sweep(const Ring<CP>& ring, const float* __restrict__ tau,
+                                            int* __restrict__ out, int B, int D, long long N,
+                                            int nqt, long long span, long long group,
                                             long long ngroups) {
   using L = Layout<QM>;
   const int lane = threadIdx.x % 32, qa = query_row<QM>(nqt);
-  // trap: queries past B are the query box's zero fill; they get a
+  // trap: queries past B are the producer's zero fill; they get a
   // threshold of 0 here and their counts are never added
   float th[2];
 #pragma unroll
@@ -449,16 +593,16 @@ __device__ __forceinline__ void count_sweep(const CUtensorMap& tmQ, const CUtens
     run[0] = run[1] = 0;
   };
 
-  const bool consumer =
-      bf16_sweep<QM>(tmQ, tmC, D, N, nqt, [&](const float (&acc)[L::N / 2], long long rbase) {
+  const bool consumer = bf16_sweep<QM, CP>(
+      ring, B, D, N, nqt, span, [&](const float (&acc)[L::N / 2], long long rbase) {
         const int c0 = 2 * (lane & 3);  // acc[4 j + 2 h + e] is column 8 j + c0 + e
 #pragma unroll
         for (int v = 0; v < L::N / UNIT; ++v) {
           const long long u0 = rbase + UNIT * v;  // the unit's first row
-          // trap: rows at or past N are TMA's zero fill and score exactly
-          // 0, above every tau < 0 (the callers subtract only their pad
-          // rows, which lie before N): a unit past N is skipped, a ragged
-          // one masked by row
+          // trap: rows at or past N are the producer's zero fill and
+          // score exactly 0, above every tau < 0 (the callers subtract
+          // only their pad rows, which lie before N): a unit past N is
+          // skipped, a ragged one masked by row
           if (u0 >= N) break;
           if (u0 >= g_end) {  // the same for the whole warpgroup: the shuffles converge
             if (g >= 0) flush();

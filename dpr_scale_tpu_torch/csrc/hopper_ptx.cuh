@@ -1,7 +1,9 @@
 // The Hopper instructions the port's wgmma and ring kernels are built from,
 // one small wrapper each: TMA (2-D cp.async.bulk.tensor loads with the
 // 128-byte swizzle, their tensor maps encoded on the host, bf16 or bytes;
-// 1-D bulk copies, which need no tensor map), mbarriers (the rings' full /
+// 1-D bulk copies, which need no tensor map), 4-byte cp.async with zero
+// fill and their mbarrier arrival (the bf16 sweeps' producer for rows
+// TMA cannot address), mbarriers (the rings' full /
 // empty handshakes), wgmma (warpgroup products from shared-memory
 // descriptors: bf16 with B MN-major or K-major, fp32 accumulate; s8 with
 // both K-major, int32 accumulate), setmaxnreg and named barriers, plus the
@@ -151,6 +153,25 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// ---- cp.async (non-bulk) ----
+
+// a 4-byte copy (cp.async.ca) from src in device memory to the shared
+// address dst, both 4-byte aligned: the first src_size bytes read, the rest
+// zero-filled (0 reads nothing); asynchronous until an arrival that tracks
+// it
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_size) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_size)
+               : "memory");
+}
+
+// one arrival on bar, made once every cp.async this thread issued before it
+// has landed; .noinc: it counts against the barrier's expected arrivals
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 // ---- warpgroups ----

@@ -20,41 +20,57 @@
 // Design: the TPU grid walked its corpus tiles in order on one core and
 // carried the reduction in its output block; here blocks run in parallel.
 // A block owns (queries, a span of rows): count_above and groupmax take
-// SPAN-row spans, tile_max one whole tile, so its running max is written
-// once.  count_above adds its counts into the output with integer atomics,
+// spans of up to SPAN rows, tile_max whole tiles, so a tile's running max
+// is written once.  count_above adds its counts into the output with integer atomics,
 // one per query and block (and warpgroup in the 64-query layout below):
 // exact and order-free, so the result is deterministic.  The query tiles
 // of one span are neighbouring block indices, so they run together and
 // read the span's corpus rows from L2.
 //
-// groupmax and count_above on a bf16 corpus whose rows TMA can address
-// (D % 8 == 0, 16-byte aligned bases) run groupmax_wgmma_kernel and
-// count_above_wgmma_kernel, and tile_max over tiles of whole 256-row units
-// (tile % 256 == 0) tile_max_wgmma_kernel, on gmax_sweep.cuh's frame: a
-// ring of TMA loads (4 stages of a 256-row corpus slice and the block's
-// query slice, 64 columns each) feeding two consumer warpgroups on wgmma m64nNk16 (queries
-// on M, corpus rows on N, both K-major, fp32 sums in registers).  groupmax:
-// per tile each thread takes the max of its two columns of every n8 slice,
-// the quad's lanes reduce-scatter the 8-row group maxima with shuffles, a
-// 128-row tier-2 maximum is the max of 16 of them and two more shuffles,
-// and t1 / t2 are stored from registers, coalesced along the query axis of
-// the (groups, B) layout.  count_above: each thread counts its scores above
-// its two queries' thresholds in registers over the whole span (rows past
-// N masked), then two shuffles sum the quad and one atomicAdd a query adds
-// it (gmax_sweep.cuh's count_sweep, one group of all N rows).  tile_max:
-// a block's span is whole tiles (one tile of 4,096 rows; tiles of at most
-// 2,048 rows as many as fit in 2,048), each thread carries the running
-// max of its two query rows' scores over a tile's 256-row units in
-// registers, and at the tile's end two quad shuffles give the tile's
-// maxima, stored once (no atomics: deterministic).  B > 64 takes
-// 128-query blocks (m64n256 a warpgroup); B <= 64 64-query blocks
-// (m64n128, the warpgroups on the two halves of a tile, whose tile_max
-// maxima meet in shared memory), so the corpus is read once.  Every other
-// case (fp32, D % 8 != 0, unaligned; tile_max's tiles of other widths) runs
-// on score_tile.cuh's tile (wmma, synchronous staging; a 128 x 64 fp32
-// score tile in shared memory, reduced by strided columns).
-// dst_groupmax_route / dst_count_above_route / dst_tile_max_route say which
-// kernel a call takes.
+// Three routes, chosen by shape in each entry point (dst_groupmax_route /
+// dst_count_above_route / dst_tile_max_route say which a call takes):
+//   1  a bf16 corpus whose rows TMA can address (D % 8 == 0, 16-byte
+//      aligned bases; tile_max: tiles of a multiple of 256 rows):
+//      groupmax_wgmma_kernel, count_above_wgmma_kernel and
+//      tile_max_wgmma_kernel on gmax_sweep.cuh's frame, a ring of TMA loads
+//      (4 stages of a 256-row corpus slice and the block's query slice, 64
+//      columns each) feeding two consumer warpgroups on wgmma m64nNk16
+//      (queries on M, corpus rows on N, both K-major, fp32 sums in
+//      registers): the `groupmax` and `auto` searches over bert_base /
+//      bert_large / SPAR rows;
+//   2  the same kernels over rows TMA cannot address, D even and 4-byte
+//      aligned bases, the ring fed by the producer warpgroup's 4-byte
+//      cp.async copies in TMA's swizzled layout: SPLADE's D = 30,522
+//      (task.model.family=splade with mips_method groupmax or auto);
+//   0  everything else (fp32, odd D, unaligned bases, tile_max's other
+//      tiles): score_tile.cuh's tile (wmma, synchronous staging; a 128 x 64
+//      fp32 score tile in shared memory, reduced by strided columns).  No
+//      CLI builds an fp32 MipsIndex and no configuration has an odd D.
+// On the wgmma frame, groupmax: per tile each thread takes the max of its
+// two columns of every n8 slice, the quad's lanes reduce-scatter the 8-row
+// group maxima with shuffles, a 128-row tier-2 maximum is the max of 16 of
+// them and two more shuffles, and t1 / t2 are stored from registers,
+// coalesced along the query axis of the (groups, B) layout.  count_above:
+// each thread counts its scores above its two queries' thresholds in
+// registers over the whole span (rows past N masked), then two shuffles
+// sum the quad and one atomicAdd a query adds it (gmax_sweep.cuh's
+// count_sweep, one group of all N rows).  Both take 2,048-row spans, cut in
+// whole 256-row tiles while the grid is smaller than the card (fill_span:
+// 256 x 1,280 SPLADE rows make 20 blocks, not 4).  tile_max: a block's
+// span is whole tiles (one tile of 4,096 rows; tiles of at most 2,048 rows
+// as many as fit in 2,048), each thread carries the running max of its two
+// query rows' scores over a tile's 256-row units in registers, and at the
+// tile's end two quad shuffles give the tile's maxima, stored once (no
+// atomics: deterministic).  B > 64 takes 128-query blocks (m64n256 a
+// warpgroup) up to D = 1,536; B <= 64, and any B past it (the promoted
+// sums), 64-query blocks (m64n128, the warpgroups on the two halves of a
+// tile, whose tile_max maxima meet in shared memory), so the corpus is read
+// once per 64 or 128 queries.  What bounds routes 1 and 2 on an H100: the
+// product or the corpus read above (at SPLADE's width, B = 256 over 65,536
+// rows, the 4.0 GB read: 1.19 ms); route 2 also issues 32 copies a
+// 128-byte row slice from its producer warpgroup, where TMA issues one box
+// a stage.  Route 0 alternates loads and MMAs and is bound by that, not by
+// the card.
 #include "gmax_sweep.cuh"  // first: the emulation defines the CUDA keywords there
 #include "score_tile.cuh"
 
@@ -157,16 +173,16 @@ tile_max_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
   }
 }
 
-// groupmax over a TMA-addressable bf16 corpus (gmax_sweep.cuh); tmQ reads
-// the queries (B, D) in (QM, 64) boxes, tmC the corpus (N, D) in (256, 64)
-template <int QM>
+// groupmax over a bf16 corpus on gmax_sweep.cuh's frame, fed by TMA (CP
+// false) or cp.async (CP true; gs::Ring<CP>)
+template <int QM, bool CP>
 __global__ void __launch_bounds__(gs::THREADS, 1)
-groupmax_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
-                      const __grid_constant__ CUtensorMap tmC, float* __restrict__ t1,
-                      float* __restrict__ t2, int B, int D, long long N, int nqt) {
+groupmax_wgmma_kernel(const __grid_constant__ gs::Ring<CP> ring, float* __restrict__ t1,
+                      float* __restrict__ t2, int B, int D, long long N, int nqt, long long span) {
   using L = gs::Layout<QM>;
   const int lane = threadIdx.x % 32, qa = gs::query_row<QM>(nqt);  // rows qa, qa + 8
-  gs::bf16_sweep<QM>(tmQ, tmC, D, N, nqt, [&](const float (&acc)[L::N / 2], long long rbase) {
+  gs::bf16_sweep<QM, CP>(ring, B, D, N, nqt, span, [&](const float (&acc)[L::N / 2],
+                                                       long long rbase) {
     // ---- epilogue: group maxima in registers, stored from them ----
     float m[L::NJ][2], r[L::NJ / 4][2];
 #pragma unroll
@@ -198,14 +214,15 @@ groupmax_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
   });
 }
 
-// count_above over a TMA-addressable bf16 corpus: gmax_sweep.cuh's count
-// epilogue with one group of all N rows (any N; out (B,) zeroed)
-template <int QM>
+// count_above over a bf16 corpus on gmax_sweep.cuh's frame (either
+// producer): the count epilogue with one group of all N rows (any N; out
+// (B,) zeroed)
+template <int QM, bool CP>
 __global__ void __launch_bounds__(gs::THREADS, 1)
-count_above_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
-                         const __grid_constant__ CUtensorMap tmC, const float* __restrict__ tau,
-                         int* __restrict__ out, int B, int D, long long N, int nqt) {
-  gs::count_sweep<QM>(tmQ, tmC, tau, out, B, D, N, nqt, N, 1);
+count_above_wgmma_kernel(const __grid_constant__ gs::Ring<CP> ring, const float* __restrict__ tau,
+                         int* __restrict__ out, int B, int D, long long N, int nqt,
+                         long long span) {
+  gs::count_sweep<QM, CP>(ring, tau, out, B, D, N, nqt, span, N, 1);
 }
 
 // 64 floats past the ring: the maxima the QM = 64 layout's second
@@ -215,13 +232,17 @@ static_assert(gs::bf16_smem<64>(TILE_MAX_EXTRA) <= gs::SMEM_LIMIT &&
                   gs::bf16_smem<128>(TILE_MAX_EXTRA) <= gs::SMEM_LIMIT,
               "the exchange fits beside the ring");
 
-// tile_max over a TMA-addressable bf16 corpus, tiles of a multiple of 256
-// rows (N % tile == 0): out[b * ntiles + t] = max of tile t's scores
-template <int QM>
+// tile_max over a bf16 corpus on gmax_sweep.cuh's frame (either producer),
+// tiles of a multiple of 256 rows (N % tile == 0), spans of whole tiles:
+// out[b * ntiles + t] = max of tile t's scores.  The block derives its span
+// from the tile (gs::tile_max_span, the launch's span): taken from the
+// last argument instead, the kernel's loops compile to the same
+// instructions at other addresses and ran 14% slower over 256 x 1,280 rows
+// of 30,528 (4 blocks) on an H100.
+template <int QM, bool CP>
 __global__ void __launch_bounds__(gs::THREADS, 1)
-tile_max_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
-                      const __grid_constant__ CUtensorMap tmC, float* __restrict__ out,
-                      long long tile, int B, int D, long long N, int nqt) {
+tile_max_wgmma_kernel(const __grid_constant__ gs::Ring<CP> ring, float* __restrict__ out,
+                      long long tile, int B, int D, long long N, int nqt, long long) {
   using L = gs::Layout<QM>;
   const int lane = threadIdx.x % 32, wg = threadIdx.x / 128;
   const int qa = gs::query_row<QM>(nqt);  // this thread's rows qa, qa + 8
@@ -229,7 +250,8 @@ tile_max_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
   float* handed = reinterpret_cast<float*>(gs::bf16_extra<QM>());  // (64,), QM = 64
   const float neg_inf = -__int_as_float(0x7f800000);
   float m[2] = {neg_inf, neg_inf};  // this thread's running maxima of rows qa, qa + 8
-  gs::bf16_sweep<QM>(tmQ, tmC, D, N, nqt, [&](const float (&acc)[L::N / 2], long long rbase) {
+  gs::bf16_sweep<QM, CP>(ring, B, D, N, nqt, gs::tile_max_span(tile),
+                         [&](const float (&acc)[L::N / 2], long long rbase) {
     if (!gs::tile_max_unit<QM>(m, acc, rbase, tile, handed)) return;
     const long long t = (rbase / gs::TILE + 1) * gs::TILE / tile - 1;
     if ((QM == 128 || wg == 0) && (lane & 3) == 0) {
@@ -238,14 +260,14 @@ tile_max_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
         if (qa + 8 * h < B) out[(size_t)(qa + 8 * h) * ntiles + t] = m[h];
     }
     m[0] = m[1] = neg_inf;
-  }, gs::tile_max_span(tile));
+  });
 }
 
-// 1 where dst_tile_max takes tile_max_wgmma_kernel: a bf16 sweep whose
-// tiles are whole 256-row units
+// the route of dst_tile_max: a bf16 sweep's (gs::bf16_route) where the
+// tiles are whole 256-row units, else 0
 inline int tile_max_route(const void* q, const void* corpus, long long N, int D, long long tile,
                           int dtype) {
-  return gs::bf16_route(q, corpus, N, D, dtype) && tile % gs::TILE == 0;
+  return tile % gs::TILE == 0 ? gs::bf16_route(q, corpus, N, D, dtype) : 0;
 }
 
 template <typename T>
@@ -295,12 +317,13 @@ extern "C" int dst_count_above(const void* q, const void* corpus, const void* ta
                                int B, long long N, int D, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool qm128 = gs::bf16_qm128(B, D);
-  if (gs::bf16_route(q, corpus, N, D, dtype))
-    return qm128 ? gs::launch_bf16_sweep<128>(count_above_wgmma_kernel<128>, q, corpus, B, N, D,
-                                              s, (const float*)tau, (int*)out)
-                 : gs::launch_bf16_sweep<64>(count_above_wgmma_kernel<64>, q, corpus, B, N, D,
-                                             s, (const float*)tau, (int*)out);
+  if (const int route = gs::bf16_route(q, corpus, N, D, dtype))
+    return gs::by_route(route, B, D, [&](auto qm, auto cp) {
+      constexpr int QM = decltype(qm)::value;
+      constexpr bool CP = decltype(cp)::value;
+      return gs::launch_bf16_sweep<QM, CP>(count_above_wgmma_kernel<QM, CP>, q, corpus, B, N, D,
+                                           s, (const float*)tau, (int*)out);
+    });
   if (dtype == 0) return launch_count<bf16>(q, corpus, tau, out, B, N, D, s);
   if (dtype == 1) return launch_count<float>(q, corpus, tau, out, B, N, D, s);
   return (int)cudaErrorInvalidValue;
@@ -312,30 +335,34 @@ extern "C" int dst_groupmax(const void* q, const void* corpus, void* t1, void* t
                             long long N, int D, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1 || N % ROWS != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool qm128 = gs::bf16_qm128(B, D);
-  if (gs::bf16_route(q, corpus, N, D, dtype))
-    return qm128 ? gs::launch_bf16_sweep<128>(groupmax_wgmma_kernel<128>, q, corpus, B, N, D, s,
-                                              (float*)t1, (float*)t2)
-                 : gs::launch_bf16_sweep<64>(groupmax_wgmma_kernel<64>, q, corpus, B, N, D, s,
-                                             (float*)t1, (float*)t2);
+  if (const int route = gs::bf16_route(q, corpus, N, D, dtype))
+    return gs::by_route(route, B, D, [&](auto qm, auto cp) {
+      constexpr int QM = decltype(qm)::value;
+      constexpr bool CP = decltype(cp)::value;
+      return gs::launch_bf16_sweep<QM, CP>(groupmax_wgmma_kernel<QM, CP>, q, corpus, B, N, D, s,
+                                           (float*)t1, (float*)t2);
+    });
   if (dtype == 0) return launch_groupmax<bf16>(q, corpus, t1, t2, B, N, D, s);
   if (dtype == 1) return launch_groupmax<float>(q, corpus, t1, t2, B, N, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// 1: dst_count_above takes the wgmma kernel on these arguments; 0: score_tile.
+// The kernel dst_count_above takes on these arguments: 1 the wgmma kernel
+// fed by TMA, 2 the same fed by cp.async, 0 score_tile.
 extern "C" int dst_count_above_route(const void* q, const void* corpus, long long N, int D,
                                      int dtype) {
   return gs::bf16_route(q, corpus, N, D, dtype);
 }
 
-// 1: dst_groupmax takes the wgmma kernel on these arguments; 0: score_tile.
+// The kernel dst_groupmax takes on these arguments: 1 the wgmma kernel fed
+// by TMA, 2 the same fed by cp.async, 0 score_tile.
 extern "C" int dst_groupmax_route(const void* q, const void* corpus, long long N, int D,
                                   int dtype) {
   return gs::bf16_route(q, corpus, N, D, dtype);
 }
 
-// 1: dst_tile_max takes the wgmma kernel on these arguments; 0: score_tile.
+// The kernel dst_tile_max takes on these arguments: 1 the wgmma kernel fed
+// by TMA, 2 the same fed by cp.async, 0 score_tile.
 extern "C" int dst_tile_max_route(const void* q, const void* corpus, long long N, int D,
                                   long long tile, int dtype) {
   return tile_max_route(q, corpus, N, D, tile, dtype);
@@ -345,6 +372,15 @@ extern "C" int dst_tile_max_route(const void* q, const void* corpus, long long N
 // count_above, count_above_groups: one frame) at batch B, D <= PROMOTE_D.
 extern "C" long long dst_bf16_sweep_smem(int B) {
   return (long long)(B > 64 ? gs::bf16_smem<128>() : gs::bf16_smem<64>());
+}
+
+// The rows of a groupmax or count block (gmax_sweep.cuh's fill_span) at
+// batch B and width D over N rows, or minus the failed device query's code.
+extern "C" long long dst_bf16_sweep_span(long long N, int B, int D) {
+  const int qm = gs::bf16_qm128(B, D) ? 128 : 64;
+  long long span;
+  const cudaError_t err = gs::fill_span(N, (B + qm - 1) / qm, &span);
+  return err == cudaSuccess ? span : -(long long)err;
 }
 
 // Dynamic shared memory of a tile_max_wgmma_kernel block at batch B, D <=
@@ -360,16 +396,15 @@ extern "C" int dst_tile_max(const void* q, const void* corpus, void* out, int B,
                             int D, long long tile, int dtype, void* stream) {
   if (B < 1 || D < 1 || N < 1 || tile < 1 || N % tile != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool qm128 = gs::bf16_qm128(B, D);
-  if (tile_max_route(q, corpus, N, D, tile, dtype))
-    return qm128 ? gs::launch_bf16_spans<128>(tile_max_wgmma_kernel<128>, gs::tile_max_span(tile),
-                                              TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
-                                              tile)
-                 : gs::launch_bf16_spans<64>(tile_max_wgmma_kernel<64>, gs::tile_max_span(tile),
-                                             TILE_MAX_EXTRA, q, corpus, B, N, D, s, (float*)out,
-                                             tile);
-  if (dtype == 0) return launch_tile_max<bf16>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);
-  if (dtype == 1)
-    return launch_tile_max<float>(q, corpus, out, B, N, D, tile, (cudaStream_t)stream);
+  if (const int route = tile_max_route(q, corpus, N, D, tile, dtype))
+    return gs::by_route(route, B, D, [&](auto qm, auto cp) {
+      constexpr int QM = decltype(qm)::value;
+      constexpr bool CP = decltype(cp)::value;
+      return gs::launch_bf16_spans<QM, CP>(tile_max_wgmma_kernel<QM, CP>,
+                                           gs::tile_max_span(tile), TILE_MAX_EXTRA, q, corpus, B,
+                                           N, D, s, (float*)out, tile);
+    });
+  if (dtype == 0) return launch_tile_max<bf16>(q, corpus, out, B, N, D, tile, s);
+  if (dtype == 1) return launch_tile_max<float>(q, corpus, out, B, N, D, tile, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,18 @@
 // One (128 corpus rows x 64 queries) fp32 inner-product score tile in shared
-// memory: the common core of the MIPS sweep kernels (count_groups.cu,
-// mips_scan.cu).  Each kernel walks its rows in ROWS-row tiles, calls
-// score_tile() once per tile and reduces the tile in its own epilogue, so the
-// (B, N) scores never reach device memory.
+// memory: the MIPS sweep kernels' route 0 (count_groups.cu, mips_scan.cu),
+// for what gmax_sweep.cuh's wgmma frame cannot take.  Each kernel walks its
+// rows in ROWS-row tiles, calls score_tile() once per tile and reduces the
+// tile in its own epilogue, so the (B, N) scores never reach device memory.
+//
+// Which calls come here: an fp32 corpus (dtype 1), an odd D, bases that
+// are not 4-byte aligned, count_above_groups' groups that are not a
+// multiple of 128 rows and tile_max's tiles that are not a multiple of
+// 256.  A bf16 corpus with D % 8 == 0 takes the wgmma frame fed by TMA
+// (route 1), any other even D the same frame fed by cp.async (route 2:
+// SPLADE's D = 30,522).  No CLI builds an fp32 MipsIndex (build_index's
+// dtype is bf16) and no configuration has an odd D (768, 1,024, 1,536 for
+// SPAR, 30,522 for SPLADE), so no main path runs this tile; tests and the
+// tools reach it.
 //
 // bf16 inputs go through the tensor cores (wmma 16x16x16, fp32 accumulators),
 // each KC-column stage summed from zero and added to the running score with
@@ -12,8 +22,12 @@
 // D = 30,522, five times the verified methods' margin, COUNT_MARGIN_REL);
 // fp32 inputs through scalar fmaf on the CUDA cores, never TF32, so an fp32
 // corpus scores as an fp32 matmul does.  Corpus and query slices of KC
-// columns are staged through shared memory; no cp.async/TMA pipelining yet:
-// loads and MMAs alternate.
+// columns are staged through shared memory with no pipelining: loads and
+// MMAs alternate, each warp reloads its query fragments every k-step, and
+// a block does 64 queries' products on the wmma path.  What bounds it on an
+// H100 is that serialisation and the grid, not the card: at D = 30,522 it
+// ran 10-48x slower than its plain version (PERF.md, rows 5-8), and
+// fp32 is held to the CUDA cores' 67 TFLOP/s.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -153,6 +153,8 @@ def library() -> ctypes.CDLL:
             lib.dst_groupmax_route.restype = i
             lib.dst_bf16_sweep_smem.argtypes = [i]
             lib.dst_bf16_sweep_smem.restype = ll
+            lib.dst_bf16_sweep_span.argtypes = [ll, i, i]
+            lib.dst_bf16_sweep_span.restype = ll
             lib.dst_tile_max.argtypes = [p, p, p, i, ll, i, ll, i, p]
             lib.dst_tile_max.restype = i
             lib.dst_tile_max_route.argtypes = [p, p, ll, i, ll, i]

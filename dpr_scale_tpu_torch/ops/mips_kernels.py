@@ -21,12 +21,14 @@ Each comes as ``<name>_plain`` (plain PyTorch: the CPU path and the oracle,
 scores materialise chunk by chunk), ``<name>_kernel`` (the hand-written CUDA
 kernel, bf16 or fp32, scores never reach memory; ``.launches`` counts its
 launches) and ``<name>`` (dispatch: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises). Each kernel runs a wgmma kernel
-fed by TMA on a bf16 corpus whose rows TMA can address (and, for the group
-counts, groups of a multiple of 128 rows; for the tile maxima, tiles of a
-multiple of 256 rows), the older score-tile kernel on every other shape,
-chosen by shape in the C entry point; ``.launches_by_route`` counts each
-route (:data:`ROUTES`).
+CUDA tensor launches the kernel or raises). Each runs a wgmma kernel on a
+bf16 corpus (for the group counts, groups of a multiple of 128 rows; for
+the tile maxima, tiles of a multiple of 256 rows), fed by TMA where TMA can
+address the rows (D % 8 == 0, 16-byte aligned bases: "wgmma") and by
+cp.async where D is even and the bases 4-byte aligned ("wgmma_cp_async",
+SPLADE's D = 30,522), and the older score-tile kernel on every other shape
+(fp32, odd D), chosen by shape in the C entry point; ``.launches_by_route``
+counts each route (:data:`ROUTES`).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ TILE_ROWS = 4096  # corpus rows per tile_max_scores tile
 PLAIN_CHUNK_ROWS = 131072  # rows of fp32 scores the plain versions hold at once
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-ROUTES = ("score_tile", "wgmma")  # the dst_*_route entry points' 0 and 1
+ROUTES = ("score_tile", "wgmma", "wgmma_cp_async")  # the dst_*_route entry points' 0, 1, 2
 
 
 def _check_pair(what, queries, corpus, *, divisor=1):

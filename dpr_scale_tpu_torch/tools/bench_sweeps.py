@@ -25,7 +25,25 @@ card's name and power limit, the results (times in ms).
 
 ``--sweeps-only`` times the four bf16 sweeps alone, and ``--dims 768 1536``
 times them over a 2,097,152-row block of each width (the keys of a width
-other than 768 name it).
+other than 768 name it). For the widths other than 768, ``--rows`` sets the
+blocks' rows (one block of each; keys other than 2,097,152 rows name them)
+and ``--batches`` the query batches, so that ``--dims 30522 --rows 65536
+1280 --batches 256`` times SPLADE's width; the tile maxima take 4,096-row
+tiles where they divide the rows, else 256. Each width's keys beside
+``routes D=...`` say which route each sweep's launches took.
+
+``--resources`` adds, for each instance of the four bf16 sweep kernels,
+ptxas's registers and spills and, where the toolkit has ``cuobjdump``, its
+SASS instruction count and counts of a few instructions; ``--sass-dir DIR``
+also writes each instance's SASS under DIR. ``--pad-search`` times, at each
+width that is not a multiple of 8 and each ``--rows``, ``MipsIndex.search``
+(k = 100, the first ``--batches`` batch) over the rows as they are (the
+cp.async route) and over the same rows zero-padded to a multiple of 8
+columns (the TMA route; the padded index built from a padded copy, each
+search padding its queries), for methods fused, groupmax and auto on the
+device and fused with the blocks host-resident: host-clock medians, the
+index build's time, whether the top-k agree. The key ``card`` after each
+width holds the card's SM clock, temperature and power draw then.
 
 ``PYTHONPATH`` names the checkout whose package is timed, so two checkouts
 compare on one card by running this script in turns with each (parent,
@@ -36,9 +54,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -148,24 +169,144 @@ def bench_int(dev, g, corpus):
     return res
 
 
-def bench_bf16(dev, g, corpus, res, tag=""):
-    """The four bf16 sweeps over ``corpus`` at B = 512 and 64, queued."""
-    for B in (512, 64):
+def bench_bf16(dev, g, corpus, res, tag="", batches=(512, 64)):
+    """The four bf16 sweeps over ``corpus`` at each batch, queued; their
+    launches by route under ``routes<tag>``."""
+    N = corpus.shape[0]
+    tile = mk.TILE_ROWS if N % mk.TILE_ROWS == 0 else 256
+    kernels = {name: getattr(mk, f"{name}_kernel")
+               for name in ("count_above_groups", "count_above", "groupmax", "tile_max_scores")}
+    before = {name: dict(k.launches_by_route) for name, k in kernels.items()}
+    for B in batches:
         q = torch.randn(B, corpus.shape[1], generator=g, device=dev).to(torch.bfloat16)
         tau = p9999(q, corpus)
-        res[f"count_above_groups B={B} N={ROWS}{tag}"] = queued_ms(
+        res[f"count_above_groups B={B} N={N}{tag}"] = queued_ms(
             lambda: mk.count_above_groups_kernel(q, corpus, tau))
         res[f"count_above B={B}{tag}"] = queued_ms(lambda: mk.count_above_kernel(q, corpus, tau))
         res[f"groupmax B={B}{tag}"] = queued_ms(lambda: mk.groupmax_kernel(q, corpus))
         res[f"tile_max_scores B={B}{tag}"] = queued_ms(
-            lambda: mk.tile_max_scores_kernel(q, corpus, mk.TILE_ROWS))
+            lambda: mk.tile_max_scores_kernel(q, corpus, tile))
+    res[f"routes{tag or f' D={corpus.shape[1]}'}"] = {
+        name: {r: n - before[name][r] for r, n in k.launches_by_route.items() if n > before[name][r]}
+        for name, k in kernels.items()}
     return q
+
+
+SWEEP_KERNELS = ("count_groups_wgmma_kernel", "count_above_wgmma_kernel", "groupmax_wgmma_kernel",
+                 "tile_max_wgmma_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "SYNCS", "BAR", "SHFL", "ATOMG", "BRA")
+
+
+def _instance(mangled):
+    """``name<a, b>`` of a mangled sweep kernel name (ints as they are,
+    bools as 0 / 1), or None for other kernels."""
+    for name in SWEEP_KERNELS:
+        m = re.search(r"(?<![A-Za-z_])" + name + r"I((?:L[ib]\d+E)+)E", mangled)
+        if m:
+            return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(1)))}>"
+    return None
+
+
+def sweep_resources(sass_dir=None):
+    """{instance: {"ptxas": ptxas's lines, "sass_lines": n, op: n, ...}} of
+    the bf16 sweep kernels of the package's build; each instance's SASS
+    written to ``sass_dir`` where given."""
+    from dpr_scale_tpu_torch.ops import cuda_lib
+
+    res, name = {}, None
+    for line in cuda_lib.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _instance(m.group(1))
+        elif name and ("Used" in line or "stack frame" in line):
+            res.setdefault(name, {}).setdefault("ptxas", []).append(line.split(":", 1)[-1].strip())
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return res
+    sass = subprocess.run([tool, "--dump-sass", cuda_lib.build()], capture_output=True, text=True,
+                          timeout=600).stdout
+    for fn in sass.split("Function : ")[1:]:
+        name = _instance(fn.split("\n", 1)[0])
+        if not name:
+            continue
+        code = [l for l in fn.splitlines() if re.match(r"\s*/\*[0-9a-f]{4}\*/", l)]
+        entry = res.setdefault(name, {})
+        entry["sass_lines"] = len(code)
+        entry.update({op: sum(re.search(r"\b" + op + r"\b", l) is not None for l in code)
+                      for op in SASS_OPS})
+        if sass_dir:
+            os.makedirs(sass_dir, exist_ok=True)
+            with open(os.path.join(sass_dir, re.sub(r"\W+", "_", name) + ".sass"), "w") as f:
+                f.write("\n".join(re.sub(r"\s*/\* 0x[0-9a-f]+ \*/", "", l) for l in code))
+    return res
+
+
+def card_state():
+    """The card's SM clock, temperature and power draw, as nvidia-smi reads
+    them now."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock time of one call that synchronises (after one
+    untimed call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bench_pad(dev, g, D, rows, B, res):
+    """MipsIndex.search over ``rows`` x ``D`` bf16 rows as they are and
+    zero-padded to a multiple of 8 columns (see the module docstring)."""
+    import torch.nn.functional as F
+
+    pad = -D % 8
+    corpus = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, D, generator=g, device=dev)
+    tag = f" D={D} N={rows} B={B}"
+    for method, host in (("fused", False), ("groupmax", False), ("auto", False), ("fused", True)):
+        where = "host-resident" if host else "device"
+        out = {}
+        for label, width in (("as is", 0), ("padded", pad)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = MipsIndex(dev, method=method, host_resident=host)
+            index.add(F.pad(corpus, (0, width)) if width else corpus)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            search = (lambda: index.search(F.pad(q, (0, width)), 100)) if width else (
+                lambda: index.search(q, 100))
+            out[label] = search()
+            res[f"pad search {method} {where} {label}{tag}"] = {
+                "ms": host_ms(search), "build_ms": build_ms}
+            del index
+            torch.cuda.empty_cache()
+        (s0, i0), (s1, i1) = out["as is"], out["padded"]
+        res[f"pad search {method} {where} same top-k{tag}"] = bool(
+            np.array_equal(i0, i1) and np.array_equal(s0, s1))
+    del corpus
+    torch.cuda.empty_cache()
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--dims", type=int, nargs="+", default=[DIM])
     parser.add_argument("--sweeps-only", action="store_true")
+    parser.add_argument("--rows", type=int, nargs="+", default=[ROWS],
+                        help="rows of the blocks of each width other than 768")
+    parser.add_argument("--batches", type=int, nargs="+", default=[512, 64],
+                        help="query batches at each width other than 768")
+    parser.add_argument("--resources", action="store_true",
+                        help="the sweep kernels' registers, spills and SASS counts")
+    parser.add_argument("--sass-dir", help="write each sweep kernel instance's SASS here")
+    parser.add_argument("--pad-search", action="store_true",
+                        help="MipsIndex.search over the rows as they are and zero-padded")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_sweeps: no CUDA device", file=sys.stderr)
@@ -175,15 +316,24 @@ def main(argv=None):
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator(device=dev).manual_seed(SEED)
     res = {}
+    if args.resources or args.sass_dir:
+        res["resources"] = sweep_resources(args.sass_dir)
     for D in (d for d in args.dims if d != DIM):
-        wide = torch.randn(ROWS, D, generator=g, device=dev).to(torch.bfloat16)
-        bench_bf16(dev, g, wide, res, f" D={D}")
-        del wide
+        for rows in args.rows:
+            wide = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
+            bench_bf16(dev, g, wide, res, f" D={D}" + (f" N={rows}" if rows != ROWS else ""),
+                       args.batches)
+            del wide
+            torch.cuda.empty_cache()
+            res[f"card after D={D} N={rows}"] = card_state()
+            if args.pad_search and D % 8:
+                bench_pad(dev, g, D, rows, args.batches[0], res)
     if args.sweeps_only and DIM not in args.dims:
         print(json.dumps({"package": mk.__file__, "device": smi, "results": res}))
         return 0
     corpus = torch.randn(ROWS, DIM, generator=g, device=dev).to(torch.bfloat16)
     q = bench_bf16(dev, g, corpus, res)
+    res[f"card after D={DIM}"] = card_state()
     if args.sweeps_only:
         print(json.dumps({"package": mk.__file__, "device": smi, "results": res}))
         return 0

@@ -11,8 +11,9 @@ maxima of ``tile_max_scores`` (kernel and plain) against fp64, and
 query's k-th and (k+1)-th exact score (those clear of both by twice
 ``COUNT_MARGIN_REL`` x |tau| must agree); ``groupmax``'s 8-row group
 maxima against fp64 and ``count_above_groups``' counts over 256-row groups
-against plain in the groups with no score that near tau. D % 8 != 0 takes
-the score-tile route, D % 8 == 0 the wgmma route. One JSON line per case.
+against plain in the groups with no score that near tau. D % 8 == 0 takes
+the wgmma route fed by TMA, any other even D the same fed by cp.async
+(``route`` says which), odd D the score tile. One JSON line per case.
 """
 from __future__ import annotations
 

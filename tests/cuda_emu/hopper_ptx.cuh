@@ -10,6 +10,13 @@
 //   between 16-byte aligned addresses, and completes them on the mbarrier,
 //   late: a copy lands when a thread waits on its mbarrier and finds the
 //   phase still open (one copy a wait);
+// * a 4-byte cp.async copies its first src-size bytes and zero-fills
+//   the rest, into the shared address it is given (the kernel swizzles it;
+//   the emulated wgmma reads through the swizzle, so a slip there fails);
+//   a thread's copies wait in the thread until its
+//   cp.async.mbarrier.arrive.noinc, which hands them on as one batch with
+//   one arrival counted against the mbarrier's expected count; a batch
+//   lands, copies then arrival, late, as a bulk copy does;
 // * an mbarrier counts pending arrivals and transaction bytes and flips its
 //   phase when both reach zero; try_wait.parity(P) is true once the phase of
 //   parity P has completed;
@@ -130,6 +137,51 @@ inline void emu_complete_tx(uint64_t* bar, uint32_t bytes) {
   emu_mbar_step(m);
 }
 
+// ---- cp.async (non-bulk) ----
+
+struct EmuCp {
+  unsigned char* dst;
+  const void* src;
+  uint32_t size, bytes;
+};
+inline thread_local std::vector<EmuCp> emu_cp_issued;  // since the thread's last arrival
+struct EmuCpBatch {
+  uint64_t* bar;
+  std::vector<EmuCp> copies;
+};
+inline std::vector<EmuCpBatch> emu_cp_in_flight;  // under emu_mbar_mu
+
+// under emu_mbar_mu: a batch of bar's lands, if one is in flight
+inline bool emu_cp_land(uint64_t* bar) {
+  for (size_t i = 0; i < emu_cp_in_flight.size(); ++i) {
+    if (emu_cp_in_flight[i].bar != bar) continue;
+    const EmuCpBatch b = std::move(emu_cp_in_flight[i]);
+    emu_cp_in_flight.erase(emu_cp_in_flight.begin() + i);
+    for (const EmuCp& c : b.copies) {
+      if (c.size) std::memcpy(c.dst, c.src, c.size);
+      std::memset(c.dst + c.size, 0, c.bytes - c.size);
+    }
+    EmuMbar& m = emu_mbar(bar);
+    assert(m.pending > 0);
+    --m.pending;
+    emu_mbar_step(m);
+    return true;
+  }
+  return false;
+}
+
+inline void cp_async4(uint32_t dst, const void* src, uint32_t src_size) {
+  assert(dst % 4 == 0 && dst + 4 <= EMU_SMEM_BYTES && src_size <= 4u);
+  assert(src != nullptr && (uintptr_t)src % 4 == 0);
+  emu_cp_issued.push_back({emu_smem + dst, src, src_size, 4u});
+}
+
+inline void cp_async_arrive_noinc(uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mu);
+  emu_cp_in_flight.push_back({bar, std::move(emu_cp_issued)});
+  emu_cp_issued.clear();
+}
+
 // 1-D bulk copies in flight (under emu_mbar_mu): a copy lands only when a
 // thread waits on its own mbarrier and finds the phase open, so copies land
 // in the order their waiters come, not the order they were issued, and a
@@ -156,6 +208,7 @@ inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
     emu_mbar_step(m);
     return false;
   }
+  if (emu_cp_land(bar)) return false;
   emu_mbar_cv.wait_for(lock, std::chrono::milliseconds(1), done);  // try_wait's time limit
   return done();
 }
@@ -355,6 +408,7 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
   auto start = [] {
     emu_wgmma_pending.clear();
     emu_wgmma_groups.clear();
+    emu_cp_issued.clear();
   };
   return emu_run(start, kernel, grid, threads, smem, args...);
 }

@@ -278,7 +278,8 @@ def test_count_wgmma_route_equals_plain(cuda_device, name, B, N, lo, hi, group):
 _COUNT_ROUTES = [(name, D, dtype, None if name == "count_above" else 256, route)
                  for name in ("count_above_groups", "count_above")
                  for D, dtype, route in ((768, torch.bfloat16, "wgmma"),
-                                         (100, torch.bfloat16, "score_tile"),
+                                         (100, torch.bfloat16, "wgmma_cp_async"),
+                                         (101, torch.bfloat16, "score_tile"),
                                          (768, torch.float32, "score_tile"))] + [
     ("count_above_groups", 768, torch.bfloat16, 128, "wgmma"),
     ("count_above_groups", 768, torch.bfloat16, 1152, "wgmma"),
@@ -289,9 +290,10 @@ _COUNT_ROUTES = [(name, D, dtype, None if name == "count_above" else 256, route)
 @pytest.mark.parametrize("name,D,dtype,group,route", _COUNT_ROUTES,
                          ids=[f"{c[0]}-D{c[1]}-{str(c[2])[6:]}-g{c[3]}" for c in _COUNT_ROUTES])
 def test_count_route_follows_the_shape(cuda_device, name, D, dtype, group, route):
-    """TMA-addressable bf16 rows in groups of a multiple of 128 rows take
-    the wgmma kernel; D = 100, fp32 and other groups the score-tile kernel
-    (count_above has no groups); each route counts its own launches."""
+    """bf16 rows in groups of a multiple of 128 rows take the wgmma kernel,
+    fed by TMA where it can address them, by cp.async at D = 100; D = 101,
+    fp32 and other groups the score-tile kernel (count_above has no
+    groups); each route counts its own launches."""
     q, c = _scan_inputs(cuda_device, 64, 2304, D, dtype, D + (group or 0))
     args = (q, c, torch.zeros(64, device=cuda_device)) + ((group,) if group else ())
     kernel = getattr(mips_kernels, f"{name}_kernel")
@@ -349,11 +351,13 @@ def test_groupmax_wgmma_route_over_full_spans(cuda_device, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,dtype,route", [(768, torch.bfloat16, "wgmma"),
-                                           (100, torch.bfloat16, "score_tile"),
+                                           (100, torch.bfloat16, "wgmma_cp_async"),
+                                           (101, torch.bfloat16, "score_tile"),
                                            (768, torch.float32, "score_tile")])
 def test_groupmax_route_follows_the_shape(cuda_device, D, dtype, route):
-    """TMA-addressable bf16 rows take the wgmma kernel, D = 100 and fp32 the
-    score-tile kernel; each route counts its own launches."""
+    """TMA-addressable bf16 rows take the wgmma kernel fed by TMA, D = 100
+    the same fed by cp.async, D = 101 and fp32 the score-tile kernel; each
+    route counts its own launches."""
     q, c = _scan_inputs(cuda_device, 64, 256, D, dtype, D)
     before = dict(mips_kernels.groupmax_kernel.launches_by_route)
     mips_kernels.groupmax(q, c)
@@ -406,12 +410,13 @@ def test_tile_max_wgmma_route(cuda_device, B, tile, last_row):
 @pytest.mark.parametrize("D,dtype,tile,route", [(768, torch.bfloat16, 4096, "wgmma"),
                                                 (768, torch.bfloat16, 256, "wgmma"),
                                                 (768, torch.bfloat16, 300, "score_tile"),
-                                                (100, torch.bfloat16, 4096, "score_tile"),
+                                                (100, torch.bfloat16, 4096, "wgmma_cp_async"),
+                                                (101, torch.bfloat16, 4096, "score_tile"),
                                                 (768, torch.float32, 4096, "score_tile")])
 def test_tile_max_route_follows_the_shape(cuda_device, D, dtype, tile, route):
-    """TMA-addressable bf16 rows in tiles of whole 256-row units take the
-    wgmma kernel, other tiles, D = 100 and fp32 the score-tile kernel; each
-    route counts its own launches."""
+    """bf16 rows in tiles of whole 256-row units take the wgmma kernel (fed
+    by TMA at D = 768, by cp.async at D = 100), other tiles, D = 101 and
+    fp32 the score-tile kernel; each route counts its own launches."""
     q, c = _scan_inputs(cuda_device, 64, 2 * tile, D, dtype, D + tile)
     before = dict(mips_kernels.tile_max_scores_kernel.launches_by_route)
     mips_kernels.tile_max_scores(q, c, tile)
@@ -879,32 +884,81 @@ def test_quantised_search_launches_the_kernel_and_equals_plain(cuda_device, meth
         assert set(i[row][above]) == set(wi[row][above])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["dense_non_negative", "normal"])
-def test_score_tile_counts_at_splade_width_equal_plain(cuda_device, kind):
-    """D = 30,522 (SPLADE's vocab, not a multiple of 8: the score-tile
-    route): the counts equal plain wherever the threshold is clear of every
-    score by twice COUNT_MARGIN_REL x |tau|. Carried through the tensor
-    cores over all of D, the sums drifted ~1e-4 of their size, one-sided,
-    and every count of dense non-negative vectors differed; each 64-column
-    stage now adds into the running sum with fp32 adds."""
-    g = torch.Generator(device=cuda_device).manual_seed(5)
-    B, N, D, k, margin = 64, 1280, 30522, 100, 2e-5
+def _wide_vectors(cuda_device, kind, n, D, g):
+    x = torch.randn(n, D, generator=g, device=cuda_device)
+    return torch.relu(x) * 2 + 0.1 * (x > 0) if kind == "dense_non_negative" else x
 
-    def make(n):
-        x = torch.randn(n, D, generator=g, device=cuda_device)
-        return torch.relu(x) * 2 + 0.1 * (x > 0) if kind == "dense_non_negative" else x
 
-    q, c = make(B).to(torch.bfloat16), make(N).to(torch.bfloat16)
+def _clear_counts_equal_plain(cuda_device, kind, D, route, seed):
+    """count_above at D over 1,280 rows, B = 64: on ``route``, the counts
+    equal plain wherever the threshold is clear of every score by twice
+    COUNT_MARGIN_REL x |tau|."""
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    B, N, k, margin = 64, 1280, 100, 2e-5
+    q = _wide_vectors(cuda_device, kind, B, D, g).to(torch.bfloat16)
+    c = _wide_vectors(cuda_device, kind, N, D, g).to(torch.bfloat16)
     best = torch.topk(q.float() @ c.float().T, k + 1, dim=1).values
     tau = ((best[:, k - 1] + best[:, k]) / 2).contiguous()
     clear = (best[:, k - 1] - best[:, k]) > 2 * margin * tau.abs()
+    before = dict(mips_kernels.count_above_kernel.launches_by_route)
     out = mips_kernels.count_above_kernel(q, c, tau)
     torch.cuda.synchronize()
-    assert mips_kernels.count_above_kernel.launches_by_route["score_tile"] > 0
+    after = mips_kernels.count_above_kernel.launches_by_route
+    assert {r: n - before[r] for r, n in after.items()} == {
+        r: int(r == route) for r in mips_kernels.ROUTES}
     ref = mips_kernels.count_above_plain(q, c, tau)
     assert clear.sum() > B // 2 and (ref[clear] == k).all()
     torch.testing.assert_close(out[clear], ref[clear], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense_non_negative", "normal"])
+def test_score_tile_counts_at_splade_width_equal_plain(cuda_device, kind):
+    """D = 30,522 (SPLADE's vocab, even but not a multiple of 8: the wgmma
+    route fed by cp.async, which promotes each 64-column stage into fp32
+    adds past PROMOTE_D): the counts equal plain wherever the threshold is
+    clear of every score by twice COUNT_MARGIN_REL x |tau|. Carried through
+    the tensor cores over all of D, the sums drifted ~1e-4 of their size,
+    one-sided, and every count of dense non-negative vectors differed."""
+    _clear_counts_equal_plain(cuda_device, kind, 30522, "wgmma_cp_async", 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense_non_negative", "normal"])
+def test_score_tile_counts_at_odd_wide_d_equal_plain(cuda_device, kind):
+    """D = 30,521 (odd: the score tile, which adds each 64-column stage into
+    the running sum with fp32 adds): the same check."""
+    _clear_counts_equal_plain(cuda_device, kind, 30521, "score_tile", 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense_non_negative", "normal"])
+@pytest.mark.parametrize("name", ["groupmax", "tile_max_scores"])
+def test_maxima_at_splade_width_match_plain(cuda_device, name, kind):
+    """D = 30,522 over 1,280 rows, B = 64, on the cp.async route: the 8-row
+    group maxima (groupmax's t1) and the 256-row tile maxima within eight
+    times plain's error from fp64 plus MAX_REL of the largest score (phase
+    22 (a)'s bound at D = 30,528), t2 the maximum of its 16 t1 entries."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, N, D = 64, 1280, 30522
+    q = _wide_vectors(cuda_device, kind, B, D, g).to(torch.bfloat16)
+    c = _wide_vectors(cuda_device, kind, N, D, g).to(torch.bfloat16)
+    exact = q.double() @ c.double().T
+    kernel, plain = (getattr(mips_kernels, f"{name}_{part}") for part in ("kernel", "plain"))
+    before = dict(kernel.launches_by_route)
+    if name == "groupmax":
+        (got, t2), (ref, _t2) = kernel(q, c), plain(q, c)
+        got, ref, want = got.T, ref.T, exact.view(B, -1, 8).amax(2)
+        assert torch.equal(t2, got.T.reshape(-1, 16, B).amax(1))
+    else:
+        got, ref, want = kernel(q, c, 256), plain(q, c, 256), exact.view(B, -1, 256).amax(2)
+    torch.cuda.synchronize()
+    after = kernel.launches_by_route
+    assert {r: n - before[r] for r, n in after.items()} == {
+        r: int(r == "wgmma_cp_async") for r in mips_kernels.ROUTES}
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err, err_plain = ((x.double() - want).abs().max().item() for x in (got, ref))
+    assert err <= 8 * err_plain + 2e-5 * want.abs().max().item(), (err, err_plain)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@
 ``int_scan.cu`` need the card; here g++ builds the same sources against
 ``tests/cuda_emu``, which defines the CUDA features they use on the host and
 puts the PTX ISA's definitions of TMA (bf16 and byte tensor maps, the
-128-byte swizzle, zero fill), mbarriers, wgmma from K-major descriptors
+128-byte swizzle, zero fill), 4-byte cp.async with zero fill and
+their ``.noinc`` mbarrier arrivals, mbarriers, wgmma from K-major descriptors
 (bf16 and s8), mma.sync m16n8k32 and wmma in place of
 ``csrc/hopper_ptx.cuh`` and ``<mma.h>``. The entry points then run on CPU
 tensors: ``dst_groupmax`` / ``dst_int_groupmax`` are held against
@@ -12,7 +13,8 @@ tensors: ``dst_groupmax`` / ``dst_int_groupmax`` are held against
 ``int_groupmax_plain`` (values and rows exactly equal): both block layouts
 (64 and 128 queries), ragged spans and query tiles, one and two planes, int8
 and packed int4, ties between duplicate rows, and the shape-routed older
-kernels. ``dst_count_above_groups`` / ``dst_count_above`` are held exactly
+kernels (D = 100 on the bf16 sweeps' cp.async route, D = 101 on the score
+tile). ``dst_count_above_groups`` / ``dst_count_above`` are held exactly
 equal to ``count_above_groups_plain`` / ``count_above_plain`` on
 integer-valued inputs (every summation order gives the same fp32 score),
 with thresholds equal to some scores (the comparison is strict), negative
@@ -24,7 +26,12 @@ ragged), 768- and 4,096-row tiles, tiles on the older kernel, and maxima
 that lie in each tile's last row. ``dst_int8_tile_max`` is held exactly
 equal to ``int8_tile_max_plain``: both layouts, ragged query tiles, tiles
 of 256 to 4,096 rows, D of 16 to 768, all-negative maxima, maxima in each
-tile's last row, and the older kernel's shapes. Lone K-major wgmmas
+tile's last row, and the older kernel's shapes. The four bf16 sweeps on
+the cp.async route (rows TMA cannot address) are held exactly equal to
+plain on integer inputs: D = 100 from 16- and 4-byte aligned bases, D =
+102 on both block layouts, spans cut to fill the emulated
+card, and the 2-byte aligned bases that leave it for the score tile. Lone
+K-major wgmmas
 are held against ``torch.mm`` and an exact integer product first, so that a
 slip in the emulation itself fails on its own. Skips where no g++ is found.
 """
@@ -84,6 +91,8 @@ def emulated(tmp_path_factory):
     dll.dst_tile_max.restype = i
     dll.dst_tile_max_route.argtypes = [p, p, ll, i, ll, i]
     dll.dst_tile_max_route.restype = i
+    dll.dst_bf16_sweep_span.argtypes = [ll, i, i]
+    dll.dst_bf16_sweep_span.restype = ll
     dll.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
     dll.dst_int_groupmax.restype = i
     dll.dst_int_groupmax_route.argtypes = [p, p, i, i]
@@ -138,13 +147,15 @@ def _groupmax(emulated, q, c):
 # (B, N, D, dtype, route): 64-query blocks with a ragged last span (2,048 +
 # 384 rows: its last 256-row tile half filled), two k-slices, one query, and
 # 128-query blocks whose second query tile is ragged over a D that ends
-# mid-slice; then the older kernel at D = 100 (bf16) and for fp32
+# mid-slice; D = 100 on the cp.async route; then the older kernel at D =
+# 101 (bf16) and for fp32
 GROUPMAX_CASES = [
     (7, 2432, 64, torch.bfloat16, 1),
     (64, 640, 128, torch.bfloat16, 1),
     (1, 384, 16, torch.bfloat16, 1),
     (130, 2432, 48, torch.bfloat16, 1),
-    (7, 384, 100, torch.bfloat16, 0),
+    (7, 384, 100, torch.bfloat16, 2),
+    (7, 384, 101, torch.bfloat16, 0),
     (5, 256, 64, torch.float32, 0),
 ]
 
@@ -196,15 +207,16 @@ def _dtype_code(dtype):
 # ragged span of 256-row groups (two warpgroups' halves a group); 128-query
 # blocks with queries past B, two k-slices; four query tiles, 512-row
 # groups over a D that ends mid-slice; 384-row groups across tiles and
-# spans; then the older kernel: one 1,152-row group at D = 100, fp32, and a
-# 192-row group
+# spans; one 1,152-row group at D = 100 (the cp.async route); then the
+# older kernel: the same at D = 101, fp32, and a 192-row group
 COUNT_GROUPS_CASES = [
     (1, 2432, 64, torch.bfloat16, 128, True, 1),
     (64, 2816, 64, torch.bfloat16, 256, False, 1),
     (70, 2048, 128, torch.bfloat16, 256, True, 1),
     (512, 2048, 32, torch.bfloat16, 512, False, 1),
     (70, 4608, 64, torch.bfloat16, 384, True, 1),
-    (5, 1152, 100, torch.bfloat16, 1152, True, 0),
+    (5, 1152, 100, torch.bfloat16, 1152, True, 2),
+    (5, 1152, 101, torch.bfloat16, 1152, True, 0),
     (5, 512, 64, torch.float32, 256, False, 0),
     (7, 768, 64, torch.bfloat16, 192, True, 0),
 ]
@@ -233,13 +245,15 @@ def test_emulated_count_above_groups_equals_plain(emulated, B, N, D, dtype, grou
 # (B, N, D, dtype, negative tau, route): one span + 77 rows (a ragged last
 # tile, half of its first unit past N) on 64-query blocks; two spans + 77 on
 # 128-query blocks with queries past B; four query tiles over 16 columns;
-# then the older kernel at D = 100 and for fp32
+# D = 100 on the cp.async route; then the older kernel at D = 101 and for
+# fp32
 COUNT_ABOVE_CASES = [
     (1, 2048 + 77, 64, torch.bfloat16, True, 1),
     (64, 2048 + 77, 64, torch.bfloat16, False, 1),
     (70, 2 * 2048 + 77, 128, torch.bfloat16, True, 1),
     (512, 2048 + 77, 16, torch.bfloat16, False, 1),
-    (7, 2048 + 77, 100, torch.bfloat16, True, 0),
+    (7, 2048 + 77, 100, torch.bfloat16, True, 2),
+    (7, 2048 + 77, 101, torch.bfloat16, True, 0),
     (5, 2048 + 77, 64, torch.float32, True, 0),
 ]
 
@@ -259,6 +273,78 @@ def test_emulated_count_above_equals_plain(emulated, B, N, D, dtype, negative, r
                                     B, N, D, code, None) == 0
     assert emulated.dst_count_above_route(q.data_ptr(), c.data_ptr(), N, D, code) == route
     assert torch.equal(out, mk.count_above_plain(q, c, tau))
+
+
+def _sweep(emulated, name, q, c, tau, size):
+    """One bf16 sweep's entry point on q, c: (its output, its plain
+    version's, the route it took). ``size``: the group (counts per group)
+    or the tile (tile maxima); groupmax returns t1 and t2 as one vector."""
+    B, N, D = q.shape[0], c.shape[0], c.shape[1]
+    qp, cp = q.data_ptr(), c.data_ptr()
+    if name == "groupmax":
+        t1, t2, route = _groupmax(emulated, q, c)
+        return (torch.cat([t1.flatten(), t2.flatten()]),
+                torch.cat([w.flatten() for w in mk.groupmax_plain(q, c)]), route)
+    if name == "count_above_groups":
+        out = torch.full((B, N // size), -7, dtype=torch.int32)
+        rc = emulated.dst_count_above_groups(qp, cp, tau.data_ptr(), out.data_ptr(), B, N, D,
+                                             size, 0, None)
+        route = emulated.dst_count_above_groups_route(qp, cp, N, D, size, 0)
+        want = mk.count_above_groups_plain(q, c, tau, size)
+    elif name == "count_above":
+        out = torch.zeros(B, dtype=torch.int32)  # the entry point's contract: blocks add into it
+        rc = emulated.dst_count_above(qp, cp, tau.data_ptr(), out.data_ptr(), B, N, D, 0, None)
+        route = emulated.dst_count_above_route(qp, cp, N, D, 0)
+        want = mk.count_above_plain(q, c, tau)
+    else:
+        out = torch.full((B, N // size), float("nan"))
+        rc = emulated.dst_tile_max(qp, cp, out.data_ptr(), B, N, D, size, 0, None)
+        route = emulated.dst_tile_max_route(qp, cp, N, D, size, 0)
+        want = mk.tile_max_scores_plain(q, c, size)
+    assert rc == 0
+    return out, want, route
+
+
+def _offset(t, elems):
+    """t's values in a tensor whose storage starts ``elems`` elements into
+    its buffer (bf16: bases aligned to 2 x elems bytes, not 64)."""
+    view = torch.empty(t.numel() + elems, dtype=t.dtype)[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (B, N, D, base offset in elements, span, route): D % 4 == 0 over two
+# spans (two blocks fill the emulated card's 2 SMs), the second ragged;
+# the same D from 4-byte aligned bases over 1,280 rows under one query
+# tile, whose span fill_span cuts from 2,048 to 768 rows (two blocks of
+# three tiles, one wave); D = 102 on 128-query blocks with a ragged query
+# tile, and under one 64-query tile; 2-byte aligned bases, which the score
+# tile takes
+CP_ASYNC_CASES = [
+    (7, 2048 + 512, 100, 0, 2048, 2),
+    (9, 1280, 100, 2, 768, 2),
+    (70, 768, 102, 0, 512, 2),
+    (9, 1280, 102, 0, 768, 2),
+    (5, 512, 102, 1, 256, 0),
+]
+
+
+@pytest.mark.parametrize("B,N,D,offset,span,route", CP_ASYNC_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-off{c[3]}" for c in CP_ASYNC_CASES])
+@pytest.mark.parametrize("name", ["count_above_groups", "count_above", "groupmax", "tile_max"])
+def test_emulated_cp_async_route_equals_plain(emulated, name, B, N, D, offset, span, route):
+    """The bf16 sweeps over rows TMA cannot address: each output exactly
+    equal to plain on integer-valued inputs (thresholds at some scores, the
+    rows past N above the negative ones), 256-row groups and tiles, on the
+    route the shape and the bases select; groupmax and the counts over the
+    span fill_span gives them."""
+    q, c, tau, s = _count_inputs(B, N, D, torch.bfloat16, True, B + N + D + offset)
+    _assert_count_inputs_test_the_traps(s, tau, True)
+    q, c = _offset(q, offset), _offset(c, offset)
+    assert emulated.dst_bf16_sweep_span(N, B, D) == span
+    out, want, got_route = _sweep(emulated, name, q, c, tau, 256)
+    assert got_route == route
+    assert torch.equal(out, want)
 
 
 def _int_inputs(B, N, D, packed, planes, seed, dup=False):
@@ -345,8 +431,8 @@ def _tile_max_inputs(B, N, D, tile, last_row, seed):
 # 4,096-row tiles; 128-query blocks, three query tiles (the last ragged)
 # over a D that ends mid-slice; 256-row tiles, eight a block, the last span
 # of three; 768-row tiles (two a block) over two k-slices; the maxima in
-# each tile's last row, in both layouts; then the older kernel: a 300-row
-# tile, D = 100, fp32
+# each tile's last row, in both layouts; D = 100 on the cp.async route;
+# then the older kernel: a 300-row tile, D = 101, fp32
 TILE_MAX_CASES = [
     (7, 2 * 4096, 64, torch.bfloat16, 4096, False, 1),
     (130, 4096, 48, torch.bfloat16, 4096, False, 1),
@@ -355,7 +441,8 @@ TILE_MAX_CASES = [
     (9, 2 * 4096, 64, torch.bfloat16, 4096, True, 1),
     (130, 4 * 256, 32, torch.bfloat16, 256, True, 1),
     (5, 3 * 300, 64, torch.bfloat16, 300, True, 0),
-    (7, 2 * 256, 100, torch.bfloat16, 256, False, 0),
+    (7, 2 * 256, 100, torch.bfloat16, 256, False, 2),
+    (7, 2 * 256, 101, torch.bfloat16, 256, False, 0),
     (5, 2 * 256, 64, torch.float32, 256, False, 0),
 ]
 

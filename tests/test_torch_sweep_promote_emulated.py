@@ -9,13 +9,15 @@ path's counts, group maxima and tile maxima to the plain versions: small
 integer inputs, whose every sum is exact in fp32 in any order, so counts
 and maxima must be equal. The emulation sums exactly, so it cannot show the
 drift the promotion repairs; ``test_torch_kernels_cuda.py`` holds the card
-to plain at D = 30,528. Batches above 64 run two or three 64-query tiles
-here, where the same batch at D <= 1,536 takes the 128-query layout.
+to plain at D = 30,528 and 30,522. Batches above 64 run two or three
+64-query tiles here, where the same batch at D <= 1,536 takes the 128-query
+layout. D = 1,546 (even, not a multiple of 4) runs the same loop fed by
+4-byte cp.async copies, the route of SPLADE's D = 30,522.
 """
 import numpy as np
 import pytest
 import torch
-from test_torch_mips_emulated import _count_inputs, _groupmax, emulated  # noqa: F401
+from test_torch_mips_emulated import _count_inputs, _groupmax, _sweep, emulated  # noqa: F401
 
 from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
@@ -72,4 +74,15 @@ def test_promoted_tile_max_equals_plain(emulated):  # noqa: F811
                                  None) == 0
     want = mk.tile_max_scores_plain(q, c, tile)
     assert torch.equal(want, q.float() @ c[tile - 1 :: tile].float().T)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("name", ["count_above_groups", "count_above", "groupmax", "tile_max"])
+def test_promoted_cp_async_equals_plain(emulated, name):  # noqa: F811
+    """D = 1,546 past PROMOTE_D on the cp.async route (4-byte copies), two
+    64-query tiles, 256-row groups and tiles: exactly plain."""
+    B, N, D = 70, 768, PROMOTE_D + 10
+    q, c, tau, _s = _count_inputs(B, N, D, torch.bfloat16, True, B + N + D)
+    out, want, route = _sweep(emulated, name, q, c, tau, 256)
+    assert route == 2
     assert torch.equal(out, want)
