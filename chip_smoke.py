@@ -109,13 +109,17 @@ save, a resume and an export into encoding and retrieval. Phases:
      whole chain), where the pipelined kernel must give the serial
      kernel's bits;
  14. the three MIPS sweep kernels (count_above, groupmax, tile_max_scores)
+     and pass 1, topk_candidates (kc = 128, the rows past N - 77 pads),
      vs their plain versions over 2,097,152 x 768 bf16 rows (the JAX
      bench.py geometry) at B = 512 (the retrieval CLI's query batch) and
      B = 64, plus an fp32 case and a ragged one (B = 7, D = 100, rows not a
      multiple of the kernels' 2,048-row span): counts exact where the
      threshold sits clear of every score (within the COUNT_MARGIN_REL
      bracket elsewhere), maxima within MAX_REL of max |ref|, repeated calls
-     the same bits; their times beside the plain version, a cuBLAS yardstick
+     the same bits; pass 1's row sets equal where the kc-th score is clear,
+     its scores within MAX_REL of plain's and of their rows' fp32 sums, no
+     pad row, its steps timed apart (the fp32 case on the score tile); their
+     times beside the plain version, a cuBLAS yardstick
      (fp32-output products over 131,072-row chunks plus the reduction) and
      the bound (all three also queued behind a GPU sleep, with their share
      of the bound); their launches by route, the B = 512 and 64 cases on
@@ -132,9 +136,11 @@ save, a resume and an export into encoding and retrieval. Phases:
      method's DPR JSON equals a brute-force exact top-100 (``check_exact``),
      ``eval.qa_eval`` equals a recount with ``has_answers``, the
      count_above, count_above_groups and groupmax counters must rise; then
-     ``MipsIndex.benchmark`` times groupmax, fused, auto and exact_sort at
-     B = 512 over the 2,097,152-row block; every launch of the three
-     sweeps in the phase on the wgmma route;
+     ``MipsIndex.benchmark`` times groupmax, and fused, auto and exact_sort
+     with pass 1 on the kernel and on the plain version (``plain_pass1``)
+     in one process, at B = 512 over the 2,097,152-row block; where fused's
+     fallbacks come from on both; pass 1's scores are pass 2's bits; every
+     launch of the sweeps and of pass 1 in the phase on the wgmma route;
  16. the two integer sweep kernels vs their plain versions: int_groupmax
      (the tool's i4_groupmax) at the tool's geometry (4,194,304 x 768 int4,
      B = 256, random packed bytes, row scales U(0.5, 1.5)), at B = 512 and
@@ -153,7 +159,8 @@ save, a resume and an export into encoding and retrieval. Phases:
      ``int8_query_planes=2`` and int4 without rerank; unreranked results
      equal the plain path's dequantised top-100 on the card, reranked
      scores the fp32 q . row of their shard rows; the int_groupmax counter
-     must rise, every launch on the wgmma route; recall@100 against the exact fp32 top-100, peak memory and
+     must rise, every launch on the wgmma route; recall@100 against the exact
+     fp32 top-100 (an fp32 index, pass 1 its plain version), peak memory and
      ``MipsIndex.benchmark`` of int8, int4 and groupmax at B = 512 over the
      2,097,152-row block.
  18. the checkpoint slice (conf/nq.yaml, bert_base from seed 0, the phase-4
@@ -242,7 +249,7 @@ save, a resume and an export into encoding and retrieval. Phases:
      dense non-negative and normal vectors, clear counts equal to plain,
      tile and group maxima against fp64 beside cuBLAS's, the kernels timed
      at both widths over 65,536 rows, B = 256, beside plain and the bound;
-     (b) 4,194,304 x 768 seeded fp16 shards, build_int8_store,
+     (b) 2,097,152 x 768 seeded fp16 shards, build_int8_store,
      a fresh int8 MipsIndex filled by load_int8_store with half the rows on
      the device and half streamed from the host: the cold start (load and
      the first search of 1,024 questions at k = 100, B = 256) against
@@ -2144,11 +2151,89 @@ def _mips_kernels():
         return torch.cat([s.view(q.shape[0], -1, tile).amax(dim=2)
                           for _lo, s in _yard_scores(q, corpus)], dim=1)
 
+    def yard_topk(q, corpus, n_valid, kc):  # ROADMAP B1 step 1: the bf16 GEMM + chunked top-k
+        return mk.merge_chunk_topk(((lo, lo + s.shape[1], s) for lo, s in _yard_scores(q, corpus)),
+                                   n_valid, kc)
+
     return {
         "count_above": (mk.count_above_kernel, mk.count_above_plain, yard_count),
         "groupmax": (mk.groupmax_kernel, mk.groupmax_plain, yard_groupmax),
         "tile_max_scores": (mk.tile_max_scores_kernel, mk.tile_max_scores_plain, yard_tile_max),
+        "topk_candidates": (mk.topk_candidates_kernel, mk.topk_candidates_plain, yard_topk),
     }
+
+
+def _topk_split(q, corpus, n_valid, kc):
+    """{step: (ms queued, ms single)} of topk_candidates' steps on the card
+    (device_ms, cuda_ms): the tile maxima and the threshold (torch.topk over
+    them; absent where fewer than kc tiles are whole), the emit sweep (its
+    entry point: the count memset and the sweep, launched here, so not
+    counted on the wrapper) and the aggregation (torch.topk over the keys
+    and their decode)."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import cuda_lib
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    qd = q.to(corpus.dtype).contiguous()
+    B, D = qd.shape
+    tile = mk.topk_tile_rows(n_valid, kc)
+    ntiles, steps = n_valid // tile, {}
+    if ntiles >= kc:
+        rows = corpus[: ntiles * tile]
+        maxima = mk.tile_max_scores_kernel(qd, rows, tile)
+        steps["tile_max"] = lambda: mk.tile_max_scores_kernel(qd, rows, tile)
+        steps["threshold"] = lambda: torch.topk(maxima, kc, dim=1).values[:, kc - 1].contiguous()
+        theta, cap = steps["threshold"](), mk.TOPK_CAP * kc
+    else:
+        theta, cap = torch.full((B,), float("-inf"), device=q.device), max(n_valid, kc)
+    count = torch.empty((B,), dtype=torch.int32, device=q.device)
+    keys = torch.full((B, cap), mk._KEY_EMPTY, dtype=torch.int64, device=q.device)
+    lib = cuda_lib.library()
+
+    def emit():
+        cuda_lib.check(lib.dst_topk_emit(
+            qd.data_ptr(), corpus.data_ptr(), theta.data_ptr(), count.data_ptr(), keys.data_ptr(),
+            B, corpus.shape[0], n_valid, D, cap, B, mk._KERNEL_DTYPES[corpus.dtype],
+            torch.cuda.current_stream().cuda_stream),
+            "topk emit")
+
+    steps["emit"] = emit
+    emit()
+    steps["aggregate"] = lambda: mk._decode_keys(torch.topk(keys, kc, dim=1).values)
+    return {name: (device_ms(fn, calls=10), cuda_ms(fn)) for name, fn in steps.items()}
+
+
+TOPK_KC = 128  # topk_candidates' depth in phases 14, 21, 22: the fused search's kc
+
+
+def _check_topk(got, want, n_valid, q, corpus):
+    """(max |err|, faults, report) of topk_candidates' (scores, rows)
+    against plain's one deeper: scores within MAX_REL of max |ref|, and of
+    the fp32 sums of their rows' products; the same row sets where plain's
+    kc-th and (kc+1)-th scores are clear of each other; everywhere, each
+    side's rows clear above its kc-th in the other's set; no pad row."""
+    import torch
+
+    rows = got[1].clamp(0, corpus.shape[0] - 1)
+    paired = torch.einsum("bd,bkd->bk", q.to(corpus.dtype).float(), corpus[rows].float()).cpu()
+    (s, i), (ps, pi) = (tuple(t.cpu() for t in pair) for pair in (got, want))
+    kc = s.shape[1]
+    tol = MAX_REL * ps[:, 0].abs().max().item()
+    err = max((s - ps[:, :kc]).abs().max().item(), (s - paired).abs().max().item())
+    clear = (ps[:, kc - 1] - ps[:, kc]) > 2 * tol
+    differ = missed = 0
+    for b in range(s.shape[0]):
+        mine, theirs = set(i[b].tolist()), set(pi[b, :kc].tolist())
+        differ += int(bool(clear[b]) and mine != theirs)
+        missed += len(set(pi[b, :kc][ps[b, :kc] > ps[b, kc - 1] + tol].tolist()) - mine)
+        missed += len(set(i[b][s[b] > s[b, -1] + tol].tolist()) - theirs)
+    pads = int(((i >= n_valid) | (i < 0)).sum())
+    bad = int(err > tol) + differ + missed + pads
+    line = (f"max_abs_err {err:.3g} of max |ref| {tol / MAX_REL:.3g}; {int(clear.sum())} of "
+            f"{s.shape[0]} queries clear at the kc-th, {differ} of them with other rows; "
+            f"{missed} rows clear above the kc-th missing; {pads} pad rows")
+    return err, bad, line
 
 
 # (B, N, D, dtype name, tile_max tile, timed): the retrieval CLI's query batch
@@ -2175,13 +2260,16 @@ def _top_scores(q, corpus, k):
 
 
 def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
-    """Phase 14: count_above, groupmax and tile_max_scores against their
-    plain versions on ``dev`` for each case; the timed cases also time
+    """Phase 14: count_above, groupmax, tile_max_scores and topk_candidates
+    (kc = TOPK_KC, the rows past N - 77 pads) against their plain versions
+    on ``dev`` for each case; the timed cases also time
     kernel, plain version and yardstick (each the median of ``plain_reps``
     calls). Returns each kernel's JSON entry
     from the first timed case (times absent if none ran), max |err| over all
     cases."""
     import torch
+
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
     kernels = _mips_kernels()
     entries = {n: {"max_abs_err": 0.0} for n in kernels}
@@ -2201,23 +2289,30 @@ def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
         clear = (best[:, k - 1] - best[:, k]) > 2 * margin  # no score near tau
         del best
         what = f"B={B} N={N} D={D} {dtype_name}"
+        n_valid = N - 77  # topk_candidates: a ragged valid span, pad rows past it
         args = {"count_above": (q, corpus, tau), "groupmax": (q, corpus),
-                "tile_max_scores": (q, corpus, tile)}
+                "tile_max_scores": (q, corpus, tile),
+                "topk_candidates": (q, corpus, n_valid, TOPK_KC)}
         for name, (kernel, plain, yard) in kernels.items():
             routes = dict(getattr(kernel, "launches_by_route", {}))
             got, again = kernel(*args[name]), kernel(*args[name])
-            want = plain(*args[name])
+            # topk_candidates: plain one deeper, to see the ties at the kc-th
+            want = plain(*args[name]) if name != "topk_candidates" else plain(
+                q, corpus, n_valid, TOPK_KC + 1)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             if routes:  # the route each shape takes
                 routes = {r: n - routes[r] for r, n in kernel.launches_by_route.items()}
                 print(f"{name} ({what}): launches by route {routes}")
-                if dtype_name == "bfloat16" and D == MIPS_DIM and routes["wgmma"] != 2:
+                if dtype_name == "bfloat16" and D == MIPS_DIM and (
+                        routes["wgmma"] < 2 if name == "topk_candidates" else routes["wgmma"] != 2):
                     raise AssertionError(f"{name} ({what}) did not run the wgmma kernel")
             got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name} ({what}): repeated calls give other bits")
-            if name == "count_above":
+            if name == "topk_candidates":
+                err, bad, line = _check_topk(got, want, n_valid, q, corpus)
+            elif name == "count_above":
                 lo_c, hi_c = plain(q, corpus, tau + margin), plain(q, corpus, tau - margin)
                 (c,), (p,) = got, want
                 err = (c - p).abs().max().item()
@@ -2240,12 +2335,24 @@ def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
             if timed:
                 out_bytes = {"count_above": nbytes(tau) + 4 * B,
                              "groupmax": 4 * B * (N // 8 + N // 128),
-                             "tile_max_scores": 4 * B * (N // tile)}[name]
+                             "tile_max_scores": 4 * B * (N // tile),
+                             "topk_candidates": 12 * B * TOPK_KC}[name]
                 b_ms, b_by = bound(nbytes(q, corpus) + out_bytes, 2 * B * N * D)
                 ms = cuda_ms(lambda: kernel(*args[name]))
                 plain_ms = cuda_ms(lambda: plain(*args[name]), reps=plain_reps, warmup=1)
                 yard_ms = cuda_ms(lambda: yard(*args[name]), reps=plain_reps, warmup=1)
                 timing = {"ms": ms}
+                if name == "topk_candidates":  # a whole call syncs once: single calls, and
+                    # each step queued
+                    split = _topk_split(q, corpus, n_valid, TOPK_KC)
+                    timing["queued_ms"] = sum(queued for queued, _single in split.values())
+                    timing["split_ms"] = {k: {"queued": a, "single": b}
+                                          for k, (a, b) in split.items()}
+                    timing["yardstick_ms"] = yard_ms
+                    print(f"{name} ({what}): kernel {ms:.4f} ms a call (its one sync included), "
+                          f"steps queued {timing['queued_ms']:.4f} ms = {b_ms / timing['queued_ms']:.1%} "
+                          f"of its bound: " + ", ".join(f"{k} {a:.4f} ({b:.4f} single)"
+                                                        for k, (a, b) in split.items()))
                 if name in ("groupmax", "count_above", "tile_max_scores"):  # redesigned: queued too
                     timing = {"ms": device_ms(lambda: kernel(*args[name]), calls=10),
                               "single_ms": ms}
@@ -2333,10 +2440,15 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
 
     sweeps = {"count_above": mips_kernels.count_above_kernel,
               "count_above_groups": mips_kernels.count_above_groups_kernel,
-              "groupmax": mips_kernels.groupmax_kernel}
+              "groupmax": mips_kernels.groupmax_kernel,
+              "tile_max_scores": mips_kernels.tile_max_scores_kernel}
+    topk = mips_kernels.topk_candidates_kernel  # pass 1 of fused, auto, approx, exact_sort
     for kernel in sweeps.values():
         kernel.launches = 0
         kernel.launches_by_route = dict.fromkeys(mips_kernels.ROUTES, 0)
+    topk.launches = 0
+    # the script's totals stay (main's check): this phase reads their growth
+    routes0, over0 = dict(topk.launches_by_route), topk.overflow_reruns
     outputs = {}
     for method in ("groupmax", "auto"):
         outputs[method] = os.path.join(work, f"{method}.json")
@@ -2362,6 +2474,9 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
         print(f"retrieve method={method}: {n_queries} queries in {time.perf_counter() - t0:.2f} s "
               f"wall (search, JSON write); repairs of the last batch {index.last_repair}")
     launches = {name: kernel.launches for name, kernel in sweeps.items()}
+    launches["topk_candidates"] = topk.launches
+    pass1 = {r: n - routes0[r] for r, n in topk.launches_by_route.items()}
+    pass1_reruns = topk.overflow_reruns - over0
 
     q = torch.from_numpy(q_emb).to(dev)
     for method in ("groupmax", "auto"):  # the CLI's own index is gone: one batch again
@@ -2389,6 +2504,10 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     print(f"retrieval-path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the retrieval path never launched: {launches}")
+    print(f"pass 1 (topk_candidates) over the CLI runs and retrieve(): launches by route {pass1}, "
+          f"{pass1_reruns} queries swept again for overflow")
+    if pass1["score_tile"] or pass1["wgmma_cp_async"] or not pass1["wgmma"]:
+        raise AssertionError(f"a pass 1 of the retrieval path left the kernel route: {pass1}")
 
     # ---- benchmark(): the methods over the 2,097,152-row block ----
     blk, n_valid, _off = max(index._blocks, key=lambda b: b[0].shape[0])
@@ -2399,11 +2518,14 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
         torch.cuda.empty_cache()
     qb = q_emb[: n_queries // QUERY_BATCH * QUERY_BATCH].reshape(-1, QUERY_BATCH, q_emb.shape[1])
     qb = np.concatenate([qb] * max(1, bench_iters // len(qb)))
-    for method in ("groupmax", "fused", "auto", "exact_sort"):
+    for method in ("groupmax",):  # the pass-1 methods: pass1_ab
         bench.method = method
         stats = bench.benchmark(qb, RETRIEVAL_K)
         print(f"benchmark {method} over {bench._blocks[0][0].shape[0]} rows ({n_valid} valid), "
               f"B={QUERY_BATCH} k={RETRIEVAL_K}: {stats}")
+    pass1_ab(bench, qb)
+    pass1_fallback_causes(bench, torch.from_numpy(qb[0]).to(dev))
+    pass1_bits(bench, torch.from_numpy(qb[0]).to(dev))
     # where the time of one search goes (device time by kernel class)
     from dpr_scale_tpu_torch.tools import profile_serve
 
@@ -2428,11 +2550,111 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
                              f"{bench._blocks[0][0].shape[0]} rows",
                              lambda: bench.search(q0, RETRIEVAL_K), dev, None)
     routes = {name: kernel.launches_by_route for name, kernel in sweeps.items()}
-    print(f"launches by route over the phase (CLI runs, retrieve(), benchmark, profile): {routes}")
+    print(f"launches by route over the phase (CLI runs, retrieve(), benchmark, profile): {routes}; "
+          f"pass 1 {({r: n - routes0[r] for r, n in topk.launches_by_route.items()})}, "
+          f"{topk.overflow_reruns - over0} overflow reruns")
     if any(r["score_tile"] or r["wgmma_cp_async"] or not r["wgmma"] for r in routes.values()):
         raise AssertionError(f"a sweep of the retrieval path did not take the TMA-fed wgmma "
                              f"kernel: {routes}")
     return launches
+
+
+def plain_pass1(index):
+    """A shallow copy of ``index`` whose pass 1 on dense blocks is
+    ``topk_candidates_plain`` on the card (the port before the kernel: a
+    reference independent of it, whose calls no kernel counter sees); it
+    shares the blocks, the rest is the index's own code."""
+    import torch
+
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    class PlainPass1(type(index)):
+        def _topk_rows(self, q, emb, k, n_valid):
+            if isinstance(emb, torch.Tensor):
+                return mk.topk_candidates_plain(q.to(self.dtype), emb, n_valid, k)
+            return super()._topk_rows(q, emb, k, n_valid)
+
+    copy = object.__new__(PlainPass1)
+    copy.__dict__.update(index.__dict__)
+    return copy
+
+
+def pass1_ab(bench, qb):
+    """``MipsIndex.benchmark`` of the pass-1 methods with pass 1 on the
+    kernel, then on the plain version (``plain_pass1``), in one process:
+    q/s and fallback queries."""
+    for route, index in (("kernel", bench), ("plain", plain_pass1(bench))):
+        for method in ("fused", "auto", "exact_sort"):
+            index.method = method
+            stats = index.benchmark(qb, RETRIEVAL_K)
+            print(f"pass-1 A/B, {route} route: benchmark {method} B={qb.shape[1]} "
+                  f"k={RETRIEVAL_K}: {stats['qps']:.1f} q/s, {stats['fallback_queries']} of "
+                  f"{qb.shape[0] * qb.shape[1]} queries to the exact fallback; {stats}")
+
+
+def pass1_fallback_causes(bench, q):
+    """Where ``fused``'s exact fallbacks come from, for one batch on each
+    pass-1 route: the verification's failures; per query the candidates in
+    the margin band (tau, tau + COUNT_MARGIN_REL |tau|], which pass 2
+    counts and the verification does not credit, and the groups they leave
+    discrepant (more than RESCUE_GROUPS fail the query); pass 2's count
+    above tau less pass 1's own; and how far the kernel's sums lie below
+    fp32 sums of the same products (bmm) on its candidates."""
+    import torch
+
+    from dpr_scale_tpu_torch.index import mips
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    rows, n_valid, _off = bench._blocks[0]
+    qd, k, group = q.to(rows.dtype), RETRIEVAL_K, mips.GROUP_ROWS
+    for route, index in (("kernel", bench), ("plain", plain_pass1(bench))):
+        s, i = index._candidates(qd, rows, mips.FUSED_KC, n_valid)
+        fails = int(index._fused_search(rows, q, k, n_valid)[2].sum())
+        tau = s[:, k - 1]
+        tau_hi = tau + mips.COUNT_MARGIN_REL * tau.abs()
+        cnt = mk.count_above_groups(qd, rows, tau, group)
+        cnt = cnt - torch.where(tau[:, None] < 0, (rows.shape[0] - n_valid) // group, 0)
+        found = torch.zeros_like(cnt).scatter_add_(1, i.clamp_min(0) // group,
+                                                   (s > tau_hi[:, None]).to(cnt.dtype))
+        groups = ((cnt - found) > 0).sum(dim=1)
+        band = ((s > tau[:, None]) & (s <= tau_hi[:, None])).sum(dim=1).float()
+        extra = (cnt.sum(dim=1) - (s > tau[:, None]).sum(dim=1)).float()
+        print(f"fused's fallbacks, {route} route, B={q.shape[0]}: {fails} queries fail the "
+              f"verification; candidates in the margin band a query: mean {band.mean():.2f}, "
+              f"max {int(band.max())}; discrepant groups a query: mean "
+              f"{groups.float().mean():.2f}, {int((groups > mips.RESCUE_GROUPS).sum())} queries "
+              f"over RESCUE_GROUPS = {mips.RESCUE_GROUPS}; pass 2's count above tau less pass "
+              f"1's: mean {extra.mean():.3f}, min {int(extra.min())}, max {int(extra.max())}")
+        if route == "kernel":
+            exact = torch.einsum("bd,bkd->bk", qd.float(), rows[i].float())
+            drift = ((exact - s) / s.abs()).flatten()
+            print(f"the kernel's candidate scores below fp32 bmm sums of the same products, "
+                  f"relative: mean {drift.mean():.3g}, median {drift.median():.3g}, min "
+                  f"{drift.min():.3g}, max {drift.max():.3g}; the margin {mips.COUNT_MARGIN_REL}")
+
+
+def pass1_bits(bench, q):
+    """Pass 1's candidate scores are pass 2's bits on the benchmark block:
+    count_above_groups at the j-th candidate's score (pad rows subtracted
+    where it is negative) counts exactly the candidates above it."""
+    import torch
+
+    from dpr_scale_tpu_torch.index.mips import FUSED_KC, GROUP_ROWS
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    rows, n_valid, _off = bench._blocks[0]
+    qd = q.to(rows.dtype)
+    s, _i = mk.topk_candidates(qd, rows, n_valid, FUSED_KC)
+    wrong = {}
+    for j in (0, 1, RETRIEVAL_K - 1, FUSED_KC - 1):
+        tau = s[:, j].contiguous()
+        cnt = mk.count_above_groups(qd, rows, tau, GROUP_ROWS).sum(dim=1)
+        cnt = cnt - torch.where(tau < 0, rows.shape[0] - n_valid, 0)
+        wrong[j] = int((cnt != (s > s[:, j : j + 1]).sum(dim=1)).sum())
+    print(f"pass 1 vs pass 2 bits, B={q.shape[0]} over {rows.shape[0]} rows ({n_valid} valid): "
+          f"queries whose count at the j-th candidate is not the candidates above it {wrong}")
+    if any(wrong.values()):
+        raise AssertionError(f"pass 1's scores are not pass 2's bits: {wrong}")
 
 
 def _int_yardsticks():
@@ -2717,7 +2939,8 @@ def phase_int_retrieval(work, dev, n_queries=RETRIEVAL_QUERIES, extra=(), bench_
     print(f"int4_rerank4: every reranked score equals fp32 q.row of its shard row (max rel "
           f"err {rel:.3g})")
 
-    exact = build_index(embs, dev, dtype=torch.float32, method="exact_sort")
+    # the reference: fp32 rows, pass 1 the plain version
+    exact = plain_pass1(build_index(embs, dev, dtype=torch.float32, method="exact_sort"))
     exact_i = np.concatenate([exact.search(q[lo : lo + QUERY_BATCH], RETRIEVAL_K)[1]
                               for lo in range(0, q.shape[0], QUERY_BATCH)])
     del exact
@@ -3849,7 +4072,9 @@ def _rest_counters():
             "ffn_ln_fwd": (ffn.ffn_ln_fwd_kernel, "launches"),
             "count_above_groups": (mk.count_above_groups_kernel, "launches"),
             "count_above": (mk.count_above_kernel, "launches"),
-            "groupmax": (mk.groupmax_kernel, "launches")}
+            "groupmax": (mk.groupmax_kernel, "launches"),
+            "tile_max_scores": (mk.tile_max_scores_kernel, "launches"),
+            "topk_candidates": (mk.topk_candidates_kernel, "launches")}
 
 
 class _RestRuns:
@@ -4396,7 +4621,8 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
 # sums past 1,536 columns) and at SPLADE_D (SPLADE's vocabulary, even but
 # not a multiple of 8: the same loop fed by cp.async) on dense non-negative
 # and on normal vectors: clear counts equal plain, maxima against fp64
-# beside cuBLAS's, then the kernels timed at both widths. (b) STREAM_ROWS x 768 rows (phase 16's geometry) of seeded fp16
+# beside cuBLAS's, then the kernels timed at both widths. (b) STREAM_ROWS x 768 rows (phase 15's
+# block; the script's time limit cut it from phase 16's 4,194,304) of seeded fp16
 # shards: build_int8_store, then a fresh MipsIndex filled by load_int8_store
 # with device_rows half the rows (half the blocks streamed from the host),
 # the first search of STREAM_QUERIES questions at k = RETRIEVAL_K, batches
@@ -4413,7 +4639,7 @@ def phase_rest(work, dev, d18, dense_export, citadel_export, d20, splade_export,
 # is a CPU test (tests/test_torch_data_parallel.py).
 WIDE_D, SPLADE_D = 30528, 30522
 WIDE_ROWS, WIDE_TIMED_ROWS, WIDE_BATCH = 4096, 65536, 256
-STREAM_ROWS, STREAM_SHARD_ROWS, STREAM_DIM = 1 << 22, 1 << 20, 768
+STREAM_ROWS, STREAM_SHARD_ROWS, STREAM_DIM = 1 << 21, 1 << 20, 768
 STREAM_QUERIES, STREAM_BATCH = 1024, 256
 DP_BATCH, DP_STEPS, DP_LR, DP_WARMUP = 256, 3, 1e-5, 2
 DP_OVERRIDES = (*NQ_OWN, "task.grad_cache_chunks=2")
@@ -4431,6 +4657,8 @@ def _scale_counters():
             "attention_bwd": (attention.attention_bwd_kernel, "launches"),
             "count_above_groups": (mk.count_above_groups_kernel, "launches"),
             "groupmax": (mk.groupmax_kernel, "launches"),
+            "tile_max_scores": (mk.tile_max_scores_kernel, "launches"),
+            "topk_candidates": (mk.topk_candidates_kernel, "launches"),
             "int_groupmax": (ik.int_groupmax_kernel, "launches")}
 
 
@@ -5098,6 +5326,9 @@ def main():
     torch.cuda.empty_cache()
     mips = phase_mips_kernels(torch.device("cuda", 0))
     wall("mips kernels")
+    from dpr_scale_tpu_torch.ops.mips_kernels import topk_candidates_kernel
+
+    pass1_tile = topk_candidates_kernel.launches_by_route["score_tile"]  # the fp32 case
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         retrieval_launches = phase_retrieval_cli(work, torch.device("cuda", 0))
@@ -5147,6 +5378,15 @@ def main():
     if left:
         raise RuntimeError(f"processes left running after the phases: {left}")
     print(f"phase walls (s): {walls}")
+    from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+    topk = mk.topk_candidates_kernel
+    print(f"pass 1 over the script: launches by route {topk.launches_by_route} ({pass1_tile} "
+          f"of them on the score tile up to phase 14: its fp32 case), "
+          f"{topk.overflow_reruns} queries swept again for overflow")
+    if topk.launches_by_route["score_tile"] != pass1_tile:
+        raise AssertionError("a pass 1 after phase 14 took the score tile, not the wgmma loop: "
+                             f"{topk.launches_by_route}, phase 14's {pass1_tile}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"device {smi}")
     source = "dpr_scale_tpu_torch/csrc/"
@@ -5188,6 +5428,9 @@ def main():
            "replaces": f"dpr_scale_tpu/ops/mips_kernels.py:{line}",
            "launches": retrieval_launches.get(name, 0), **mips[name]}
           for name, line in (("count_above", 71), ("groupmax", 208), ("tile_max_scores", 242))),
+        {"name": "topk_candidates", "route": "cuda", "source": source + "topk_sweep.cu",
+         "replaces": "dpr_scale_tpu/index/mips.py:801",
+         "launches": retrieval_launches["topk_candidates"], **mips["topk_candidates"]},
         *({"name": name, "route": "cuda", "source": source + "int_scan.cu",
            "replaces": f"tools/microbench_int4_kernel.py:{line}",
            "launches": int_launches[name], **int_entries[name]}

@@ -4,13 +4,16 @@ Counterpart of :class:`dpr_scale_tpu.index.mips.MipsIndex` with its five
 unquantised methods: ``"fused"`` (the default), ``"groupmax"``, ``"auto"``,
 ``"approx"`` and ``"exact_sort"``. The fused pipeline per block:
 
-  1. pass 1: ``kc`` candidates per query from a matmul + ``torch.topk`` over
-     ``CHUNK_ROWS``-row chunks. The JAX pass is a dot fused into
-     ``lax.approx_max_k`` (a TPU primitive, no Pallas kernel); here it is
-     exact, so verification passes more often and the output is the same
-     exact top-k. It materialises one ``B x CHUNK_ROWS`` fp32 score tile
-     per chunk; a GEMM + top-kc epilogue kernel that keeps the scores on
-     chip is queued in ROADMAP.md;
+  1. pass 1: the exact top-``kc`` rows of each query
+     (``ops.mips_kernels.topk_candidates``). The JAX pass is a dot fused into
+     ``lax.approx_max_k`` (a TPU primitive, no Pallas kernel), approximate;
+     this one is exact, so verification passes more often and the output is
+     the same exact top-k. On the card it is the hand-written kernel: a
+     tile-max sweep sets a per-query threshold, an emit sweep on the count
+     kernel's loop (wgmma for a bf16 block of even D, the score tile for
+     fp32 or odd D) writes every score above it as a candidate and
+     ``torch.topk`` keeps the best kc, so the B x N scores never reach
+     memory and the candidates' scores are pass 2's bits;
   2. pass 2: exact per-``GROUP_ROWS``-group counts of scores above the k-th
      candidate score (the hand-written count kernel, ``ops.mips_kernels``);
   3. groups whose count exceeds the candidates credited there are rescued
@@ -28,7 +31,8 @@ by a whole-block count of the scores above the k-th (``ops.mips_kernels.
 count_above``), failing queries rescanned exactly. ``"approx"`` is pass 1
 with ``max(4k, 128)`` candidates and no verification; the JAX pass is
 ``lax.approx_max_k`` (recall ~0.994 at k = 100 on the TPU), this one is
-exact, so its recall is 1.0. ``"exact_sort"`` is pass 1 at depth k.
+exact, so its recall is 1.0. ``"exact_sort"`` is pass 1 at depth k, and so
+is the exact fallback of every verified method.
 
 The quantised tiers ``"int8"`` and ``"int4"`` quantise each block on the
 host as the JAX index does (column equalisation, per-row symmetric int8 or
@@ -81,13 +85,15 @@ from dpr_scale_tpu_torch.ops.mips_kernels import (
     GMAX_ROWS,
     GMAX_TIER2,
     GROUP_ROWS,
+    NEG_INF,
     count_above,
     count_above_groups,
     groupmax,
+    merge_chunk_topk,
+    topk_candidates,
 )
 
-NEG_INF = -1e30
-CHUNK_ROWS = 131072  # pass-1 / exact-scan chunk (scores tile: B x CHUNK fp32)
+CHUNK_ROWS = 131072  # block padding above one chunk; a quantised block's exact-scan chunk
 FUSED_KC = 128  # pass-1 candidates per query
 RESCUE_GROUPS = 6  # most-discrepant corpus groups rescued whole per query
 RESCUE_PAIRS_PER_QUERY = 2  # gathered (query, group) pairs per batch
@@ -545,48 +551,36 @@ class MipsIndex:
 
     # ------------------------------------------------------------------ #
 
-    def _score_chunks(self, q, emb):
-        """(lo, hi, fp32 scores (B, hi - lo)) of a block's rows, CHUNK_ROWS
-        at a time: fp32 sums of the fp32-upcast inputs (bf16 products are
-        exact in fp32, so this is the fp32 accumulation the count kernel
-        uses), or a quantised block's dequantised scores (the arithmetic of
-        the int kernels' plain versions)."""
-        if isinstance(emb, QuantBlock):
-            planes = int(self.int8_query_planes)
-            q8, qsc = self._quantize_queries(q, emb.col_scales, planes)
-            for lo in range(0, emb.shape[0], CHUNK_ROWS):
-                hi = min(lo + CHUNK_ROWS, emb.shape[0])
-                yield lo, hi, int_scores(q8, emb.rows[lo:hi], emb.row_scales[lo:hi], qsc,
-                                         packed=emb.packed, planes=planes)
-            return
-        qd = q.to(self.dtype).float()
+    def _quant_score_chunks(self, q, emb: QuantBlock):
+        """(lo, hi, fp32 scores (B, hi - lo)) of a quantised block's rows,
+        CHUNK_ROWS at a time: the dequantised scores (the arithmetic of the
+        int kernels' plain versions)."""
+        planes = int(self.int8_query_planes)
+        q8, qsc = self._quantize_queries(q, emb.col_scales, planes)
         for lo in range(0, emb.shape[0], CHUNK_ROWS):
             hi = min(lo + CHUNK_ROWS, emb.shape[0])
-            yield lo, hi, torch.matmul(qd, emb[lo:hi].float().T)
+            yield lo, hi, int_scores(q8, emb.rows[lo:hi], emb.row_scales[lo:hi], qsc,
+                                     packed=emb.packed, planes=planes)
 
     def _topk_rows(self, q, emb, k, n_valid):
-        """Exact top-k (scores, rows) per query over one block, chunk by
-        chunk; rows >= n_valid (pads) score NEG_INF."""
-        B = q.shape[0]
-        best_s = torch.full((B, 0), NEG_INF, device=q.device)
-        best_i = torch.zeros((B, 0), dtype=torch.int64, device=q.device)
-        for lo, hi, s in self._score_chunks(q, emb):
-            if hi > n_valid:
-                s[:, max(n_valid - lo, 0) :] = NEG_INF
-            ts, ti = torch.topk(s, min(k, hi - lo), dim=1)
-            merged_s = torch.cat([best_s, ts], 1)
-            best_s, pos = torch.topk(merged_s, min(k, merged_s.shape[1]), dim=1)
-            best_i = torch.gather(torch.cat([best_i, ti + lo], 1), 1, pos)
-        return best_s, best_i
+        """Exact top-k (scores, rows) per query over one block; rows >=
+        n_valid (pads) never return: missing entries score NEG_INF, row -1.
+        A dense block takes ``topk_candidates`` (fp32 sums of the products of
+        the queries cast to the block dtype: on the card, the count kernels'
+        bits), a quantised block its dequantised scores chunk by chunk."""
+        if isinstance(emb, QuantBlock):
+            return merge_chunk_topk(self._quant_score_chunks(q, emb), n_valid, k)
+        return topk_candidates(q.to(self.dtype), emb, n_valid, k)
 
     def _exact_topk(self, emb, n_valid, q, k):
         """Exact top-k of one block; masked rows surface as -1."""
-        s, i = self._topk_rows(q, emb, k, n_valid)
-        return s, torch.where(s <= NEG_INF, -1, i)
+        return self._topk_rows(q, emb, k, n_valid)
 
     def _candidates(self, qd, emb, kc, n_valid):
-        """Pass 1 of the fused, auto and approx searches: kc candidates per
-        query (exact here, approximate on the TPU)."""
+        """Pass 1 of the fused, auto and approx searches: the exact top-kc
+        rows of each query (``topk_candidates``: on the card the kernel,
+        whose scores are pass 2's bits). The TPU's pass,
+        ``lax.approx_max_k``, is approximate."""
         return self._topk_rows(qd, emb, kc, n_valid)
 
     def _fused_search(self, emb, q, k, n_valid):
@@ -616,7 +610,7 @@ class MipsIndex:
 
         # ---- verification: true per-group counts vs margin-credited
         # candidates (COUNT_MARGIN_REL) ----
-        gid = cand_i // group  # (B, kc)
+        gid = cand_i.clamp_min(0) // group  # (B, kc); a missing (-1) candidate credits nothing
         tau_hi = tau + COUNT_MARGIN_REL * tau.abs()
         above = (cand_s > tau_hi[:, None]).to(torch.int32)
         found = torch.zeros((B, ngroups), dtype=torch.int32, device=dev)

@@ -31,7 +31,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = (
     "attention_fwd.cu", "attention_bwd.cu", "count_groups.cu", "ffn_fwd.cu", "gather_score.cu",
-    "int_scan.cu", "mips_scan.cu",
+    "int_scan.cu", "mips_scan.cu", "topk_sweep.cu",
 )
 HEADERS = (
     "attention_ptx.cuh", "attention_tiles.cuh", "dropout_bits.cuh", "gmax_sweep.cuh",
@@ -161,6 +161,10 @@ def library() -> ctypes.CDLL:
             lib.dst_tile_max_route.restype = i
             lib.dst_tile_max_smem.argtypes = [i]
             lib.dst_tile_max_smem.restype = ll
+            lib.dst_topk_emit.argtypes = [p] * 5 + [i, ll, ll, i, i, i, i, p]
+            lib.dst_topk_emit.restype = i
+            lib.dst_topk_route.argtypes = [p, p, ll, i, i]
+            lib.dst_topk_route.restype = i
             lib.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
             lib.dst_int_groupmax.restype = i
             lib.dst_int_groupmax_route.argtypes = [p, p, i, i]

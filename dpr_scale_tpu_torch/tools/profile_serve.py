@@ -49,7 +49,8 @@ CLASSES = (
     ("FFN kernels", ("ffn_gemm_kernel", "ln_rows_kernel")),  # task.model.fused_ffn=true
     ("count kernel", ("count_groups_kernel", "count_groups_wgmma_kernel")),
     ("MIPS sweep kernels", ("count_above_kernel", "count_above_wgmma_kernel", "groupmax_kernel",
-                            "groupmax_wgmma_kernel", "tile_max_kernel")),
+                            "groupmax_wgmma_kernel", "tile_max_kernel", "tile_max_wgmma_kernel")),
+    ("pass-1 emit kernel", ("topk_emit_wgmma_kernel",)),  # before "top-k / sort": it says topk
     ("gather-score kernels", ("gather_serial_kernel", "gather_pipelined_kernel",
                               "gather_streamed_kernel")),  # the CITADEL device search
     ("optimizer (multi-tensor)", ("multi_tensor",)),
@@ -64,7 +65,7 @@ CLASSES = (
 PORT_CLASSES = {
     "dst_attention_fwd": "attention kernels", "dst_attention_bwd": "attention kernels",
     "dst_ffn_fwd": "FFN kernels", "dst_ffn_ln_fwd": "FFN kernels",
-    "dst_count_above_groups": "count kernel",
+    "dst_count_above_groups": "count kernel", "dst_topk_emit": "pass-1 emit kernel",
     **dict.fromkeys(("dst_count_above", "dst_groupmax", "dst_tile_max", "dst_int_groupmax",
                      "dst_int8_tile_max"), "MIPS sweep kernels"),
     **dict.fromkeys(("dst_gather_serial", "dst_gather_pipelined", "dst_gather_streamed",

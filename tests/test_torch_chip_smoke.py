@@ -138,16 +138,22 @@ def test_mips_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):
     wrong kernel is caught."""
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
-    for name in ("count_above", "groupmax", "tile_max_scores"):
+    for name in ("count_above", "groupmax", "tile_max_scores", "topk_candidates"):
         monkeypatch.setattr(mk, f"{name}_kernel", getattr(mk, f"{name}_plain"))
     cases = ((16, 8192, 32, "bfloat16", 4096, False), (5, 2048, 20, "float32", 256, False),
              (3, 1152, 7, "bfloat16", 384, False))
     entries = chip_smoke.phase_mips_kernels(torch.device("cpu"), cases)
-    assert set(entries) == {"count_above", "groupmax", "tile_max_scores"}
+    assert set(entries) == {"count_above", "groupmax", "tile_max_scores", "topk_candidates"}
     out = capsys.readouterr().out
-    assert out.count("repeatable") == 9 and "outside the check" in out
+    assert out.count("repeatable") == 12 and "outside the check" in out
+    assert "0 pad rows" in out
     monkeypatch.setattr(mk, "groupmax_kernel", lambda q, c: tuple(t + 1e-3 for t in mk.groupmax_plain(q, c)))
     with pytest.raises(AssertionError, match="groupmax .* disagrees"):
+        chip_smoke.phase_mips_kernels(torch.device("cpu"), cases[:1])
+    monkeypatch.setattr(mk, "groupmax_kernel", mk.groupmax_plain)
+    monkeypatch.setattr(mk, "topk_candidates_kernel", lambda *a: (  # each score on another row
+        lambda s, i: (s, i.roll(1, dims=1)))(*mk.topk_candidates_plain(*a)))
+    with pytest.raises(AssertionError, match="topk_candidates .* disagrees"):
         chip_smoke.phase_mips_kernels(torch.device("cpu"), cases[:1])
 
 
@@ -192,7 +198,7 @@ def test_retrieval_cli_phase_runs_on_cpu_until_the_launch_check(retrieval_work):
         assert f"{method}: 16 queries, each top-100 equals the brute-force exact top-100" in out
     assert "equal to a recount with has_answers" in out
     assert ("retrieval-path launches: {'count_above': 0, 'count_above_groups': 0, "
-            "'groupmax': 0}") in out
+            "'groupmax': 0, 'tile_max_scores': 0, 'topk_candidates': 0}") in out
 
 
 def test_int_kernel_phase_checks_run_on_cpu(monkeypatch, capsys):

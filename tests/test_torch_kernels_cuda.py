@@ -1127,3 +1127,121 @@ def test_wgmma_counts_at_wide_d_equal_plain(cuda_device, kind, B):
     ref_groups = mips_kernels.count_above_groups_plain(q, c, tau, 256)
     clear_groups = ~near.view(B, -1, 256).any(dim=2)
     torch.testing.assert_close(groups[clear_groups], ref_groups[clear_groups], atol=0, rtol=0)
+
+
+def _int_rows(dev, B, N, D, seed, lo=-3):
+    """Integer-valued bf16 queries and rows: every score exact in fp32."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(lo, 4, size=shape).astype(np.float32)).to(dev)
+                 .bfloat16() for shape in ((B, D), (N, D)))
+
+
+def _assert_same_candidates(got, want):
+    """The same scores, and the same rows strictly above each query's kc-th
+    (rows tied with it may differ)."""
+    (s, i), (ws, wi) = got, want
+    torch.testing.assert_close(s, ws, atol=0, rtol=0)
+    for b in range(s.shape[0]):
+        above = s[b] > s[b, -1]
+        assert set(i[b][above].tolist()) == set(wi[b][ws[b] > ws[b, -1]].tolist())
+
+
+# (B, N rows, D, n_valid, kc, route): the CLI's batch and a serving batch
+# over a ragged n_valid (a threshold from 4,096- and 256-row tiles); 128
+# queries at kc 512 and 1,000 (exact_sort at k = 1,000); fewer than kc
+# whole tiles (every valid row a candidate); D = 100 and SPLADE's 30,522 on
+# the cp.async route
+_TOPK_CASES = [(512, 1 << 19, 768, (1 << 19) - 77, 128, "wgmma"),
+               (64, 65536, 768, 65000, 128, "wgmma"),
+               (128, 1 << 19, 768, 1 << 19, 512, "wgmma"),
+               (128, 1 << 19, 768, 1 << 19, 1000, "wgmma"),
+               (70, 20224, 768, 20000, 128, "wgmma"),
+               (9, 65536, 100, 65536, 16, "wgmma_cp_async"),
+               (256, 8192, 30522, 8192, 16, "wgmma_cp_async")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,n_valid,kc,route", _TOPK_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-v{c[3]}-kc{c[4]}" for c in _TOPK_CASES])
+def test_topk_candidates_kernel_equals_plain(cuda_device, B, N, D, n_valid, kc, route):
+    """Integer-valued inputs: the kernel's candidates are plain's (exact
+    scores, the same rows above the kc-th), no pad row, the same bits
+    again, at least one emit launch a call on its route."""
+    q, c = _int_rows(cuda_device, B, N, D, B + D + kc)
+    kernel = mips_kernels.topk_candidates_kernel
+    before = dict(kernel.launches_by_route)
+    got, again = mips_kernels.topk_candidates(q, c, n_valid, kc), kernel(q, c, n_valid, kc)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_route[route] - before[route] >= 2
+    _assert_same_candidates(got, mips_kernels.topk_candidates_plain(q, c, n_valid, kc))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ((got[1] >= 0) & (got[1] < n_valid)).all()
+
+
+@pytest.mark.cuda
+def test_topk_candidates_are_the_count_kernels_bits(cuda_device):
+    """Random normal rows: at the j-th candidate's score, count_above_groups
+    counts over the block exactly the candidates above it (j where it ties
+    with none): pass 1's sums are pass 2's bits."""
+    q, c = _scan_inputs(cuda_device, 512, 1 << 19, 768, torch.bfloat16, 41)
+    s, _i = mips_kernels.topk_candidates(q, c, c.shape[0], 128)
+    for j in (0, 1, 63, 127):
+        cnt = mips_kernels.count_above_groups(q, c, s[:, j].contiguous(), 256).sum(dim=1)
+        assert torch.equal(cnt, (s > s[:, j : j + 1]).sum(dim=1).to(cnt.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,offset", [(torch.float32, 768, 0), (torch.bfloat16, 101, 0),
+                                            (torch.bfloat16, 768, 1)])
+def test_topk_score_tile_route_equals_plain(cuda_device, dtype, D, offset):
+    """fp32 blocks, odd D and a bf16 base 2 bytes into its buffer take the
+    kernel on the score tile: plain's candidates (integer-valued: exact
+    scores, the rows above the kc-th). The index's exact_sort launches it
+    there on fp32 and odd D; the index copies the unaligned rows into a
+    block of its own, which takes the wgmma loop."""
+    from dpr_scale_tpu_torch.index.mips import MipsIndex
+
+    q, c = _int_rows(cuda_device, 8, 4096, D, D)
+    q, c = q.to(dtype), c.to(dtype)
+    if offset:
+        buf = torch.zeros(c.numel() + offset, dtype=dtype, device=cuda_device)
+        buf[offset:] = c.flatten()
+        c = buf[offset:].view(c.shape)
+    kernel = mips_kernels.topk_candidates_kernel
+    before = dict(kernel.launches_by_route)
+    got = kernel(q, c, 4000, 128)
+    _assert_same_candidates(got, mips_kernels.topk_candidates_plain(q, c, 4000, 128))
+    index = MipsIndex(cuda_device, dtype=dtype, method="exact_sort")
+    index.add(c)
+    s, _i = index.search(q, k=10)
+    after = kernel.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        "score_tile": 1 + (not offset), "wgmma": int(offset), "wgmma_cp_async": 0}
+    ws, _wi = mips_kernels.topk_candidates_plain(q, c, 4096, 10)
+    np.testing.assert_array_equal(s, ws.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["fused", "auto", "approx", "exact_sort"])
+def test_pass1_searches_launch_the_kernel_and_equal_the_cpu(cuda_device, method):
+    """MipsIndex bf16 blocks (one of fewer rows than kc) on the card: pass 1
+    on the kernel route only, and the CPU index's answers (integer-valued
+    rows: exact scores; the rows above the k-th)."""
+    from dpr_scale_tpu_torch.index.mips import MipsIndex
+
+    rng = np.random.default_rng(len(method))
+    blocks = [rng.integers(-3, 4, size=(n, 96)).astype(np.float32) for n in (70000, 100)]
+    queries = rng.integers(-3, 4, size=(9, 96)).astype(np.float32)
+    got, want = MipsIndex(cuda_device, method=method), MipsIndex("cpu", method=method)
+    for index in (got, want):
+        for b in blocks:
+            index.add(b)
+    before = dict(mips_kernels.topk_candidates_kernel.launches_by_route)
+    s, i = got.search(queries, k=20)
+    after = mips_kernels.topk_candidates_kernel.launches_by_route
+    assert after["wgmma"] > before["wgmma"] and after["score_tile"] == before["score_tile"]
+    ws, wi = want.search(queries, k=20)
+    np.testing.assert_array_equal(s, ws)
+    for row in range(len(queries)):
+        above = s[row] > s[row, -1]
+        assert set(i[row][above]) == set(wi[row][above])

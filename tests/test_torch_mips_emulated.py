@@ -19,7 +19,18 @@ equal to ``count_above_groups_plain`` / ``count_above_plain`` on
 integer-valued inputs (every summation order gives the same fp32 score),
 with thresholds equal to some scores (the comparison is strict), negative
 thresholds where rows past N would score 0, both layouts, ragged spans,
-tiles and query tiles, group widths on both routes. ``dst_tile_max`` is
+tiles and query tiles, group widths on both routes. ``dst_topk_emit``,
+driven by ``mips_kernels._topk_sweeps`` with the emulated ``dst_tile_max``
+for its threshold, is held exactly against ``topk_candidates_plain`` on
+integer-valued inputs (the same scores, the same rows strictly above each
+query's kc-th, ties to the smaller row): both layouts, ragged n_valid and
+query tiles, all-negative scores (the rows past n_valid score 0), ties at
+the threshold, an overflow rerun on the whole batch's layout, fewer than kc
+whole tiles, and D = 100 on the cp.async route; on the score tile (route
+0) fp32 rows, D = 101 and a 2-byte aligned bf16 base, with reruns there;
+its candidate scores are the count kernel's bits (``dst_count_above`` at
+the j-th candidate counts j rows above it); arguments out of range are
+refused. ``dst_tile_max`` is
 held against ``tile_max_scores_plain`` (within MAX_REL): both layouts,
 ragged query tiles, 256-row tiles (a block holds several, its last span
 ragged), 768- and 4,096-row tiles, tiles on the older kernel, and maxima
@@ -47,8 +58,8 @@ from dpr_scale_tpu_torch.ops import mips_kernels as mk
 import emulated_lib
 import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
-SOURCES = ("mips_scan.cu", "count_groups.cu", "int_scan.cu", "score_tile.cuh", "int_tile.cuh",
-           "gmax_sweep.cuh")
+SOURCES = ("mips_scan.cu", "count_groups.cu", "int_scan.cu", "topk_sweep.cu", "score_tile.cuh",
+           "int_tile.cuh", "gmax_sweep.cuh")
 MAX_REL = 2e-5  # chip_smoke.MAX_REL: fp32 sums of the same products in another order
 
 
@@ -57,7 +68,8 @@ def emulated():
     """The kernels' C entry points and the wgmma self-tests, built against
     the emulation."""
     dll = emulated_lib.build("mips_emulated", SOURCES,
-                             ("mips_scan.cu", "count_groups.cu", "int_scan.cu"),
+                             ("mips_scan.cu", "count_groups.cu", "int_scan.cu",
+                              "topk_sweep.cu"),
                              emu_units=("wgmma_selftest.cpp",))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     dll.dst_count_above_groups.argtypes = [p, p, p, p, i, ll, i, ll, i, p]
@@ -86,6 +98,10 @@ def emulated():
     dll.dst_int8_tile_max.restype = i
     dll.dst_int8_tile_max_route.argtypes = [p, p, ll, i, ll]
     dll.dst_int8_tile_max_route.restype = i
+    dll.dst_topk_emit.argtypes = [p] * 5 + [i, ll, ll, i, i, i, i, p]
+    dll.dst_topk_emit.restype = i
+    dll.dst_topk_route.argtypes = [p, p, ll, i, i]
+    dll.dst_topk_route.restype = i
     dll.emu_wgmma_tn_selftest.argtypes = [p, p, p, i, i, i]
     dll.emu_wgmma_tn_selftest.restype = i
     return dll
@@ -510,3 +526,200 @@ def test_emulated_int8_tile_max_equals_plain(emulated, B, N, D, tile, kind, rout
         dots = (c.long() @ q8.long().T).view(N // tile, tile, B)
         assert torch.equal(want.long(), dots[:, -1]) and (dots[:, :-1] < dots[:, -1:]).all()
     assert torch.equal(out, want)
+
+
+def _topk(emulated, q, c, n_valid, kc):
+    """mips_kernels._topk_sweeps on the emulated tile maxima and emit sweep:
+    (scores, rows, overflow reruns, each emit's (B, cap,
+    layout_b))."""
+    D, launches, dtype = c.shape[1], [], mk._KERNEL_DTYPES[c.dtype]
+
+    def tile_max(qs, rows, tile):
+        out = torch.full((qs.shape[0], rows.shape[0] // tile), float("nan"))
+        assert emulated.dst_tile_max(qs.data_ptr(), rows.data_ptr(), out.data_ptr(), qs.shape[0],
+                                     rows.shape[0], D, tile, dtype, None) == 0
+        return out
+
+    def emit(qs, theta, cap, layout_b):
+        count = torch.full((qs.shape[0],), -7, dtype=torch.int32)  # the entry point zeroes it
+        keys = torch.full((qs.shape[0], cap), mk._KEY_EMPTY, dtype=torch.int64)
+        assert emulated.dst_topk_emit(qs.data_ptr(), c.data_ptr(), theta.data_ptr(),
+                                      count.data_ptr(), keys.data_ptr(), qs.shape[0],
+                                      c.shape[0], n_valid, D, cap, layout_b, dtype, None) == 0
+        launches.append((qs.shape[0], cap, layout_b))
+        return count, keys
+
+    return (*mk._topk_sweeps(q, c, n_valid, kc, tile_max, emit), launches)
+
+
+def _topk_inputs(B, N, D, n_valid, kind, seed, dtype=torch.bfloat16):
+    """Integer-valued queries and rows (every score exact in fp32, in any
+    order; ties abound); ``neg``: positive queries against negative rows,
+    so every score lies below the 0 of the ring's zero fill; ``padtop``:
+    positive queries, the rows past n_valid all 3, above every valid row;
+    ``dup``: every row repeated in 16 neighbours, so each score ties 16
+    times; ``same``: one row everywhere, every score a tie."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (1, 4) if kind in ("neg", "padtop") else (-3, 4)
+    q = rng.integers(lo, hi, size=(B, D)).astype(np.float32)
+    c = rng.integers(-3, 4 if kind != "neg" else 0, size=(N, D)).astype(np.float32)
+    if kind == "padtop":
+        c[n_valid:] = 3.0
+    if kind == "dup":
+        c = c[np.arange(N) // 16 * 16]
+    if kind == "same":
+        c = c[np.zeros(N, dtype=np.int64)]
+    return torch.from_numpy(q).to(dtype), torch.from_numpy(np.ascontiguousarray(c)).to(dtype)
+
+
+def _want_topk(q, c, n_valid, kc):
+    """The exact top-kc (scores, rows) of the valid rows, ties to the
+    smaller row, NEG_INF / -1 past n_valid: fp64 scores of the integer
+    inputs."""
+    s = (q.double() @ c[:n_valid].double().T).numpy()
+    order = np.lexsort((np.broadcast_to(np.arange(n_valid), s.shape), -s), axis=1)[:, :kc]
+    scores = np.take_along_axis(s, order, axis=1)
+    if n_valid < kc:
+        pad = ((0, 0), (0, kc - n_valid))
+        scores = np.pad(scores, pad, constant_values=mk.NEG_INF)
+        order = np.pad(order, pad, constant_values=-1)
+    return torch.from_numpy(scores.astype(np.float32)), torch.from_numpy(order.astype(np.int64))
+
+
+# (B, N rows, D, n_valid, kc, kind, route, overflow): 64-query blocks over
+# rows that end inside a tile (the ring's zero fill) with every score
+# negative; 128-query blocks with a ragged query tile and kc = the tiles,
+# whose ties overflow some queries' slots (their rerun: fewer queries on
+# the 128-query layout); pad rows past n_valid that would top every query
+# (the sweep takes them, whole tiles, and masks them); 16-fold ties at
+# theta that overflow every query; every row the same (its rerun takes a
+# slot a row); fewer than kc whole tiles (theta = -inf, a slot a row); D =
+# 100 on the cp.async route
+TOPK_CASES = [
+    (7, 2700, 64, 2700, 8, "neg", 1, False),
+    (70, 2560, 48, 2560, 10, "rand", 1, True),
+    (9, 2048, 32, 2000, 4, "padtop", 1, False),
+    (70, 2048, 32, 2048, 6, "dup", 1, True),
+    (9, 1280, 32, 1280, 4, "same", 1, True),
+    (5, 1280, 32, 1200, 8, "rand", 1, False),
+    (9, 1280, 100, 1280, 4, "rand", 2, False),
+]
+
+
+@pytest.mark.parametrize("B,N,D,n_valid,kc,kind,route,overflow", TOPK_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-v{c[3]}-kc{c[4]}-{c[5]}"
+                              for c in TOPK_CASES])
+def test_emulated_topk_candidates_equal_plain(emulated, B, N, D, n_valid, kc, kind, route,
+                                              overflow):
+    """The kernel route's candidates exactly equal the plain version's
+    scores and rows strictly above each query's kc-th score, and the exact
+    top-kc with ties to the smaller row; no pad row returns; a rerun sweeps
+    only the overflowing queries, on the whole batch's layout, and no query
+    comes up short (the tile maxima are the emit sweep's bits: it would
+    raise)."""
+    q, c = _topk_inputs(B, N, D, n_valid, kind, B + N + D + kc)
+    assert emulated.dst_topk_route(q.data_ptr(), c.data_ptr(), n_valid, D, 0) == route
+    scores, rows, over, launches = _topk(emulated, q, c, n_valid, kc)
+    want_s, want_i = _want_topk(q, c, n_valid, kc)
+    assert torch.equal(scores, want_s) and torch.equal(rows, want_i)
+    plain_s, plain_i = mk.topk_candidates_plain(q, c, n_valid, kc)
+    assert torch.equal(scores, plain_s)
+    for b in range(B):  # the rows strictly above the kc-th: no tie to break
+        above = scores[b] > scores[b, -1]
+        assert set(rows[b][above].tolist()) == set(plain_i[b][plain_s[b] > plain_s[b, -1]].tolist())
+    assert (rows < n_valid).all()
+    if kind == "neg":  # the trap is live: the zero-filled rows would beat every score
+        assert (scores < 0).all() and N % 256
+    if kind == "padtop":  # the trap is live: every pad row beats every valid row
+        assert (q.double() @ c[n_valid:].double().T).min() > scores.max()
+    if kind == "dup":  # ties at theta: some query's kc-th score is also its (kc+1)-th
+        assert (want_s[:, -1] == _want_topk(q, c, n_valid, kc + 1)[0][:, -1]).any()
+    assert (over > 0) == overflow
+    if over:  # the rerun: the overflowing queries only, the first sweep's layout
+        assert launches[1][0] == over and launches[1][2] == B and launches[1][1] > launches[0][1]
+    if n_valid // 256 < kc:  # no threshold: every valid row a candidate
+        assert launches == [(B, n_valid, B)]
+
+
+# (B, N rows, D, n_valid, kc, kind, dtype, base offset in elements,
+# overflow) on the score tile (route 0): fp32 rows whose 16-fold ties at
+# theta overflow every query (the rerun: fewer queries, other places in the
+# 64-query tile); an odd D with pad rows past n_valid that would top every
+# query; bf16 rows of even D from a 2-byte aligned base (neither wgmma
+# route can address it) with every score negative, whose ties overflow
+# some queries too; fp32 with fewer than kc whole tiles
+TILE_TOPK_CASES = [
+    (70, 2048, 48, 2048, 6, "dup", torch.float32, 0, True),
+    (9, 2048, 101, 2000, 4, "padtop", torch.bfloat16, 0, False),
+    (7, 1500, 64, 1500, 5, "neg", torch.bfloat16, 1, True),
+    (5, 1280, 24, 1200, 8, "rand", torch.float32, 0, False),
+]
+
+
+@pytest.mark.parametrize("B,N,D,n_valid,kc,kind,dtype,offset,overflow", TILE_TOPK_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-v{c[3]}-kc{c[4]}-{c[5]}-{str(c[6])[6:]}"
+                              f"-at{c[7]}" for c in TILE_TOPK_CASES])
+def test_emulated_topk_candidates_on_the_score_tile_equal_plain(
+        emulated, B, N, D, n_valid, kc, kind, dtype, offset, overflow):
+    """fp32 rows, odd D and bases the wgmma routes cannot address take the
+    emit sweep on score_tile.cuh's tile with the tile maxima on the same
+    tile: the exact top-kc with ties to the smaller row, plain's scores, no
+    pad row, and a rerun of the overflowing queries counts as the first
+    sweep did (the sums do not depend on a query's place in the tile)."""
+    q, c = _topk_inputs(B, N, D, n_valid, kind, B + N + D + kc, dtype)
+    if offset:  # the same rows, `offset` elements into a buffer
+        buf = torch.zeros(N * D + offset, dtype=dtype)
+        buf[offset:] = c.flatten()
+        c = buf[offset:].view(N, D)
+        assert c.data_ptr() % 4 == 2
+    assert emulated.dst_topk_route(q.data_ptr(), c.data_ptr(), n_valid, D,
+                                   mk._KERNEL_DTYPES[dtype]) == 0
+    scores, rows, over, launches = _topk(emulated, q, c, n_valid, kc)
+    want_s, want_i = _want_topk(q, c, n_valid, kc)
+    assert torch.equal(scores, want_s) and torch.equal(rows, want_i)
+    assert torch.equal(scores, mk.topk_candidates_plain(q, c, n_valid, kc)[0])
+    if kind == "padtop":  # the trap is live: every pad row beats every valid row
+        assert (q.double() @ c[n_valid:].double().T).min() > scores.max()
+    if kind == "neg":
+        assert (scores < 0).all()
+    assert (over > 0) == overflow
+    if over:
+        assert launches[1][0] == over and launches[1][1] > launches[0][1]
+    if n_valid // 256 < kc:
+        assert launches == [(B, n_valid, B)]
+
+
+def test_emulated_topk_emit_refuses_bad_arguments(emulated):
+    """dst_topk_emit returns cudaErrorInvalidValue (1) on arguments out of
+    range and launches nothing: a dtype other than bf16 / fp32, n_valid
+    past N, cap 0, a layout batch below B."""
+    q, c = _topk_inputs(3, 512, 16, 512, "rand", 1)
+    theta = torch.zeros(3)
+    count, keys = torch.full((3,), -7, dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int64)
+    for n_valid, cap, layout_b, dtype in ((512, 8, 3, 2), (513, 8, 3, 0), (512, 0, 3, 0),
+                                          (512, 8, 2, 0), (0, 8, 3, 0)):
+        assert emulated.dst_topk_emit(q.data_ptr(), c.data_ptr(), theta.data_ptr(),
+                                      count.data_ptr(), keys.data_ptr(), 3, 512, n_valid, 16,
+                                      cap, layout_b, dtype, None) == 1
+    assert (count == -7).all() and (keys == 0).all()
+
+
+def test_emulated_topk_candidate_scores_are_the_count_kernels_bits(emulated):
+    """Random normal bf16 inputs (no ties): at the j-th candidate's score
+    as tau, dst_count_above counts exactly j rows above it, for every j <
+    kc: the emit sweep's sums are the count kernel's bits."""
+    B, N, D, kc = 9, 1536, 64, 4
+    rng = np.random.default_rng(31)
+    q, c = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+            for shape in ((B, D), (N, D)))
+    s = q.double() @ c.double().T
+    assert (torch.sort(s, dim=1).values.diff(dim=1) > 0).all()  # no ties
+    scores, rows, over, _ = _topk(emulated, q, c, N, kc)
+    assert over == 0
+    for j in range(kc):
+        out = torch.zeros(B, dtype=torch.int32)
+        tau = scores[:, j].contiguous()
+        assert emulated.dst_count_above(q.data_ptr(), c.data_ptr(), tau.data_ptr(),
+                                        out.data_ptr(), B, N, D, 0, None) == 0
+        assert torch.equal(out, torch.full((B,), j, dtype=torch.int32))
+    assert torch.equal(rows, torch.topk(s, kc, dim=1).indices)
