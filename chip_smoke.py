@@ -118,7 +118,9 @@ save, a resume and an export into encoding and retrieval. Phases:
      bracket elsewhere), maxima within MAX_REL of max |ref|, repeated calls
      the same bits; pass 1's row sets equal where the kc-th score is clear,
      its scores within MAX_REL of plain's and of their rows' fp32 sums, no
-     pad row, its steps timed apart (the fp32 case on the score tile); their
+     pad row, a call and calls queued, its steps (the select sweep, the
+     aggregation) timed apart, and also at SPLADE's width, B = 256 over
+     65,536 and 1,280 rows (the fp32 case on the score tile); their
      times beside the plain version, a cuBLAS yardstick
      (fp32-output products over 131,072-row chunks plus the reduction) and
      the bound (all three also queued behind a GPU sleep, with their share
@@ -135,7 +137,8 @@ save, a resume and an export into encoding and retrieval. Phases:
      ``fused``, ``approx`` and ``exact_sort`` over one built index; every
      method's DPR JSON equals a brute-force exact top-100 (``check_exact``),
      ``eval.qa_eval`` equals a recount with ``has_answers``, the
-     count_above, count_above_groups and groupmax counters must rise; then
+     count_above, count_above_groups and groupmax counters must rise and
+     tile_max's stay 0 (pass 1 on the wgmma routes sweeps once); then
      ``MipsIndex.benchmark`` times groupmax, and fused, auto and exact_sort
      with pass 1 on the kernel and on the plain version (``plain_pass1``)
      in one process, at B = 512 over the 2,097,152-row block; where fused's
@@ -2165,42 +2168,29 @@ def _mips_kernels():
 
 def _topk_split(q, corpus, n_valid, kc):
     """{step: (ms queued, ms single)} of topk_candidates' steps on the card
-    (device_ms, cuda_ms): the tile maxima and the threshold (torch.topk over
-    them; absent where fewer than kc tiles are whole), the emit sweep (its
-    entry point: the count memset and the sweep, launched here, so not
-    counted on the wrapper) and the aggregation (torch.topk over the keys
-    and their decode)."""
+    (device_ms, cuda_ms) on a wgmma route: the select sweep (its entry
+    point, launched here, so not counted on the wrapper) and the
+    aggregation (torch.topk over the parts' keys and their decode)."""
     import torch
 
     from dpr_scale_tpu_torch.ops import cuda_lib
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
     qd = q.to(corpus.dtype).contiguous()
-    B, D = qd.shape
-    tile = mk.topk_tile_rows(n_valid, kc)
-    ntiles, steps = n_valid // tile, {}
-    if ntiles >= kc:
-        rows = corpus[: ntiles * tile]
-        maxima = mk.tile_max_scores_kernel(qd, rows, tile)
-        steps["tile_max"] = lambda: mk.tile_max_scores_kernel(qd, rows, tile)
-        steps["threshold"] = lambda: torch.topk(maxima, kc, dim=1).values[:, kc - 1].contiguous()
-        theta, cap = steps["threshold"](), mk.TOPK_CAP * kc
-    else:
-        theta, cap = torch.full((B,), float("-inf"), device=q.device), max(n_valid, kc)
-    count = torch.empty((B,), dtype=torch.int32, device=q.device)
-    keys = torch.full((B, cap), mk._KEY_EMPTY, dtype=torch.int64, device=q.device)
+    (B, D), N = qd.shape, corpus.shape[0]
     lib = cuda_lib.library()
+    width = lib.dst_topk_select_width(N, n_valid, B, D, kc)
+    keys = torch.empty((B, width), dtype=torch.int64, device=q.device)
+    pub = torch.empty((B, 32), dtype=torch.int64, device=q.device)
 
-    def emit():
-        cuda_lib.check(lib.dst_topk_emit(
-            qd.data_ptr(), corpus.data_ptr(), theta.data_ptr(), count.data_ptr(), keys.data_ptr(),
-            B, corpus.shape[0], n_valid, D, cap, B, mk._KERNEL_DTYPES[corpus.dtype],
-            torch.cuda.current_stream().cuda_stream),
-            "topk emit")
+    def select():
+        cuda_lib.check(lib.dst_topk_select(
+            qd.data_ptr(), corpus.data_ptr(), keys.data_ptr(), pub.data_ptr(), B, N, n_valid,
+            D, kc, 0, torch.cuda.current_stream().cuda_stream), "topk select")
 
-    steps["emit"] = emit
-    emit()
-    steps["aggregate"] = lambda: mk._decode_keys(torch.topk(keys, kc, dim=1).values)
+    select()
+    steps = {"select": select,
+             "aggregate": lambda: mk._decode_keys(torch.topk(keys, kc, dim=1).values)}
     return {name: (device_ms(fn, calls=10), cuda_ms(fn)) for name, fn in steps.items()}
 
 
@@ -2246,6 +2236,14 @@ MIPS_CASES = (
 )
 
 
+# pass 1 at SPLADE's width (route 2), timed in phase 14 too: B = 256 over
+# 65,536 rows and over 1,280 (fewer than kc whole tiles)
+PASS1_WIDE_CASES = (
+    (256, 65536, 30522, "bfloat16", 4096, True),
+    (256, 1280, 30522, "bfloat16", 256, True),
+)
+
+
 def _top_scores(q, corpus, k):
     """(B, k) best scores, descending, of the queries cast to the corpus
     dtype, fp32 sums, chunk by chunk."""
@@ -2259,19 +2257,19 @@ def _top_scores(q, corpus, k):
     return best
 
 
-def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
+def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5, only=None, report=True):
     """Phase 14: count_above, groupmax, tile_max_scores and topk_candidates
-    (kc = TOPK_KC, the rows past N - 77 pads) against their plain versions
-    on ``dev`` for each case; the timed cases also time
-    kernel, plain version and yardstick (each the median of ``plain_reps``
-    calls). Returns each kernel's JSON entry
-    from the first timed case (times absent if none ran), max |err| over all
-    cases."""
+    (kc = TOPK_KC, the rows past N - 77 pads; ``only``: the names to run)
+    against their plain versions on ``dev`` for each case; the timed cases
+    also time kernel, plain version and yardstick (each the median of
+    ``plain_reps`` calls); ``report``: the sweeps' registers, shared memory
+    and SASS counts after. Returns each kernel's JSON entry from the first
+    timed case (times absent if none ran), max |err| over all cases."""
     import torch
 
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
-    kernels = _mips_kernels()
+    kernels = {n: k for n, k in _mips_kernels().items() if only is None or n in only}
     entries = {n: {"max_abs_err": 0.0} for n in kernels}
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     for case in cases:  # a 7th item: (queries, rows), a path's own vectors
@@ -2342,17 +2340,17 @@ def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
                 plain_ms = cuda_ms(lambda: plain(*args[name]), reps=plain_reps, warmup=1)
                 yard_ms = cuda_ms(lambda: yard(*args[name]), reps=plain_reps, warmup=1)
                 timing = {"ms": ms}
-                if name == "topk_candidates":  # a whole call syncs once: single calls, and
-                    # each step queued
+                if name == "topk_candidates":  # a call, calls queued, and each step
                     split = _topk_split(q, corpus, n_valid, TOPK_KC)
-                    timing["queued_ms"] = sum(queued for queued, _single in split.values())
+                    timing["queued_ms"] = device_ms(lambda: kernel(*args[name]), calls=10)
                     timing["split_ms"] = {k: {"queued": a, "single": b}
                                           for k, (a, b) in split.items()}
                     timing["yardstick_ms"] = yard_ms
-                    print(f"{name} ({what}): kernel {ms:.4f} ms a call (its one sync included), "
-                          f"steps queued {timing['queued_ms']:.4f} ms = {b_ms / timing['queued_ms']:.1%} "
-                          f"of its bound: " + ", ".join(f"{k} {a:.4f} ({b:.4f} single)"
-                                                        for k, (a, b) in split.items()))
+                    print(f"{name} ({what}): kernel {ms:.4f} ms a call, "
+                          f"{timing['queued_ms']:.4f} ms queued = "
+                          f"{b_ms / timing['queued_ms']:.1%} of its bound; its steps: "
+                          + ", ".join(f"{k} {a:.4f} ({b:.4f} single)"
+                                      for k, (a, b) in split.items()))
                 if name in ("groupmax", "count_above", "tile_max_scores"):  # redesigned: queued too
                     timing = {"ms": device_ms(lambda: kernel(*args[name]), calls=10),
                               "single_ms": ms}
@@ -2367,13 +2365,17 @@ def phase_mips_kernels(dev, cases=MIPS_CASES, plain_reps=5):
         del corpus, q, tau
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    if dev.type == "cuda":
+    if dev.type == "cuda" and report:
         for prefix, smem in (("groupmax_wgmma_kernel", "dst_bf16_sweep_smem"),
                              ("count_above_wgmma_kernel", "dst_bf16_sweep_smem"),
                              ("tile_max_wgmma_kernel", "dst_tile_max_smem")):
             print(sweep_build_report(prefix, prefix.replace("_kernel", "").replace("_", " "),
                                      lambda lib: {f"B={B}": getattr(lib, smem)(B)
                                                   for B in (512, 64)}))
+        print(sweep_build_report("topk_select_wgmma_kernel", "topk select wgmma",
+                                 lambda lib: {f"B={B} D={D}": lib.dst_topk_select_smem(B, D)
+                                              for B, D in ((512, MIPS_DIM), (64, MIPS_DIM),
+                                                           (256, SPLADE_D))}))
     return entries
 
 
@@ -2502,12 +2504,15 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     print("qa_eval on the groupmax run: " + ", ".join(f"top-{c} {np.mean(acc[c]):.4f}" for c in cuts)
           + " (random weights), equal to a recount with has_answers")
     print(f"retrieval-path launches: {launches}")
-    if min(launches.values()) < 1:
+    if min(n for name, n in launches.items() if name != "tile_max_scores") < 1:
         raise AssertionError(f"a kernel of the retrieval path never launched: {launches}")
+    if launches["tile_max_scores"]:  # pass 1 on the wgmma routes sweeps once: no tile maxima
+        raise AssertionError(f"pass 1 launched tile_max on a wgmma route: {launches}")
     print(f"pass 1 (topk_candidates) over the CLI runs and retrieve(): launches by route {pass1}, "
           f"{pass1_reruns} queries swept again for overflow")
     if pass1["score_tile"] or pass1["wgmma_cp_async"] or not pass1["wgmma"]:
         raise AssertionError(f"a pass 1 of the retrieval path left the kernel route: {pass1}")
+    launches.update({f"topk_candidates {r}": pass1[r] for r in PASS1_ROUTES})
 
     # ---- benchmark(): the methods over the 2,097,152-row block ----
     blk, n_valid, _off = max(index._blocks, key=lambda b: b[0].shape[0])
@@ -2553,7 +2558,9 @@ def phase_retrieval_cli(work, dev, n_rows=MIPS_ROWS, n_encoded=4096,
     print(f"launches by route over the phase (CLI runs, retrieve(), benchmark, profile): {routes}; "
           f"pass 1 {({r: n - routes0[r] for r, n in topk.launches_by_route.items()})}, "
           f"{topk.overflow_reruns - over0} overflow reruns")
-    if any(r["score_tile"] or r["wgmma_cp_async"] or not r["wgmma"] for r in routes.values()):
+    # tile_max has no launch here: pass 1 on the wgmma routes sweeps once
+    if any(r["score_tile"] or r["wgmma_cp_async"] or (name != "tile_max_scores" and not r["wgmma"])
+           for name, r in routes.items()):
         raise AssertionError(f"a sweep of the retrieval path did not take the TMA-fed wgmma "
                              f"kernel: {routes}")
     return launches
@@ -4061,6 +4068,34 @@ TUNE_QUESTIONS = 256
 SERVE_QUESTIONS = 40
 
 
+class _Pass1Route:
+    """topk_candidates' launches on one route as a counter the phases set to
+    0 before a run and read after (``launches``)."""
+
+    def __init__(self, route):
+        self.route = route
+
+    @property
+    def launches(self):
+        from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+        return mk.topk_candidates_kernel.launches_by_route[self.route]
+
+    @launches.setter
+    def launches(self, n):
+        from dpr_scale_tpu_torch.ops import mips_kernels as mk
+
+        mk.topk_candidates_kernel.launches_by_route[self.route] = n
+
+
+PASS1_ROUTES = ("wgmma", "wgmma_cp_async")  # pass 1's one-sweep routes
+
+
+def _pass1_counters():
+    """{name: (counter, attribute)} of pass 1's launches by wgmma route."""
+    return {f"topk_candidates {r}": (_Pass1Route(r), "launches") for r in PASS1_ROUTES}
+
+
 def _rest_counters():
     """{name: (wrapper object, count attribute)} of phase 21's kernels."""
     from dpr_scale_tpu_torch.ops import attention, ffn
@@ -4074,7 +4109,7 @@ def _rest_counters():
             "count_above": (mk.count_above_kernel, "launches"),
             "groupmax": (mk.groupmax_kernel, "launches"),
             "tile_max_scores": (mk.tile_max_scores_kernel, "launches"),
-            "topk_candidates": (mk.topk_candidates_kernel, "launches")}
+            "topk_candidates": (mk.topk_candidates_kernel, "launches"), **_pass1_counters()}
 
 
 class _RestRuns:
@@ -4659,7 +4694,7 @@ def _scale_counters():
             "groupmax": (mk.groupmax_kernel, "launches"),
             "tile_max_scores": (mk.tile_max_scores_kernel, "launches"),
             "topk_candidates": (mk.topk_candidates_kernel, "launches"),
-            "int_groupmax": (ik.int_groupmax_kernel, "launches")}
+            "int_groupmax": (ik.int_groupmax_kernel, "launches"), **_pass1_counters()}
 
 
 def _search_all(index, q, batch, k):
@@ -5325,6 +5360,10 @@ def main():
         citadel_launches[name] = citadel_launches.get(name, 0) + n
     torch.cuda.empty_cache()
     mips = phase_mips_kernels(torch.device("cuda", 0))
+    mips["topk_candidates"]["shapes"] = [
+        {"shape": f"B={c[0]} N={c[1]} D={c[2]} bf16", **phase_mips_kernels(
+            torch.device("cuda", 0), cases=(c,), plain_reps=2, only=("topk_candidates",),
+            report=False)["topk_candidates"]} for c in PASS1_WIDE_CASES]
     wall("mips kernels")
     from dpr_scale_tpu_torch.ops.mips_kernels import topk_candidates_kernel
 
@@ -5381,9 +5420,11 @@ def main():
     from dpr_scale_tpu_torch.ops import mips_kernels as mk
 
     topk = mk.topk_candidates_kernel
-    print(f"pass 1 over the script: launches by route {topk.launches_by_route} ({pass1_tile} "
-          f"of them on the score tile up to phase 14: its fp32 case), "
-          f"{topk.overflow_reruns} queries swept again for overflow")
+    main_routes = {r: sum(d.get(f"topk_candidates {r}", 0) for d in (
+        retrieval_launches, rest_launches, scale_launches, ep_launches)) for r in PASS1_ROUTES}
+    print(f"pass 1 on the main path (phases 15, 21-23): launches by route {main_routes}; on the "
+          f"score tile over the script {topk.launches_by_route['score_tile']} (phase 14's fp32 "
+          f"case: {pass1_tile}), {topk.overflow_reruns} queries swept again for overflow there")
     if topk.launches_by_route["score_tile"] != pass1_tile:
         raise AssertionError("a pass 1 after phase 14 took the score tile, not the wgmma loop: "
                              f"{topk.launches_by_route}, phase 14's {pass1_tile}")
@@ -5441,8 +5482,10 @@ def main():
         entry["launches"] += (rest_launches.get(name, 0) + scale_launches.get(name, 0)
                               + ep_launches.get(name, 0))
         held = rest_shapes.get(name, []) + scale_shapes.get(name, []) + ep_shapes.get(name, [])
+        if name == "topk_candidates":
+            entry["launches_by_route"] = main_routes
         if held:
-            entry["shapes"] = held
+            entry["shapes"] = entry.get("shapes", []) + held
             entry["max_abs_err"] = max(entry["max_abs_err"], *(e["max_abs_err"] for e in held))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 // The common frame of the wgmma sweeps over a corpus: mips_scan.cu's bf16
 // groupmax, count_above and tile_max, count_groups.cu's bf16
-// count_above_groups and int_scan.cu's int8 / int4 int_groupmax and
-// int8_tile_max.  A block of 384 threads owns QM queries and a span of
+// count_above_groups, topk_sweep.cu's pass-1 select and int_scan.cu's int8
+// / int4 int_groupmax and int8_tile_max.  A block of 384 threads owns QM queries and a span of
 // corpus rows, walked in TILE-row tiles.  A producer fills a ring of full /
 // empty mbarriers, which runs on across the span's tiles, with a tile's
 // corpus rows and the block's query rows, one 128-byte slice of each row a
@@ -233,10 +233,11 @@ constexpr size_t bf16_smem(int extra = 0) {
   return smem_bytes(BF16_STAGES<QM>, BF16_STAGE<QM>, extra);
 }
 
-// the extra bytes of a bf16 sweep block launched with them
-template <int QM>
+// the extra bytes of a bf16 sweep block launched with them (on a ring of
+// STAGES stages)
+template <int QM, int STAGES = BF16_STAGES<QM>>
 __device__ __forceinline__ unsigned char* bf16_extra() {
-  return aligned_smem() + BF16_STAGES<QM> * BF16_STAGE<QM> + 2 * BF16_STAGES<QM> * 8;
+  return aligned_smem() + STAGES * BF16_STAGE<QM> + 2 * STAGES * 8;
 }
 
 // The span of a groupmax or count block: SPAN rows where the grid of
@@ -269,10 +270,10 @@ inline cudaError_t fill_span(long long N, int nqt, long long* span) {
 // Launches kernel(ring, args..., B, D, N, nqt, span), a bf16 sweep of QM
 // queries a block over spans of `span` rows (a multiple of TILE) fed by
 // the producer CP selects (Ring<CP>), with `extra` bytes of shared memory
-// past the ring; block b takes query tile b % nqt and span b / nqt, so the
-// query tiles of one span run together and read its rows from L2.
-// Returns the failed encode's or the launch's code.
-template <int QM, bool CP, typename Kernel, typename... Args>
+// past a ring of STAGES stages; block b takes query tile b % nqt and span
+// b / nqt, so the query tiles of one span run together and read its rows
+// from L2.  Returns the failed encode's or the launch's code.
+template <int QM, bool CP, int STAGES = BF16_STAGES<QM>, typename Kernel, typename... Args>
 int launch_bf16_spans(Kernel kernel, long long span, int extra, const void* q,
                       const void* corpus, int B, long long N, int D, cudaStream_t stream,
                       Args... args) {
@@ -288,8 +289,9 @@ int launch_bf16_spans(Kernel kernel, long long span, int extra, const void* q,
     if (err == cudaSuccess) err = make_tmap(&ring.c, corpus, N, D, TILE, 64);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch(kernel, dim3((unsigned)blocks), THREADS, bf16_smem<QM>(extra), stream, ring,
-                     args..., B, D, N, nqt, span);
+  return (int)launch(kernel, dim3((unsigned)blocks), THREADS,
+                     smem_bytes(STAGES, BF16_STAGE<QM>, extra), stream, ring, args..., B, D, N,
+                     nqt, span);
 }
 
 // the same over fill_span's spans with no extra bytes (groupmax and the counts)
@@ -360,12 +362,12 @@ __device__ __forceinline__ void cp_rows(uint32_t seg, const unsigned char* src, 
 // 4 bytes a copy (zero past D, N and B), and each thread ends it with a
 // .noinc arrival on full[s], which lands once its copies have (full[s]
 // counts 128 arrivals and no transaction bytes).
-template <int QM>
+template <int QM, int STAGES = BF16_STAGES<QM>>
 __device__ __forceinline__ void cp_produce(const CpRing& ring, unsigned char* smem,
                                            uint64_t* full, uint64_t* empty, int B, int D,
                                            long long N, int q0, long long row0, int tiles, int KT,
                                            int t) {
-  constexpr int STAGE = BF16_STAGE<QM>, STAGES = BF16_STAGES<QM>;
+  constexpr int STAGE = BF16_STAGE<QM>;
   const long long pitch = 2LL * D;
   const int ub = t % (SLICE / 4) * 4;  // this thread's byte of each row slice
   const uint32_t base = smem_addr(smem);
@@ -393,13 +395,14 @@ __device__ __forceinline__ void cp_produce(const CpRing& ring, unsigned char* sm
 // the tile.  Past PROMOTE_D (QM = 64 only) each stage's products start
 // from zero and retire before their sums join the running scores: the ring
 // still prefetches, but a warpgroup no longer issues the next stage while
-// the last one runs.  Returns false in the producer warpgroup, true in the
-// consumers after the span.
-template <int QM, bool CP, typename Epilogue>
+// the last one runs.  The ring holds STAGES stages (fewer than
+// BF16_STAGES<QM> where a kernel keeps more past it).  Returns false in the
+// producer warpgroup, true in the consumers after the span.
+template <int QM, bool CP, int STAGES = BF16_STAGES<QM>, typename Epilogue>
 __device__ __forceinline__ bool bf16_sweep(const Ring<CP>& ring, int B, int D, long long N,
                                            int nqt, long long span, Epilogue&& epilogue) {
   using L = Layout<QM>;
-  constexpr int STAGE = BF16_STAGE<QM>, STAGES = BF16_STAGES<QM>;
+  constexpr int STAGE = BF16_STAGE<QM>;
   unsigned char* smem = aligned_smem();
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
@@ -413,7 +416,7 @@ __device__ __forceinline__ bool bf16_sweep(const Ring<CP>& ring, int B, int D, l
     setmaxnreg_dec<40>();
     if constexpr (CP) {
       // ---- producer: the warpgroup's 128 threads copy each stage ----
-      cp_produce<QM>(ring, smem, full, empty, B, D, N, q0, row0, tiles, KT, t);
+      cp_produce<QM, STAGES>(ring, smem, full, empty, B, D, N, q0, row0, tiles, KT, t);
     } else if (t == 0) {
       // ---- producer: one thread keeps the ring's loads in flight ----
       for (int it = 0; it < tiles * KT; ++it) {

@@ -258,6 +258,50 @@ class TransformerLayer(nn.Module):
         return self.output_ln(x + ffn.view(B, L, H))
 
 
+class _OneHotRows(torch.autograd.Function):
+    """``F.embedding(ids, weight)`` whose weight gradient is the product of
+    the ids' one-hot rows over the table's first ``rows`` rows (the ids lie
+    below it) with the output's gradient, a deterministic sum. On a card
+    ``nn.Embedding``'s backward sums the gradients of a row that many ids
+    repeat (every position of a batch, the one token type) in an order that
+    varies from run to run, so two runs of one training step part by an ulp
+    there, and a near-tie downstream (the CITADEL router's top-1 expert)
+    can make that a different step."""
+
+    @staticmethod
+    def forward(ctx, weight, ids, rows):
+        ctx.save_for_backward(ids)
+        ctx.table, ctx.rows = weight.shape, rows
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return one_hot_rows_grad(grad, ids, ctx.table, ctx.rows), None, None
+
+
+def one_hot_rows_grad(grad, ids, table, rows: int):
+    """The weight gradient of ``F.embedding(ids, weight)`` for a ``table``
+    (V, H) weight whose ids all lie below ``rows``: each row's sum of its
+    ids' output gradients, as one fp32 product with the one-hot matrix of
+    the ids (built by comparison: no read back to the host)."""
+    V, H = table
+    flat = ids.reshape(-1)
+    one_hot = (flat[:, None] == torch.arange(rows, device=flat.device)).to(grad.dtype)
+    out = grad.new_zeros(V, H)
+    out[:rows] = one_hot.T @ grad.reshape(-1, H)
+    return out
+
+
+def embed_rows(table: nn.Embedding, ids, rows: int):
+    """``table(ids)`` for ids below ``rows``: on a card through
+    :class:`_OneHotRows` (a deterministic weight gradient), elsewhere
+    ``nn.Embedding`` itself (its CPU backward is deterministic)."""
+    if table.weight.is_cuda and torch.is_grad_enabled() and table.weight.requires_grad:
+        return _OneHotRows.apply(table.weight, ids, min(rows, table.weight.shape[0]))
+    return table(ids)
+
+
 def _run_layer(layer: TransformerLayer, x, attn_bias, rng: Optional[DropoutRng], i: int):
     """Layer ``i`` on its own fold of ``rng``, made here so that remat's
     recompute of this call rebuilds the same generators."""
@@ -303,9 +347,12 @@ class TransformerEncoder(nn.Module):
             pos_ids = torch.arange(L, device=input_ids.device).expand(B, L)
         # fp32 rows gathered then cast: the values of Flax's cast-then-take
         x = self.word_embeddings(input_ids).to(cfg.dtype)
-        x = x + self.position_embeddings(pos_ids).to(cfg.dtype)
+        # the position and token-type rows every sequence repeats: their
+        # gradients summed deterministically on a card (_OneHotRows)
+        x = x + embed_rows(self.position_embeddings, pos_ids, L + cfg.position_offset).to(cfg.dtype)
         if cfg.type_vocab_size > 0:
-            x = x + self.token_type_embeddings(torch.zeros_like(input_ids)).to(cfg.dtype)
+            x = x + embed_rows(self.token_type_embeddings, torch.zeros_like(input_ids), 1).to(
+                cfg.dtype)
         x = dropout(self.embeddings_ln(x), cfg.hidden_dropout, fold(rng, 0))
         # additive key bias (B, 1, L): 0 keep, -1e9 drop
         attn_bias = (1.0 - attention_mask.float())[:, None, :] * -1e9

@@ -43,6 +43,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-shared", "-cudart", "shared")
+# the suffixes of the entry points that launch nothing: host-side queries
+HOST_QUERIES = ("_route", "_smem", "_span", "_width")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -161,8 +163,14 @@ def library() -> ctypes.CDLL:
             lib.dst_tile_max_route.restype = i
             lib.dst_tile_max_smem.argtypes = [i]
             lib.dst_tile_max_smem.restype = ll
-            lib.dst_topk_emit.argtypes = [p] * 5 + [i, ll, ll, i, i, i, i, p]
+            lib.dst_topk_emit.argtypes = [p] * 5 + [i, ll, ll, i, i, i, p]
             lib.dst_topk_emit.restype = i
+            lib.dst_topk_select.argtypes = [p] * 4 + [i, ll, ll, i, i, i, p]
+            lib.dst_topk_select.restype = i
+            lib.dst_topk_select_width.argtypes = [ll, ll, i, i, i]
+            lib.dst_topk_select_width.restype = ll
+            lib.dst_topk_select_smem.argtypes = [i, i]
+            lib.dst_topk_select_smem.restype = ll
             lib.dst_topk_route.argtypes = [p, p, ll, i, i]
             lib.dst_topk_route.restype = i
             lib.dst_int_groupmax.argtypes = [p] * 6 + [i, ll, i, i, i, f, p]
@@ -218,7 +226,7 @@ class _TimedLibrary:
         import torch
 
         fn = getattr(self._lib, name)
-        if name.endswith(("_route", "_smem")):  # queries of the host side: no launch
+        if name.endswith(HOST_QUERIES):  # no launch
             return fn
 
         def timed(*args):

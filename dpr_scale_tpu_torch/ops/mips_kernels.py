@@ -15,7 +15,7 @@ dtype, sums the products in fp32 and returns the JAX function's layout:
   N % 128 == 0: the sweep of ``method="groupmax"`` (``csrc/mips_scan.cu``);
 * :func:`tile_max_scores` ``(B, N // tile)`` fp32 — the max score of each
   ``tile``-row corpus tile, N % tile == 0 (``csrc/mips_scan.cu``): the
-  threshold step of :func:`topk_candidates`;
+  threshold step of :func:`topk_candidates` on the score tile;
 * :func:`topk_candidates` ``(scores (B, kc) fp32 descending, rows (B, kc)
   int64)`` — the exact top-kc rows below ``n_valid`` of each query, missing
   entries ``NEG_INF`` / -1: pass 1 of the fused, auto, approx and
@@ -35,7 +35,8 @@ cp.async where D is even and the bases 4-byte aligned ("wgmma_cp_async",
 SPLADE's D = 30,522), and the older score-tile kernel on every other shape
 (fp32, odd D), chosen by shape in the C entry point; ``.launches_by_route``
 counts each route (:data:`ROUTES`); :func:`topk_candidates` takes the same
-three routes.
+three routes: one select sweep on the two wgmma routes, the tile maxima
+and an emit sweep on the score tile.
 """
 from __future__ import annotations
 
@@ -302,10 +303,10 @@ def tile_max_scores(queries, corpus, tile: int = TILE_ROWS):
 # the top-kc rows of each query (pass 1 of fused, auto, approx, exact_sort)
 
 NEG_INF = -1e30  # the score of a missing candidate (a large finite -inf)
-TOPK_CAP = 4  # emit-sweep slots a query, in multiples of kc
-TOPK_TILES = 4  # whole tiles the threshold's tile is cut to give, in multiples of kc
-TOPK_TILE_MAX = 4096  # the largest tile of the threshold's maxima
-_KEY_EMPTY = -(2**63)  # an empty slot of the emit sweep's keys, below every candidate's
+TOPK_CAP = 4  # the score tile's emit-sweep slots a query, in multiples of kc
+TOPK_TILES = 4  # whole tiles the score tile's threshold tile is cut to give, in multiples of kc
+TOPK_TILE_MAX = 4096  # the largest tile of the score tile's threshold maxima
+_KEY_EMPTY = -(2**63)  # an empty slot of the sweeps' keys, below every candidate's
 
 
 def _check_topk(queries, corpus, n_valid, kc):
@@ -363,29 +364,30 @@ def _decode_keys(keys):
 
 
 def _topk_sweeps(queries, corpus, n_valid, kc, tile_max, emit):
-    """The kernel's steps on the queries (cast to the corpus dtype, 16-byte
-    aligned) and the corpus, with the sweeps launched by ``tile_max(q,
-    rows, tile)`` -> (B, rows // tile) fp32 maxima and ``emit(q, theta,
-    cap, layout_b)`` -> (count (B,) int32, keys (B, cap) int64). The threshold theta is the
-    kc-th largest maximum of the wholly valid tiles; the emit sweep writes
-    each score >= theta as a key and ``torch.topk`` over the keys keeps the
-    best kc. Where fewer than kc tiles are whole, theta is -inf and every
-    valid row a candidate, each in its own slot (cap >= n_valid: no count,
-    no rerun). A query whose count passed ``cap`` is swept again with a
-    buffer of its count. Each tile maximum is a row's score in the emit
-    sweep's bits, so every query counts at least kc rows; one that counts
-    fewer raises. Returns (scores, rows, the queries swept again)."""
+    """Pass 1 on the score tile (route 0) in its steps, on the queries (cast
+    to the corpus dtype) and the corpus, with the sweeps launched by
+    ``tile_max(q, rows, tile)`` -> (B, rows // tile) fp32 maxima and
+    ``emit(q, theta, cap)`` -> (count (B,) int32, keys (B, cap) int64). The
+    threshold theta is the kc-th largest maximum of the wholly valid tiles;
+    the emit sweep writes each score >= theta as a key and ``torch.topk``
+    over the keys keeps the best kc. Where fewer than kc tiles are whole,
+    theta is -inf and every valid row a candidate, each in its own slot (cap
+    >= n_valid: no count, no rerun). A query whose count passed ``cap`` is
+    swept again with a buffer of its count. Each tile maximum is a row's
+    score in the emit sweep's bits, so every query counts at least kc rows;
+    one that counts fewer raises. Returns (scores, rows, the queries swept
+    again)."""
     B = queries.shape[0]
     tile = topk_tile_rows(n_valid, kc)
     ntiles = n_valid // tile
     if ntiles < kc:
         theta = torch.full((B,), float("-inf"), device=corpus.device)
-        _count, keys = emit(queries, theta, max(n_valid, kc), B)
+        _count, keys = emit(queries, theta, max(n_valid, kc))
         return (*_decode_keys(torch.topk(keys, kc, dim=1).values), 0)
     maxima = tile_max(queries, corpus[: ntiles * tile], tile)
     theta = torch.topk(maxima, kc, dim=1).values[:, kc - 1].contiguous()
     cap = TOPK_CAP * kc
-    count, keys = emit(queries, theta, cap, B)
+    count, keys = emit(queries, theta, cap)
     scores, rows = _decode_keys(torch.topk(keys, kc, dim=1).values)
     count = count.cpu()  # the one sync: the reruns' sizes
     if (count < kc).any():
@@ -395,7 +397,7 @@ def _topk_sweeps(queries, corpus, n_valid, kc, tile_max, emit):
     if len(redo):
         cap_r = int(count[redo].max())
         idx = redo.to(corpus.device)
-        count_r, keys_r = emit(queries[idx].contiguous(), theta[idx].contiguous(), cap_r, B)
+        count_r, keys_r = emit(queries[idx].contiguous(), theta[idx].contiguous(), cap_r)
         # the same bits: the same counts (below n_valid slots; past them a slot a row)
         if cap_r < n_valid and not torch.equal(count_r.cpu(), count[redo]):
             raise RuntimeError(f"topk_candidates: a rerun counted {count_r.tolist()} rows, "
@@ -404,13 +406,25 @@ def _topk_sweeps(queries, corpus, n_valid, kc, tile_max, emit):
     return scores, rows, len(redo)
 
 
+def topk_select(queries, kc: int, select):
+    """Pass 1 on the wgmma routes (1, 2): ``select(q)`` launches
+    ``csrc/topk_sweep.cu``'s one sweep and returns its keys (B, width)
+    int64, each part's sorted best kc; ``torch.topk`` over them keeps each
+    query's best kc. No host sync, no rerun. Returns (scores, rows)."""
+    return _decode_keys(torch.topk(select(queries), kc, dim=1).values)
+
+
 def topk_candidates_kernel(queries, corpus, n_valid: int, kc: int):
-    """Launch ``csrc/mips_scan.cu``'s tile maxima and ``csrc/topk_sweep.cu``'s
-    emit sweep on the current CUDA stream (:func:`_topk_sweeps`), on the
-    route ``dst_topk_route`` gives the shape. ``.launches`` counts the emit
-    sweep's launches (the tile maxima count on
-    :func:`tile_max_scores_kernel`), ``.overflow_reruns`` the queries swept
-    again."""
+    """Pass 1 on the current CUDA stream, on the design ``dst_topk_route``
+    gives the shape: on bf16 rows of even D (routes ``wgmma`` /
+    ``wgmma_cp_async``) ``csrc/topk_sweep.cu``'s select sweep, one read of
+    the corpus with each part's top kc kept on the card, then ``torch.topk``
+    over the parts' keys (:func:`topk_select`); on every other shape
+    (``score_tile``) the tile maxima, a threshold and the emit sweep
+    (:func:`_topk_sweeps`, which reads the counts back once). ``.launches``
+    counts the select and emit sweeps (the score tile's maxima count on
+    :func:`tile_max_scores_kernel`), ``.overflow_reruns`` the queries the
+    score tile's emit swept again."""
     from dpr_scale_tpu_torch.ops import cuda_lib
 
     _check_topk(queries, corpus, n_valid, kc)
@@ -429,16 +443,34 @@ def topk_candidates_kernel(queries, corpus, n_valid: int, kc: int):
         stream = torch.cuda.current_stream().cuda_stream
         route = ROUTES[lib.dst_topk_route(q.data_ptr(), corpus.data_ptr(), N, D, dtype)]
 
-        def emit(qs, theta, cap, layout_b):
+        def launched():
+            topk_candidates_kernel.launches += 1
+            topk_candidates_kernel.launches_by_route[route] += 1
+
+        if route != "score_tile":
+            def select(qs):
+                width = lib.dst_topk_select_width(N, n_valid, B, D, kc)
+                if width < 0:
+                    cuda_lib.check(-width, "topk_candidates")
+                keys = torch.empty((B, width), dtype=torch.int64, device=corpus.device)
+                pub = torch.empty((B, 32), dtype=torch.int64, device=corpus.device)
+                cuda_lib.check(lib.dst_topk_select(qs.data_ptr(), corpus.data_ptr(),
+                                                   keys.data_ptr(), pub.data_ptr(), B, N,
+                                                   n_valid, D, kc, dtype, stream),
+                               "topk_candidates")
+                launched()
+                return keys
+
+            return topk_select(q, kc, select)
+
+        def emit(qs, theta, cap):
             count = torch.empty((qs.shape[0],), dtype=torch.int32, device=corpus.device)
             keys = torch.full((qs.shape[0], cap), _KEY_EMPTY, dtype=torch.int64,
                               device=corpus.device)
-            rc = lib.dst_topk_emit(qs.data_ptr(), corpus.data_ptr(), theta.data_ptr(),
-                                   count.data_ptr(), keys.data_ptr(), qs.shape[0], N, n_valid,
-                                   D, cap, layout_b, dtype, stream)
-            cuda_lib.check(rc, "topk_candidates")
-            topk_candidates_kernel.launches += 1
-            topk_candidates_kernel.launches_by_route[route] += 1
+            cuda_lib.check(lib.dst_topk_emit(qs.data_ptr(), corpus.data_ptr(), theta.data_ptr(),
+                                             count.data_ptr(), keys.data_ptr(), qs.shape[0], N,
+                                             n_valid, D, cap, dtype, stream), "topk_candidates")
+            launched()
             return count, keys
 
         scores, rows, reruns = _topk_sweeps(q, corpus, n_valid, kc, tile_max_scores_kernel, emit)

@@ -23,7 +23,10 @@ the package has the bulk-copy ring, the pipelined kernel at ring stages of
 16, 32 and 64 KB. Prints one JSON object: the package it timed, the
 card's name and power limit, the results (times in ms).
 
-``--sweeps-only`` times the four bf16 sweeps alone, and ``--dims 768 1536``
+Pass 1 (``topk_candidates``, kc = 128) is timed beside the sweeps, a call
+and queued calls, at each batch and width.
+
+``--sweeps-only`` times the four bf16 sweeps and pass 1 alone, and ``--dims 768 1536``
 times them over a 2,097,152-row block of each width (the keys of a width
 other than 768 name it). For the widths other than 768, ``--rows`` sets the
 blocks' rows (one block of each; keys other than 2,097,152 rows name them)
@@ -74,6 +77,7 @@ ROWS, DIM, CHUNK = 1 << 21, 768, 131072
 # chip_smoke.CITADEL_PLAN: (bucket rows, experts) of the 8.8M-doc layout
 CITADEL_PLAN = ((512, 8000), (2048, 3000), (8192, 800), (32768, 100), (131072, 8))
 CITADEL_TOKENS, CITADEL_DIM = 4096, 32
+TOPK_KC = 128  # pass 1's depth: the fused search's kc
 
 
 def queued_ms(fn, calls=10, reps=3):
@@ -170,12 +174,16 @@ def bench_int(dev, g, corpus):
 
 
 def bench_bf16(dev, g, corpus, res, tag="", batches=(512, 64)):
-    """The four bf16 sweeps over ``corpus`` at each batch, queued; their
-    launches by route under ``routes<tag>``."""
+    """The four bf16 sweeps over ``corpus`` at each batch, queued, and pass
+    1 (``topk_candidates``, kc = TOPK_KC over the rows but the last 77): a
+    call between CUDA events and calls queued (a pass 1 that reads counts
+    back to the host stalls the queue: its queued time holds the stall);
+    their launches by route under ``routes<tag>``."""
     N = corpus.shape[0]
     tile = mk.TILE_ROWS if N % mk.TILE_ROWS == 0 else 256
     kernels = {name: getattr(mk, f"{name}_kernel")
-               for name in ("count_above_groups", "count_above", "groupmax", "tile_max_scores")}
+               for name in ("count_above_groups", "count_above", "groupmax", "tile_max_scores",
+                            "topk_candidates")}
     before = {name: dict(k.launches_by_route) for name, k in kernels.items()}
     for B in batches:
         q = torch.randn(B, corpus.shape[1], generator=g, device=dev).to(torch.bfloat16)
@@ -186,6 +194,9 @@ def bench_bf16(dev, g, corpus, res, tag="", batches=(512, 64)):
         res[f"groupmax B={B}{tag}"] = queued_ms(lambda: mk.groupmax_kernel(q, corpus))
         res[f"tile_max_scores B={B}{tag}"] = queued_ms(
             lambda: mk.tile_max_scores_kernel(q, corpus, tile))
+        pass1 = lambda: mk.topk_candidates_kernel(q, corpus, N - 77, TOPK_KC)  # noqa: E731
+        res[f"topk_candidates B={B}{tag}"] = events_ms(pass1)
+        res[f"topk_candidates queued B={B}{tag}"] = queued_ms(pass1)
     res[f"routes{tag or f' D={corpus.shape[1]}'}"] = {
         name: {r: n - before[name][r] for r, n in k.launches_by_route.items() if n > before[name][r]}
         for name, k in kernels.items()}

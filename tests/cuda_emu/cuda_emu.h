@@ -30,6 +30,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __restrict__ __restrict
@@ -69,6 +70,10 @@ inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int x, int y) { return {x, y}; }
 inline float __int_as_float(int x) {
   float f;
   std::memcpy(&f, &x, 4);
@@ -82,6 +87,8 @@ inline unsigned __vsub4(unsigned a, unsigned b) {
 }
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
+template <typename T>
+inline T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> a(*p);
@@ -136,6 +143,7 @@ struct EmuWarp {
   uint32_t a[32][4], b[32][2];
   float f[32];
   int i[32];
+  long long ll[32];
 };
 // bar.sync id, count: one barrier per id, made by its first caller
 struct EmuNamedBars {
@@ -188,6 +196,26 @@ inline int __shfl_xor_sync(unsigned, int x, int mask) {
   w.i[emu_lane()] = x;
   w.bar.arrive_and_wait();
   const int r = w.i[emu_lane() ^ mask];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+inline long long __shfl_xor_sync(unsigned, long long x, int mask) {
+  EmuWarp& w = emu_warp();
+  w.ll[emu_lane()] = x;
+  w.bar.arrive_and_wait();
+  const long long r = w.ll[emu_lane() ^ mask];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+// nonzero in every lane where some lane's pred is
+inline int __any_sync(unsigned, int pred) {
+  EmuWarp& w = emu_warp();
+  w.i[emu_lane()] = pred != 0;
+  w.bar.arrive_and_wait();
+  int r = 0;
+  for (int l = 0; l < 32; ++l) r |= w.i[l];
   w.bar.arrive_and_wait();
   return r;
 }

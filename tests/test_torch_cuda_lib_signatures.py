@@ -52,3 +52,14 @@ def test_every_entry_point_has_a_prototype():
 @pytest.mark.parametrize("name", sorted(PROTOTYPES))
 def test_prototype_counts_the_c_parameters(name):
     assert PROTOTYPES[name] == _c_functions()[name]
+
+
+def test_every_launching_entry_point_has_a_profile_class():
+    """``cuda_lib.timed_launches`` times every entry point but the host-side
+    queries (``HOST_QUERIES``), and ``tools.profile_serve`` files each timed
+    one under ``PORT_CLASSES``: a launching entry point without a class is
+    a KeyError on the card."""
+    from dpr_scale_tpu_torch.tools.profile_serve import PORT_CLASSES
+
+    launching = {n for n in PROTOTYPES if not n.endswith(cuda_lib.HOST_QUERIES)}
+    assert launching - set(PORT_CLASSES) == set()

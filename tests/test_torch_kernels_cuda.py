@@ -1166,16 +1166,50 @@ _TOPK_CASES = [(512, 1 << 19, 768, (1 << 19) - 77, 128, "wgmma"),
 def test_topk_candidates_kernel_equals_plain(cuda_device, B, N, D, n_valid, kc, route):
     """Integer-valued inputs: the kernel's candidates are plain's (exact
     scores, the same rows above the kc-th), no pad row, the same bits
-    again, at least one emit launch a call on its route."""
+    again, one select launch a call on its route."""
     q, c = _int_rows(cuda_device, B, N, D, B + D + kc)
     kernel = mips_kernels.topk_candidates_kernel
     before = dict(kernel.launches_by_route)
     got, again = mips_kernels.topk_candidates(q, c, n_valid, kc), kernel(q, c, n_valid, kc)
     torch.cuda.synchronize()
-    assert kernel.launches_by_route[route] - before[route] >= 2
+    assert kernel.launches_by_route[route] - before[route] == 2
     _assert_same_candidates(got, mips_kernels.topk_candidates_plain(q, c, n_valid, kc))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert ((got[1] >= 0) & (got[1] < n_valid)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D", [(512, 768), (64, 768), (256, 30522)])
+def test_topk_candidates_over_rows_sorted_by_score_equal_plain(cuda_device, B, D):
+    """Rows in ascending order of every query's score (positive integer
+    queries, one positive integer row scaled by 1 .. 32 along the rows, so
+    that every score is exact): each run of equal rows beats every row
+    before it, so every part admits at least kc rows of each run and merges
+    its queue over and over; the candidates are still plain's."""
+    rng = np.random.default_rng(B + D)
+    N = 1 << 16 if D == 768 else 8192
+    q = torch.from_numpy(rng.integers(1, 4, size=(B, D)).astype(np.float32))
+    base = torch.from_numpy(rng.integers(1, 4, size=(1, D)).astype(np.float32))
+    c = base * (1 + torch.arange(N) * 32 // N)[:, None].float()
+    q, c = q.to(cuda_device).bfloat16(), c.to(cuda_device).bfloat16()
+    got = mips_kernels.topk_candidates_kernel(q, c, N, 128)
+    _assert_same_candidates(got, mips_kernels.topk_candidates_plain(q, c, N, 128))
+
+
+@pytest.mark.cuda
+def test_topk_candidates_make_no_host_sync(cuda_device):
+    """Pass 1 on the wgmma route runs inside a CUDA graph capture, where a
+    read back to the host would fail, and the graph's replay gives the
+    call's candidates."""
+    q, c = _int_rows(cuda_device, 512, 1 << 17, 768, 7)
+    want = mips_kernels.topk_candidates_kernel(q, c, (1 << 17) - 77, 128)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        got = mips_kernels.topk_candidates_kernel(q, c, (1 << 17) - 77, 128)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -19,18 +19,21 @@ equal to ``count_above_groups_plain`` / ``count_above_plain`` on
 integer-valued inputs (every summation order gives the same fp32 score),
 with thresholds equal to some scores (the comparison is strict), negative
 thresholds where rows past N would score 0, both layouts, ragged spans,
-tiles and query tiles, group widths on both routes. ``dst_topk_emit``,
-driven by ``mips_kernels._topk_sweeps`` with the emulated ``dst_tile_max``
-for its threshold, is held exactly against ``topk_candidates_plain`` on
-integer-valued inputs (the same scores, the same rows strictly above each
-query's kc-th, ties to the smaller row): both layouts, ragged n_valid and
-query tiles, all-negative scores (the rows past n_valid score 0), ties at
-the threshold, an overflow rerun on the whole batch's layout, fewer than kc
-whole tiles, and D = 100 on the cp.async route; on the score tile (route
-0) fp32 rows, D = 101 and a 2-byte aligned bf16 base, with reruns there;
-its candidate scores are the count kernel's bits (``dst_count_above`` at
-the j-th candidate counts j rows above it); arguments out of range are
-refused. ``dst_tile_max`` is
+tiles and query tiles, group widths on both routes. Pass 1 as the
+wrapper drives it (``_topk``: ``mips_kernels.topk_select`` over
+``dst_topk_select`` on the wgmma routes, ``mips_kernels._topk_sweeps`` over
+``dst_tile_max`` and ``dst_topk_emit`` on the score tile) is held exactly
+against ``topk_candidates_plain`` on integer-valued inputs (the same
+scores, the same rows strictly above each query's kc-th score, ties to the
+smaller row): both layouts, ragged n_valid and query tiles, all-negative
+scores (the rows past n_valid score 0), ties at the kc-th score, fewer
+than kc whole tiles, and D = 100 on the cp.async route, one select launch
+a call whose every part's list holds its rows of the top kc, sorted
+(``tests/test_torch_topk_select_emulated.py`` has the rest); on the score
+tile (route 0) fp32 rows, D = 101 and a 2-byte aligned bf16 base, with
+overflow reruns there; its candidate scores are the count kernel's bits
+(``dst_count_above`` at the j-th candidate counts j rows above it);
+arguments out of range are refused. ``dst_tile_max`` is
 held against ``tile_max_scores_plain`` (within MAX_REL): both layouts,
 ragged query tiles, 256-row tiles (a block holds several, its last span
 ragged), 768- and 4,096-row tiles, tiles on the older kernel, and maxima
@@ -98,8 +101,12 @@ def emulated():
     dll.dst_int8_tile_max.restype = i
     dll.dst_int8_tile_max_route.argtypes = [p, p, ll, i, ll]
     dll.dst_int8_tile_max_route.restype = i
-    dll.dst_topk_emit.argtypes = [p] * 5 + [i, ll, ll, i, i, i, i, p]
+    dll.dst_topk_emit.argtypes = [p] * 5 + [i, ll, ll, i, i, i, p]
     dll.dst_topk_emit.restype = i
+    dll.dst_topk_select.argtypes = [p] * 4 + [i, ll, ll, i, i, i, p]
+    dll.dst_topk_select.restype = i
+    dll.dst_topk_select_width.argtypes = [ll, ll, i, i, i]
+    dll.dst_topk_select_width.restype = ll
     dll.dst_topk_route.argtypes = [p, p, ll, i, i]
     dll.dst_topk_route.restype = i
     dll.emu_wgmma_tn_selftest.argtypes = [p, p, p, i, i, i]
@@ -529,10 +536,26 @@ def test_emulated_int8_tile_max_equals_plain(emulated, B, N, D, tile, kind, rout
 
 
 def _topk(emulated, q, c, n_valid, kc):
-    """mips_kernels._topk_sweeps on the emulated tile maxima and emit sweep:
-    (scores, rows, overflow reruns, each emit's (B, cap,
-    layout_b))."""
-    D, launches, dtype = c.shape[1], [], mk._KERNEL_DTYPES[c.dtype]
+    """Pass 1 on the emulated kernels, driven as ``topk_candidates_kernel``
+    drives them: on the wgmma routes ``mips_kernels.topk_select`` over
+    ``dst_topk_select``, on the score tile ``mips_kernels._topk_sweeps`` over
+    ``dst_tile_max`` and ``dst_topk_emit``: (scores, rows, overflow reruns,
+    each launch's (B, key slots a query), the select sweep's keys or
+    None)."""
+    (B, D), N, launches, dtype = q.shape, c.shape[0], [], mk._KERNEL_DTYPES[c.dtype]
+    selected = []
+    if emulated.dst_topk_route(q.data_ptr(), c.data_ptr(), N, D, dtype):
+        def select(qs):
+            width = emulated.dst_topk_select_width(N, n_valid, B, D, kc)
+            keys = torch.full((B, width), 12345, dtype=torch.int64)  # the kernel fills them
+            pub = torch.full((B, 32), -7, dtype=torch.int64)  # the entry point zeroes it
+            assert emulated.dst_topk_select(qs.data_ptr(), c.data_ptr(), keys.data_ptr(),
+                                            pub.data_ptr(), B, N, n_valid, D, kc, 0, None) == 0
+            launches.append((B, width))
+            selected.append(keys)
+            return keys
+
+        return (*mk.topk_select(q, kc, select), 0, launches, selected[0])
 
     def tile_max(qs, rows, tile):
         out = torch.full((qs.shape[0], rows.shape[0] // tile), float("nan"))
@@ -540,16 +563,65 @@ def _topk(emulated, q, c, n_valid, kc):
                                      rows.shape[0], D, tile, dtype, None) == 0
         return out
 
-    def emit(qs, theta, cap, layout_b):
+    def emit(qs, theta, cap):
         count = torch.full((qs.shape[0],), -7, dtype=torch.int32)  # the entry point zeroes it
         keys = torch.full((qs.shape[0], cap), mk._KEY_EMPTY, dtype=torch.int64)
         assert emulated.dst_topk_emit(qs.data_ptr(), c.data_ptr(), theta.data_ptr(),
                                       count.data_ptr(), keys.data_ptr(), qs.shape[0],
-                                      c.shape[0], n_valid, D, cap, layout_b, dtype, None) == 0
-        launches.append((qs.shape[0], cap, layout_b))
+                                      N, n_valid, D, cap, dtype, None) == 0
+        launches.append((qs.shape[0], cap))
         return count, keys
 
-    return (*mk._topk_sweeps(q, c, n_valid, kc, tile_max, emit), launches)
+    return (*mk._topk_sweeps(q, c, n_valid, kc, tile_max, emit), launches, None)
+
+
+EMU_SMS = 2  # tests/cuda_emu/cuda_emu.h: the emulated card's multiprocessors
+
+
+def select_parts(B, N, D, n_valid, kc):
+    """([(first row, row past the last, warpgroup half or None) of each
+    part, in the order of its keys], key slots a query) of a select launch
+    on the emulated card: spans of whole 256-row tiles, about one block an
+    SM a query tile; in the 64-query layout each warpgroup's half of each
+    tile of its span."""
+    qm = 128 if B > 64 and D <= 1536 else 64
+    rows = min(N, -(-n_valid // 256) * 256)
+    tiles, nqt = -(-rows // 256), -(-B // qm)
+    span = -(-tiles // max(1, EMU_SMS // nqt)) * 256
+    parts = []
+    for lo in range(0, rows, span):
+        hi = min(lo + span, rows)
+        parts += [(lo, hi, None)] if qm == 128 else [(lo, hi, 0), (lo, hi, 1)]
+    return parts, kc * len(parts)
+
+
+def assert_parts_hold_the_top(keys, q, c, n_valid, kc):
+    """Each part's kc keys of the select sweep are rows of its own below
+    n_valid with their exact scores, sorted (ties to the smaller row), no
+    row twice, empty slots last, and hold every row of the part in the
+    query's exact top kc (rows below a filter another part raised may
+    be missing: no such row is in the top kc)."""
+    B, D = q.shape
+    parts, width = select_parts(B, c.shape[0], D, n_valid, kc)
+    assert keys.shape == (B, width)
+    s = q.double() @ c.double().T
+    top_s, top_i = _want_topk(q, c, n_valid, kc)
+    for p, (lo, hi, half) in enumerate(parts):
+        got_s, got_i = mk._decode_keys(keys[:, p * kc:(p + 1) * kc])
+        for b in range(B):
+            rows, full = got_i[b][got_i[b] >= 0], top_i[b][top_i[b] >= 0]
+            assert (got_i[b][len(rows):] == -1).all()
+            assert ((rows >= lo) & (rows < min(hi, n_valid))).all()
+            assert len(set(rows.tolist())) == len(rows)
+            if half is not None:  # this warpgroup's 128 rows of each 256-row tile
+                assert ((rows % 256) // 128 == half).all()
+            assert torch.equal(got_s[b][: len(rows)].double(), s[b, rows])
+            order = np.lexsort((rows.numpy(), -s[b, rows].numpy()))
+            assert (order == np.arange(len(rows))).all()
+            mine = full[(full >= lo) & (full < hi)]
+            if half is not None:
+                mine = mine[(mine % 256) // 128 == half]
+            assert set(mine.tolist()) <= set(rows.tolist()), (p, b)
 
 
 def _topk_inputs(B, N, D, n_valid, kind, seed, dtype=torch.bfloat16):
@@ -586,40 +658,36 @@ def _want_topk(q, c, n_valid, kc):
     return torch.from_numpy(scores.astype(np.float32)), torch.from_numpy(order.astype(np.int64))
 
 
-# (B, N rows, D, n_valid, kc, kind, route, overflow): 64-query blocks over
-# rows that end inside a tile (the ring's zero fill) with every score
-# negative; 128-query blocks with a ragged query tile and kc = the tiles,
-# whose ties overflow some queries' slots (their rerun: fewer queries on
-# the 128-query layout); pad rows past n_valid that would top every query
-# (the sweep takes them, whole tiles, and masks them); 16-fold ties at
-# theta that overflow every query; every row the same (its rerun takes a
-# slot a row); fewer than kc whole tiles (theta = -inf, a slot a row); D =
-# 100 on the cp.async route
+# (B, N rows, D, n_valid, kc, kind, route): 64-query blocks over rows that
+# end inside a tile (the ring's zero fill) with every score negative;
+# 128-query blocks with a ragged query tile and kc = the tiles; pad rows
+# past n_valid that would top every query (the sweep takes them, whole
+# tiles, and masks them); 16-fold ties at the kc-th score; every row the
+# same (every key ties on its score); fewer than kc whole tiles; D = 100
+# on the cp.async route
 TOPK_CASES = [
-    (7, 2700, 64, 2700, 8, "neg", 1, False),
-    (70, 2560, 48, 2560, 10, "rand", 1, True),
-    (9, 2048, 32, 2000, 4, "padtop", 1, False),
-    (70, 2048, 32, 2048, 6, "dup", 1, True),
-    (9, 1280, 32, 1280, 4, "same", 1, True),
-    (5, 1280, 32, 1200, 8, "rand", 1, False),
-    (9, 1280, 100, 1280, 4, "rand", 2, False),
+    (7, 2700, 64, 2700, 8, "neg", 1),
+    (70, 2560, 48, 2560, 10, "rand", 1),
+    (9, 2048, 32, 2000, 4, "padtop", 1),
+    (70, 2048, 32, 2048, 6, "dup", 1),
+    (9, 1280, 32, 1280, 4, "same", 1),
+    (5, 1280, 32, 1200, 8, "rand", 1),
+    (9, 1280, 100, 1280, 4, "rand", 2),
 ]
 
 
-@pytest.mark.parametrize("B,N,D,n_valid,kc,kind,route,overflow", TOPK_CASES,
+@pytest.mark.parametrize("B,N,D,n_valid,kc,kind,route", TOPK_CASES,
                          ids=[f"B{c[0]}-N{c[1]}-D{c[2]}-v{c[3]}-kc{c[4]}-{c[5]}"
                               for c in TOPK_CASES])
-def test_emulated_topk_candidates_equal_plain(emulated, B, N, D, n_valid, kc, kind, route,
-                                              overflow):
-    """The kernel route's candidates exactly equal the plain version's
+def test_emulated_topk_candidates_equal_plain(emulated, B, N, D, n_valid, kc, kind, route):
+    """The select sweep's candidates exactly equal the plain version's
     scores and rows strictly above each query's kc-th score, and the exact
-    top-kc with ties to the smaller row; no pad row returns; a rerun sweeps
-    only the overflowing queries, on the whole batch's layout, and no query
-    comes up short (the tile maxima are the emit sweep's bits: it would
-    raise)."""
+    top-kc with ties to the smaller row; no pad row returns; one launch a
+    call, no rerun; each part's list holds its rows of the top kc, with
+    their exact scores, sorted."""
     q, c = _topk_inputs(B, N, D, n_valid, kind, B + N + D + kc)
     assert emulated.dst_topk_route(q.data_ptr(), c.data_ptr(), n_valid, D, 0) == route
-    scores, rows, over, launches = _topk(emulated, q, c, n_valid, kc)
+    scores, rows, over, launches, keys = _topk(emulated, q, c, n_valid, kc)
     want_s, want_i = _want_topk(q, c, n_valid, kc)
     assert torch.equal(scores, want_s) and torch.equal(rows, want_i)
     plain_s, plain_i = mk.topk_candidates_plain(q, c, n_valid, kc)
@@ -632,13 +700,10 @@ def test_emulated_topk_candidates_equal_plain(emulated, B, N, D, n_valid, kc, ki
         assert (scores < 0).all() and N % 256
     if kind == "padtop":  # the trap is live: every pad row beats every valid row
         assert (q.double() @ c[n_valid:].double().T).min() > scores.max()
-    if kind == "dup":  # ties at theta: some query's kc-th score is also its (kc+1)-th
+    if kind == "dup":  # ties at the kc-th: some query's kc-th score is also its (kc+1)-th
         assert (want_s[:, -1] == _want_topk(q, c, n_valid, kc + 1)[0][:, -1]).any()
-    assert (over > 0) == overflow
-    if over:  # the rerun: the overflowing queries only, the first sweep's layout
-        assert launches[1][0] == over and launches[1][2] == B and launches[1][1] > launches[0][1]
-    if n_valid // 256 < kc:  # no threshold: every valid row a candidate
-        assert launches == [(B, n_valid, B)]
+    assert over == 0 and launches == [(B, select_parts(B, N, D, n_valid, kc)[1])]
+    assert_parts_hold_the_top(keys, q, c, n_valid, kc)
 
 
 # (B, N rows, D, n_valid, kc, kind, dtype, base offset in elements,
@@ -674,7 +739,7 @@ def test_emulated_topk_candidates_on_the_score_tile_equal_plain(
         assert c.data_ptr() % 4 == 2
     assert emulated.dst_topk_route(q.data_ptr(), c.data_ptr(), n_valid, D,
                                    mk._KERNEL_DTYPES[dtype]) == 0
-    scores, rows, over, launches = _topk(emulated, q, c, n_valid, kc)
+    scores, rows, over, launches, _keys = _topk(emulated, q, c, n_valid, kc)
     want_s, want_i = _want_topk(q, c, n_valid, kc)
     assert torch.equal(scores, want_s) and torch.equal(rows, want_i)
     assert torch.equal(scores, mk.topk_candidates_plain(q, c, n_valid, kc)[0])
@@ -686,35 +751,38 @@ def test_emulated_topk_candidates_on_the_score_tile_equal_plain(
     if over:
         assert launches[1][0] == over and launches[1][1] > launches[0][1]
     if n_valid // 256 < kc:
-        assert launches == [(B, n_valid, B)]
+        assert launches == [(B, n_valid)]
 
 
 def test_emulated_topk_emit_refuses_bad_arguments(emulated):
     """dst_topk_emit returns cudaErrorInvalidValue (1) on arguments out of
     range and launches nothing: a dtype other than bf16 / fp32, n_valid
-    past N, cap 0, a layout batch below B."""
-    q, c = _topk_inputs(3, 512, 16, 512, "rand", 1)
+    past N, cap 0, n_valid 0, and a bf16 shape of the wgmma routes (the
+    select sweep's)."""
+    q, c = _topk_inputs(3, 512, 16, 512, "rand", 1, torch.float32)
+    qb, cb = q.bfloat16(), c.bfloat16()
     theta = torch.zeros(3)
     count, keys = torch.full((3,), -7, dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int64)
-    for n_valid, cap, layout_b, dtype in ((512, 8, 3, 2), (513, 8, 3, 0), (512, 0, 3, 0),
-                                          (512, 8, 2, 0), (0, 8, 3, 0)):
-        assert emulated.dst_topk_emit(q.data_ptr(), c.data_ptr(), theta.data_ptr(),
+    for (x, y), n_valid, cap, dtype in (((q, c), 512, 8, 2), ((q, c), 513, 8, 1),
+                                        ((q, c), 512, 0, 1), ((q, c), 0, 8, 1),
+                                        ((qb, cb), 512, 8, 0)):
+        assert emulated.dst_topk_emit(x.data_ptr(), y.data_ptr(), theta.data_ptr(),
                                       count.data_ptr(), keys.data_ptr(), 3, 512, n_valid, 16,
-                                      cap, layout_b, dtype, None) == 1
+                                      cap, dtype, None) == 1
     assert (count == -7).all() and (keys == 0).all()
 
 
 def test_emulated_topk_candidate_scores_are_the_count_kernels_bits(emulated):
     """Random normal bf16 inputs (no ties): at the j-th candidate's score
     as tau, dst_count_above counts exactly j rows above it, for every j <
-    kc: the emit sweep's sums are the count kernel's bits."""
+    kc: the select sweep's sums are the count kernel's bits."""
     B, N, D, kc = 9, 1536, 64, 4
     rng = np.random.default_rng(31)
     q, c = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
             for shape in ((B, D), (N, D)))
     s = q.double() @ c.double().T
     assert (torch.sort(s, dim=1).values.diff(dim=1) > 0).all()  # no ties
-    scores, rows, over, _ = _topk(emulated, q, c, N, kc)
+    scores, rows, over, _launches, _keys = _topk(emulated, q, c, N, kc)
     assert over == 0
     for j in range(kc):
         out = torch.zeros(B, dtype=torch.int32)
